@@ -1,0 +1,30 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the CUDA card unless the caller asks for the CPU with
+``device="cpu"``. There is no silent CPU path: with no CUDA device and no
+explicit CPU request, they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``cuda`` (the current card) when ``device`` is None; otherwise the
+    device asked for. Raises if that is a CUDA device and none is present."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,112 @@
+"""Hybrid CNN backbone with channel-wise mHC, NHWC at every boundary.
+
+Counterpart of ``hvs_tpu/models/backbone.py`` (``ConvMHCBlock`` with the
+fused serve tail, ``HybridVisionBackbone``). The standard (training) tail
+and the int8 ``QuantConv`` path are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import Conv, ManifoldHyperConnection, SqueezeExcite, group_norm
+
+
+class ConvMHCBlock(nn.Module):
+    """Bottleneck residual block: 1x1 reduce -> 3x3 (optionally strided) ->
+    channel mHC at the bottleneck width -> 1x1 expand -> fused serve tail.
+
+    The serve tail folds GroupNorm, the SE gate, the shortcut (with its own
+    GroupNorm when projected) and SiLU into one elementwise pass over the
+    expanded map: GroupNorm is ``y*s + t`` once its statistics are known, the
+    SE input is the spatial mean of that map (``ch_mean*s + t``), and the SE
+    gate is per channel, so the tail is ``silu(y*(s*g) + t*g + shortcut)``.
+    """
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        mid = max(16, channels // 2)  # bottleneck width
+        self.dtype = dtype
+        self.reduce = Conv(in_channels, mid, (1, 1), use_bias=False, dtype=dtype)
+        self.GroupNorm_0 = group_norm(mid, dtype)
+        self.spatial = Conv(mid, mid, (3, 3), (stride, stride), use_bias=False, dtype=dtype)
+        self.GroupNorm_1 = group_norm(mid, dtype)
+        self.mhc = ManifoldHyperConnection(mid, 1, 1, dtype=dtype)
+        self.expand = Conv(mid, channels, (1, 1), use_bias=False, dtype=dtype)
+        self.GroupNorm_2 = group_norm(channels, dtype)
+        self.se = SqueezeExcite(channels, dtype=dtype)
+        if stride != 1 or in_channels != channels:
+            self.shortcut = Conv(in_channels, channels, (1, 1), (stride, stride),
+                                 use_bias=False, dtype=dtype)
+            self.GroupNorm_3 = group_norm(channels, dtype)
+        else:
+            self.shortcut = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        y = F.silu(self.GroupNorm_0(self.reduce(x)))
+        y = F.silu(self.GroupNorm_1(self.spatial(y)))
+        y = self.expand(self.mhc(y))
+
+        y32 = y.float()
+        ch_mean = y32.mean(dim=(1, 2))
+        s, t = self.GroupNorm_2.affine_from_channel_stats(ch_mean, y32.square().mean(dim=(1, 2)))
+        pooled = ch_mean * s + t  # spatial mean of the normalized map
+        g = self.se(pooled=pooled.to(self.dtype), return_gates=True).float()
+        s, t = (s * g)[:, None, None, :], (t * g)[:, None, None, :]
+        if self.shortcut is not None:
+            sc32 = self.shortcut(x).float()
+            s2, t2 = self.GroupNorm_3.affine_from_channel_stats(
+                sc32.mean(dim=(1, 2)), sc32.square().mean(dim=(1, 2)))
+            out = y32 * s + t + sc32 * s2[:, None, None, :] + t2[:, None, None, :]
+        else:
+            out = y32 * s + t + x.float()
+        return F.silu(out).to(self.dtype)
+
+
+class HybridVisionBackbone(nn.Module):
+    """Stem (two stride-2 convs) and four stages of ``ConvMHCBlock``.
+
+    [B, H, W, 3] -> {"scale_small": stride 8, "scale_medium": stride 16,
+    "scale_large": stride 32}, with stage_channels[1:] channels.
+    """
+
+    SCALE_NAMES = {1: "scale_small", 2: "scale_medium", 3: "scale_large"}
+
+    def __init__(self, base_channels: int = 32, stage_blocks: Sequence[int] = (2, 3, 4, 2),
+                 stage_channels: Sequence[int] = (64, 128, 256, 512),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.stem1 = Conv(3, base_channels, (3, 3), (2, 2), use_bias=False, dtype=dtype)
+        self.GroupNorm_0 = group_norm(base_channels, dtype)
+        self.stem2 = Conv(base_channels, stage_channels[0], (3, 3), (2, 2), use_bias=False,
+                          dtype=dtype)
+        self.GroupNorm_1 = group_norm(stage_channels[0], dtype)
+        self.stages = []  # per stage: the block names, in order
+        in_ch = stage_channels[0]
+        for stage_idx, (n_blocks, ch) in enumerate(zip(stage_blocks, stage_channels)):
+            names = []
+            for block_idx in range(n_blocks):
+                stride = 2 if (block_idx == 0 and stage_idx > 0) else 1
+                name = f"stage{stage_idx + 1}_block{block_idx}"
+                self.add_module(name, ConvMHCBlock(in_ch, ch, stride, dtype=dtype))
+                names.append(name)
+                in_ch = ch
+            self.stages.append(names)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = F.silu(self.GroupNorm_0(self.stem1(x.to(self.dtype))))
+        x = F.silu(self.GroupNorm_1(self.stem2(x)))
+        outputs = {}
+        for stage_idx, names in enumerate(self.stages):
+            for name in names:
+                x = getattr(self, name)(x)
+            if stage_idx in self.SCALE_NAMES:
+                outputs[self.SCALE_NAMES[stage_idx]] = x
+        return outputs

@@ -1,0 +1,80 @@
+"""Top-level detector: backbone -> ViT blend -> FPN -> YOLO head.
+
+Counterpart of ``hvs_tpu/models/hybrid.py`` (``HybridVisionSystem`` for the
+detection task with the global feature vector, ``ProductionHybridVision``,
+``detect``). The segmentation and depth heads, RAG and the classifier are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from .backbone import HybridVisionBackbone
+from .fpn import OUT_CHANNELS, OUT_NAMES, FeaturePyramidNetwork
+from .layers import Dense, ManifoldHyperConnection, init_weights
+from .vit import HybridVisionEncoder
+from .yolo_head import YOLODetectionHead, postprocess_detections
+
+
+class HybridVisionSystem(nn.Module):
+    """The flagship CNN+ViT detector on NHWC images in [0, 1].
+
+    Defaults are the flagship's widths. The model is built with a seeded,
+    flax-like random init (``seed``) on ``device``: the CUDA card unless
+    ``device="cpu"`` is passed. Real weights come from a flax tree through
+    ``hvs_tpu_torch.convert.load_flax_params``. ``sk_iters`` is the Sinkhorn
+    iteration count of the mHC constraints, computed once at load.
+    """
+
+    def __init__(self, num_classes: int = 80, sk_iters: int = 20, base_channels: int = 32,
+                 stage_blocks: Sequence[int] = (2, 3, 4, 2),
+                 stage_channels: Sequence[int] = (64, 128, 256, 512), vit_dim: int = 256,
+                 vit_depth: int = 6, vit_heads: int = 8, fpn_channels: int = 256,
+                 head_channels: int = 256, feature_dim: int = 256,
+                 dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.dtype = dtype
+        self.sk_iters = sk_iters
+        self.backbone = HybridVisionBackbone(base_channels, stage_blocks, stage_channels,
+                                             dtype=dtype)
+        self.vit_encoder = HybridVisionEncoder(stage_channels[-1], vit_dim, vit_depth, vit_heads,
+                                               dtype=dtype)
+        self.fpn = FeaturePyramidNetwork(tuple(stage_channels[1:]), fpn_channels, dtype=dtype)
+        self.detection_head = YOLODetectionHead(OUT_CHANNELS, num_classes, head_channels,
+                                                dtype=dtype)
+        self.feature_proj = Dense(sum(OUT_CHANNELS), feature_dim, dtype=dtype)
+        self.mhc_features = ManifoldHyperConnection(feature_dim, 1, 2, dtype=dtype)
+        init_weights(self, seed)
+        self.to(device)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        scales = self.backbone(images)
+        enhanced = self.vit_encoder(scales["scale_large"])
+        scales["scale_large"] = 0.5 * scales["scale_large"] + 0.5 * enhanced
+        fused = self.fpn(scales)
+        det = self.detection_head(fused)
+        pooled = torch.cat([fused[k].float().mean(dim=(1, 2)) for k in OUT_NAMES], dim=-1)
+        feats = self.mhc_features(self.feature_proj(pooled.to(self.dtype)))
+        return {"detection": det, "features": feats, "fused_features": fused}
+
+
+class ProductionHybridVision(HybridVisionSystem):
+    """Serving variant: the flagship with the mHC constraints computed once at
+    load (``Detector`` installs them). Same parameters as the flagship."""
+
+
+def detect(model: HybridVisionSystem, images: torch.Tensor, score_threshold: float = 0.25,
+           iou_threshold: float = 0.45, max_detections: int = 100):
+    """Forward + on-device postprocess; returns (NMSResult, raw outputs).
+    The model's constraints must be installed (see ``constraints.py``)."""
+    out = model(images)
+    det = postprocess_detections(out["detection"], score_threshold, iou_threshold,
+                                 max_detections)
+    return det, out

@@ -1,0 +1,350 @@
+"""Core layers: mHC (serve branch), GroupNorm, SqueezeExcite, attention.
+
+Counterpart of ``hvs_tpu/models/layers.py``. Public layouts follow the JAX
+package: feature maps are NHWC, dense kernels are [d_in, d_out] applied as
+``x @ W``. Parameters keep the flax names (and the flax auto-names of
+submodules, such as ``GroupNorm_0`` or ``Dense_1``), so ``convert.py`` maps a
+flax tree onto these modules path for path. Parameters are fp32; each layer
+computes in its ``dtype``, with fp32 statistics and softmax, as the JAX
+layers do.
+
+Only the serve branch of ``ManifoldHyperConnection`` exists so far: the
+constrained matrices are computed once at load (``constraints.py``) and the
+layer is deterministic. Sites with ``expansion_rate == 1`` and
+``mlp_ratio == 1`` in bf16 run the fused block (``ops/mhc_block.py``): the
+Hopper kernel on a CUDA tensor, its plain version on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.mhc_block import SUPPORTED_WIDTHS, layernorm as _layernorm, mhc_block
+
+Generator = Optional[torch.Generator]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (the flax defaults the JAX package uses). They draw from an
+# explicit generator; the numbers differ from JAX's for the same seed.
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, g: Generator) -> None:
+    """flax ``lecun_normal``: truncated normal (±2σ) with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+        t.mul_(std)
+
+
+def h_init_(t: torch.Tensor, g: Generator, gain: float = 0.1) -> None:
+    """``variance_scaling(gain, "fan_avg", "uniform")`` for an mHC matrix."""
+    fan_in, fan_out = t.shape[-2], t.shape[-1]
+    limit = math.sqrt(3.0 * gain / ((fan_in + fan_out) / 2.0))
+    with torch.no_grad():
+        t.uniform_(-limit, limit, generator=g)
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> None:
+    """Seeded init of every parameter, flax-like, in module order."""
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(g)
+
+
+# ---------------------------------------------------------------------------
+# Dense, Conv, norms
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in ``dtype``; kernel [in, out]."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, g: Generator) -> None:
+        lecun_normal_(self.kernel, self.kernel.shape[0], g)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """(low, high) padding of a SAME convolution along one axis, as XLA
+    computes it: a stride-2 3x3 conv pads (0, 1) over an even size."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` with SAME padding on NHWC maps.
+
+    The kernel is stored OIHW (the flax HWIO kernel transposed). The NHWC
+    input is handed to the convolution as an NCHW view in channels_last
+    memory, so no layout copy is made on either side.
+    """
+
+    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int] = (1, 1),
+                 strides: Sequence[int] = (1, 1), use_bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16,
+                 bias_init: Optional[Callable[[torch.Tensor], None]] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.strides = tuple(strides)
+        self.kernel = nn.Parameter(torch.empty(features, in_features, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self._bias_init = bias_init or nn.init.zeros_
+
+    def reset_parameters(self, g: Generator) -> None:
+        o, i, kh, kw = self.kernel.shape
+        lecun_normal_(self.kernel, i * kh * kw, g)
+        if self.bias is not None:
+            with torch.no_grad():
+                self._bias_init(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        kh, kw = self.kernel.shape[2:]
+        (pt, pb), (pl, pr) = (same_padding(h, kh, self.strides[0]),
+                              same_padding(w, kw, self.strides[1]))
+        xc = x.to(self.dtype).permute(0, 3, 1, 2)
+        if pt == pb and pl == pr:
+            padding = (pt, pl)
+        else:
+            xc = F.pad(xc, (pl, pr, pt, pb))
+            padding = (0, 0)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv2d(xc, self.kernel.to(self.dtype), bias, self.strides, padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (eps 1e-6): fp32 statistics with
+    var = E[x²] - E[x]² clamped at 0, output cast to ``dtype``."""
+
+    epsilon = 1e-6
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, g: Generator) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp(x32.square().mean(dim=-1, keepdim=True) - mu.square(), min=0.0)
+        y = (x32 - mu) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
+        return y.to(self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm on NHWC maps that can hand its affine form to the caller:
+    once the group statistics are known, GroupNorm is ``x*s + t`` with
+    per-(batch, channel) vectors, which the fused serve tail of
+    ``ConvMHCBlock`` folds with the SE gate and the residual add.
+
+    fp32 statistics E[x²] - E[x]², fp32 normalize, cast to ``dtype``.
+    """
+
+    epsilon = 1e-5
+
+    def __init__(self, features: int, num_groups: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.num_groups = num_groups
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, g: Generator) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def affine_from_channel_stats(self, ch_mean: torch.Tensor, ch_m2: torch.Tensor):
+        """(s, t) with ``normalized = x*s + t``, from per-channel spatial means
+        of x and x² (fp32, [B, C])."""
+        b, c = ch_mean.shape
+        g = self.num_groups
+        gm = ch_mean.reshape(b, g, c // g).mean(dim=-1)
+        gm2 = ch_m2.reshape(b, g, c // g).mean(dim=-1)
+        rs = torch.rsqrt(gm2 - gm.square() + self.epsilon)
+        s = self.scale[None, :] * rs.repeat_interleave(c // g, dim=-1)
+        t = self.bias[None, :] - gm.repeat_interleave(c // g, dim=-1) * s
+        return s, t
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        spatial = tuple(range(1, x.dim() - 1))
+        s, t = self.affine_from_channel_stats(x32.mean(dim=spatial),
+                                              x32.square().mean(dim=spatial))
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        return (x32 * s.reshape(shape) + t.reshape(shape)).to(self.dtype)
+
+
+def group_norm(channels: int, dtype: torch.dtype) -> GroupNorm:
+    """GroupNorm with the largest group count <= 8 that divides ``channels``."""
+    groups = 8
+    while channels % groups != 0:
+        groups //= 2
+    return GroupNorm(channels, groups, dtype=dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# mHC
+
+
+class ManifoldHyperConnection(nn.Module):
+    """mHC layer, serve branch: ``out = LN2(x @ H_res + MLP(LN1(x) @ H_pre) @ H_post)``
+    with H_pre folded into the MLP's first kernel.
+
+    The constrained matrices (``h_pre``, ``h_post``, ``h_res``,
+    ``w1_folded``) are computed once by ``constraints.compute_constraints``
+    and installed with ``set_constraints``; they are buffers in ``dtype``.
+    The training branch (Sinkhorn per step, dropout, telemetry) is not
+    ported yet.
+    """
+
+    def __init__(self, dim: int, expansion_rate: int = 2, mlp_ratio: int = 2,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        d = dim
+        hidden = d * expansion_rate
+        mlp_hidden = hidden * mlp_ratio
+        self.dim, self.dtype = dim, dtype
+        self.H_pre_raw = nn.Parameter(torch.empty(d, hidden))
+        self.H_post_raw = nn.Parameter(torch.empty(hidden, d))
+        self.H_res_raw = nn.Parameter(torch.empty(d, d))
+        self.mlp_in_kernel = nn.Parameter(torch.empty(hidden, mlp_hidden))
+        self.mlp_in_bias = nn.Parameter(torch.zeros(mlp_hidden))
+        self.mlp_out_kernel = nn.Parameter(torch.empty(mlp_hidden, hidden))
+        self.mlp_out_bias = nn.Parameter(torch.zeros(hidden))
+        self.norm_pre_scale = nn.Parameter(torch.ones(d))
+        self.norm_pre_bias = nn.Parameter(torch.zeros(d))
+        self.norm_post_scale = nn.Parameter(torch.ones(d))
+        self.norm_post_bias = nn.Parameter(torch.zeros(d))
+        # The fused block serves the sites whose matrices are all [d, d].
+        self.fused = (expansion_rate == 1 and mlp_ratio == 1 and dtype == torch.bfloat16
+                      and dim in SUPPORTED_WIDTHS)
+        for name in ("h_pre", "h_post", "h_res", "w1_folded"):
+            self.register_buffer(name, None, persistent=False)
+
+    def reset_parameters(self, g: Generator) -> None:
+        for p in (self.H_pre_raw, self.H_post_raw, self.H_res_raw):
+            h_init_(p, g)
+        lecun_normal_(self.mlp_in_kernel, self.mlp_in_kernel.shape[0], g)
+        lecun_normal_(self.mlp_out_kernel, self.mlp_out_kernel.shape[0], g)
+        for p in (self.mlp_in_bias, self.mlp_out_bias, self.norm_pre_bias, self.norm_post_bias):
+            nn.init.zeros_(p)
+        nn.init.ones_(self.norm_pre_scale)
+        nn.init.ones_(self.norm_post_scale)
+
+    def set_constraints(self, node: dict) -> None:
+        """Install this layer's entry of ``compute_constraints`` (cast to ``dtype``)."""
+        for name in ("h_pre", "h_post", "h_res", "w1_folded"):
+            value = node[name].to(device=self.H_res_raw.device, dtype=self.dtype)
+            setattr(self, name, value.contiguous())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.h_res is None:
+            raise RuntimeError(
+                "mHC constraints are not installed: run load_constraints(model, "
+                "compute_constraints(param_tree(model))) first (Detector does this at load)"
+            )
+        dt = self.dtype
+        x_in = x.to(dt)
+        if self.fused:
+            out = mhc_block(
+                x_in.reshape(-1, self.dim), self.w1_folded, self.mlp_in_bias,
+                self.mlp_out_kernel.to(dt), self.mlp_out_bias, self.h_post, self.h_res,
+                self.norm_pre_scale, self.norm_pre_bias,
+                self.norm_post_scale, self.norm_post_bias,
+            )
+            return out.reshape(x_in.shape)
+        y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt)
+        y = gelu(y @ self.w1_folded + self.mlp_in_bias.to(dt))
+        y = gelu(y @ self.mlp_out_kernel.to(dt) + self.mlp_out_bias.to(dt))
+        y = y @ self.h_post
+        res = x_in @ self.h_res
+        return _layernorm(res + y, self.norm_post_scale, self.norm_post_bias).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Squeeze-excite and attention
+
+
+class SqueezeExcite(nn.Module):
+    """SE channel attention. With ``pooled`` given (the fused serve tail), the
+    spatial mean is not recomputed; ``return_gates`` returns the gates."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.Dense_0 = Dense(channels, channels // 4, dtype=dtype)  # reduction 4
+        self.Dense_1 = Dense(channels // 4, channels, dtype=dtype)
+
+    def forward(self, x: Optional[torch.Tensor] = None, pooled: Optional[torch.Tensor] = None,
+                return_gates: bool = False) -> torch.Tensor:
+        if pooled is None:
+            pooled = x.float().mean(dim=(1, 2), keepdim=True)
+        g = torch.sigmoid(self.Dense_1(F.silu(self.Dense_0(pooled.to(self.dtype)))))
+        if return_gates:
+            return g
+        return x * g
+
+
+class DenseAttention(nn.Module):
+    """Multi-head self-attention: dense QKV, matmuls in ``dtype``, softmax in
+    fp32 (explicit products, so the roundings follow the JAX layer)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, _ = x.shape
+        head_dim = self.dim // self.num_heads
+        qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, head_dim)
+        q, k, v = (a.transpose(1, 2) for a in qkv.unbind(dim=2))
+        logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(head_dim)
+        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        out = (attn @ v).transpose(1, 2).reshape(b, t, self.dim)
+        return self.proj(out)
+
+
+class MHCTransformerBlock(nn.Module):
+    """Pre-norm block: ``x + DenseAttention(LN(x))``, then an mHC layer as FFN."""
+
+    def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
+        self.attn = DenseAttention(dim, num_heads, dtype=dtype)
+        self.mhc_ffn = ManifoldHyperConnection(dim, expansion_rate=1, mlp_ratio=2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        x = x + self.attn(self.LayerNorm_0(x))
+        return self.mhc_ffn(x)
