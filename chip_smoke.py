@@ -6,19 +6,29 @@ Phases, each of which fails the run with a non-zero exit:
   1. device: the card's name and power limit (nvidia-smi), and the build of
      every kernel from the sources in the checkout (one nvcc per source, all
      started together);
-  2. kernels: each kernel against its plain PyTorch version on the card, at
-     the token counts of the 640² serve path (batch 1 and 16) and at a ragged
-     count, with times (CUDA events) beside the least time the card could take;
+  2. kernels: each kernel against its plain PyTorch version on the card, with
+     times (CUDA events) beside the least time the card could take:
+     A (serve mHC block) at the token counts of the 640² serve path (batch 1
+     and 16) and a ragged count; B (Sinkhorn, forward and backward) at the
+     five widths of the flagship's mHC matrices, a ragged width and the
+     25-matrix mix of one train step; C (unfolded mHC block) at the 18 sites
+     of the validation forward at 416², batch 8, and a ragged count;
   3. serve: the full-width flagship ``ProductionHybridVision`` (seeded random
      weights, bf16) served by ``Detector`` at 640², batch 16 and batch 1; the
      launch counters are zeroed just before and read just after;
   4. parity: the same weights with a well-conditioned H_res, one 320² image,
      the port on the card (kernels) against the port on the CPU (plain
-     versions).
+     versions);
+  5. train: the full-width ``HybridVisionSystem`` (telemetry on, the JAX
+     dropout rates, bf16) trained by ``ManifoldConstrainedTrainer.train`` on
+     the synthetic batches of ``hvs_tpu_torch.train`` (416², batch 8, 8
+     classes, 64 boxes) for a few steps with a projection inside, then
+     validated over 2 batches; counters zeroed just before, read just after;
+  6. train_parity: one train step, dropout off, the full-width model at 320²,
+     batch 2: the card (kernels) against the CPU (plain versions).
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
 """
-
 from __future__ import annotations
 
 import json
@@ -33,12 +43,21 @@ import torch
 import hvs_tpu_torch
 from hvs_tpu_torch import build
 from hvs_tpu_torch.ops import mhc_block as mhc_mod
+from hvs_tpu_torch.ops import sinkhorn as sink_mod
 from hvs_tpu_torch.ops.sinkhorn import sinkhorn_log
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+SFU_PER_CLOCK = 16 * 132  # exponentials per clock: 16 per SM, 132 SMs
 IMAGE = 640
 SERVE_BATCH = 16
+TRAIN_IMAGE, TRAIN_BATCH, TRAIN_CLASSES, TRAIN_BOXES = 416, 8, 8, 64
+SK_ITERS = 20
+# Widths of the flagship's 25 mHC residual matrices (H_res_raw): backbone
+# mids 32 x2, 64 x3, 128 x4, 256 x2; ViT 6 x 256 and the 512 fusion; FPN,
+# head towers and the feature head at 256.
+SINKHORN_MIX = [32] * 2 + [64] * 3 + [128] * 4 + [256] * 15 + [512]
+KERNEL_SITES = 18  # mHC sites of the flagship that the fused blocks serve
 
 # Kernel-vs-plain criteria (as in tests/test_pallas.py): the two compute the
 # same roundings; they differ only where fp32 accumulation order flips a bf16
@@ -56,10 +75,45 @@ E2E_MIN_CORR = 0.999
 E2E_MAX_MEAN_ABS = 0.05
 E2E_SCORE_ATOL = 0.02
 
+# Kernel B against its plain version (both fp32, the same recurrences; the
+# kernel's online log-sum-exp differs from torch.logsumexp by fp32 rounding
+# only): P within 1e-6, row sums within 1e-5 of 1 (exact to fp32 after the
+# final row update), the unrolled gradient within 1e-5 of its largest entry.
+SINK_P_ATOL = 1e-6
+SINK_ROW_ATOL = 1e-5
+SINK_GRAD_RTOL = 1e-5
+
+# One train step on the card against the CPU, from the same weights and
+# batch. In fp32 (TF32 off) both sides compute the same function summed in
+# other orders: loss and gradient norm within 1e-3, every H_res_raw gradient
+# (kernel B's backward on the card) and the SGD partitions' update with
+# cosine > 0.999. In bf16 (~60 layers, cuDNN against the CPU's convolutions,
+# as in the serve parity) the loss within 2 % and the gradient norm within
+# 5 %; the gradient reaching each H_res passes through the LayerNorms of
+# near-constant rows (H_post ~ 1 at init), which amplify bf16 rounding, so
+# each H_res_raw gradient has cosine > 0.8 to the CPU's (0.878 at the worst
+# layer in the first run) and the SGD update > 0.9. In both, no parameter is
+# apart by more than 2·lr (the most a sign flip of an Adam first step, ±lr per
+# element, can move it) plus 1e-6.
+TRAIN_PARITY = {
+    "float32": {"loss_rtol": 1e-3, "grad_norm_rtol": 1e-3, "h_res_grad_min_cos": 0.999,
+                "mhc_update_min_cos": 0.999},
+    "bfloat16": {"loss_rtol": 0.02, "grad_norm_rtol": 0.05, "h_res_grad_min_cos": 0.8,
+                 "mhc_update_min_cos": 0.9},
+}
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
 
 
 def card_line() -> str:
@@ -68,6 +122,17 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def zero_counts() -> None:
+    mhc_mod.launches = mhc_mod.launches_unfolded = 0
+    sink_mod.launches_forward = sink_mod.launches_backward = 0
+
+
+def read_counts() -> dict:
+    return {"mhc_block": mhc_mod.launches, "mhc_block_unfolded": mhc_mod.launches_unfolded,
+            "sinkhorn_forward": sink_mod.launches_forward,
+            "sinkhorn_backward": sink_mod.launches_backward}
 
 
 def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
@@ -96,6 +161,26 @@ def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     del graph
+    return float(np.median(times))
+
+
+def time_ms_eager(fn, reps: int = 10, trials: int = 3) -> float:
+    """Device time of one call of ``fn`` launched eagerly (for work a CUDA
+    graph cannot capture, such as an autograd backward): ``reps`` calls
+    between CUDA events, median trial over ``reps``."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -219,7 +304,7 @@ def phase_serve(card: str) -> int:
     batch1 = batch16[:1].contiguous()
     iters16, iters1 = 20, 50
 
-    mhc_mod.launches = 0
+    zero_counts()
     forwards = 0
     for images in (batch16, batch1):
         boxes, scores, classes = det(images)
@@ -244,8 +329,9 @@ def phase_serve(card: str) -> int:
     frame_ms = (time.perf_counter() - t0) / iters1 * 1e3
     forwards += iters16 + iters1
     launches = mhc_mod.launches
-    if launches != 18 * forwards:
-        fail(f"mhc_block launched {launches} times over {forwards} forwards, expected 18 each")
+    if launches != KERNEL_SITES * forwards:
+        fail(f"mhc_block launched {launches} times over {forwards} forwards, expected "
+             f"{KERNEL_SITES} each")
     print(json.dumps({"phase": "serve", "image": IMAGE, "fps_batch16": fps,
                       "batch1_frame_ms": frame_ms, "forwards": forwards,
                       "mhc_block_launches": launches, "load_s": load_s,
@@ -303,6 +389,382 @@ def phase_parity(card: str) -> None:
              f"{score_diff} (need < {E2E_SCORE_ATOL})")
 
 
+# ---------------------------------------------------------------------------
+# Kernel B: Sinkhorn forward and backward
+
+
+def sinkhorn_logits(n: int, seed: int) -> torch.Tensor:
+    """A residual matrix at the mHC init scale (uniform, variance scaling
+    0.1 fan_avg) plus unit normal noise, so that the iterations have work."""
+    r = np.random.default_rng(seed)
+    limit = math.sqrt(3.0 * 0.1 / n)
+    x = r.uniform(-limit, limit, (n, n)) + r.standard_normal((n, n))
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def sinkhorn_bounds_ms(n: int, sm_clock_hz: float):
+    """Least times of one [n, n] matrix, forward (with the history kept) and
+    backward: bytes (each input read once, each output written once) over
+    the memory rate against the exponentials over the SFU rate."""
+    k = SK_ITERS
+    hist_bytes = 4.0 * 2 * (k + 1) * n
+    sfu = SFU_PER_CLOCK * sm_clock_hz
+    out = {}
+    for name, nbytes, exps in (("forward", 8.0 * n * n + hist_bytes, (2 * k + 2) * n * n),
+                               ("backward", 16.0 * n * n + hist_bytes, 2 * k * n * n)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, exps / sfu * 1e3
+        out[name] = (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_sinkhorn(card: str, sm_clock_hz: float):
+    """Kernel B, forward and backward, against its plain version at the five
+    path widths and a ragged one, then on the 25 matrices of one step."""
+    rows = {}
+    for n in sorted(set(SINKHORN_MIX) | {77}):
+        logits = sinkhorn_logits(n, seed=n)
+        dp = sinkhorn_logits(n, seed=n + 1)
+        p, hist = sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True)
+        grad = sink_mod.sinkhorn_backward(logits, p, dp, hist, SK_ITERS)
+        torch.cuda.synchronize()
+        x = logits.clone().requires_grad_()
+        p_ref = sink_mod.sinkhorn_log_plain(x, SK_ITERS)
+        (grad_ref,) = torch.autograd.grad(p_ref, x, dp, retain_graph=True)
+        p_err = float((p - p_ref.detach()).abs().max())
+        row_err = float((p.sum(dim=-1) - 1.0).abs().max())
+        g_scale = float(grad_ref.abs().max())
+        g_err = float((grad - grad_ref).abs().max())
+        finite = bool(torch.isfinite(p).all() and torch.isfinite(grad).all())
+        bounds = sinkhorn_bounds_ms(n, sm_clock_hz)
+        fwd_ms = time_ms(lambda: sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True))
+        bwd_ms = time_ms(lambda: sink_mod.sinkhorn_backward(logits, p, dp, hist, SK_ITERS))
+        with torch.no_grad():
+            plain_fwd_ms = time_ms(lambda: sink_mod.sinkhorn_log_plain(logits, SK_ITERS))
+        plain_bwd_ms = time_ms_eager(
+            lambda: torch.autograd.grad(p_ref, x, dp, retain_graph=True))
+        row = {"phase": "kernel", "kernel": "sinkhorn", "n": n, "iters": SK_ITERS,
+               "p_max_abs_err": p_err, "row_sum_err": row_err, "grad_max_abs_err": g_err,
+               "grad_max_abs": g_scale, "forward_ms": fwd_ms, "forward_plain_ms": plain_fwd_ms,
+               "forward_bound_ms": bounds["forward"][0], "forward_bound_by": bounds["forward"][1],
+               "backward_ms": bwd_ms, "backward_plain_ms": plain_bwd_ms,
+               "backward_bound_ms": bounds["backward"][0],
+               "backward_bound_by": bounds["backward"][1], "library_ms": None, "card": card}
+        print(json.dumps(row), flush=True)
+        if not (finite and p_err <= SINK_P_ATOL and row_err <= SINK_ROW_ATOL
+                and g_err <= SINK_GRAD_RTOL * g_scale):
+            fail(f"sinkhorn n={n} disagrees with its plain version: P max |diff| {p_err} "
+                 f"(need <= {SINK_P_ATOL}), row sum error {row_err} (need <= {SINK_ROW_ATOL}), "
+                 f"gradient max |diff| {g_err} (need <= {SINK_GRAD_RTOL} x {g_scale})")
+        rows[n] = row
+
+    # The 25 matrices of one step through the autograd wrapper, as the model
+    # and the regulariser call it: one forward and one backward launch each.
+    before = (sink_mod.launches_forward, sink_mod.launches_backward)
+    worst = 0.0
+    for i, n in enumerate(SINKHORN_MIX):
+        logits = sinkhorn_logits(n, seed=1000 + i)
+        weight = sinkhorn_logits(n, seed=2000 + i)
+        x = logits.clone().requires_grad_()
+        (sinkhorn_log(x, SK_ITERS) * weight).sum().backward()
+        ref = logits.clone().requires_grad_()
+        p_ref = sink_mod.sinkhorn_log_plain(ref, SK_ITERS)
+        (p_ref * weight).sum().backward()
+        with torch.no_grad():
+            p_err = float((sinkhorn_log(logits, SK_ITERS) - p_ref).abs().max())
+        g_err = float((x.grad - ref.grad).abs().max() / ref.grad.abs().max())
+        worst = max(worst, g_err)
+        if not (p_err <= SINK_P_ATOL and g_err <= SINK_GRAD_RTOL):
+            fail(f"sinkhorn mix matrix {i} (n={n}): P max |diff| {p_err}, relative gradient "
+                 f"error {g_err}")
+    launched = (sink_mod.launches_forward - before[0], sink_mod.launches_backward - before[1])
+    if launched != (2 * len(SINKHORN_MIX), len(SINKHORN_MIX)):
+        fail(f"sinkhorn mix launched {launched} (forward, backward), expected "
+             f"{(2 * len(SINKHORN_MIX), len(SINKHORN_MIX))}")
+    print(json.dumps({"phase": "kernel", "kernel": "sinkhorn", "mix": len(SINKHORN_MIX),
+                      "worst_relative_grad_err": worst, "card": card}), flush=True)
+    return rows
+
+
+def sinkhorn_summary(rows, launches: dict):
+    """Kernel B forward and backward over the 25 matrices of one step (one
+    launch each, as the model forward and the regulariser's backward run
+    them), from this phase's per-width times."""
+    out = []
+    for part, name in (("forward", "sinkhorn_forward"), ("backward", "sinkhorn_backward")):
+        t_ops = t_bytes = 0.0
+        for n in SINKHORN_MIX:
+            bound, by = rows[n][f"{part}_bound_ms"], rows[n][f"{part}_bound_by"]
+            t_ops += bound if by == "operations" else 0.0
+            t_bytes += bound if by == "bytes" else 0.0
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "hvs_tpu_torch/csrc/sinkhorn.cu",
+            "replaces": "hvs_tpu/ops/pallas/sinkhorn_pallas.py:62",
+            "launches": launches[name],
+            "max_abs_err": max(r["p_max_abs_err"] if part == "forward"
+                               else r["grad_max_abs_err"] for r in rows.values()),
+            "ms": sum(rows[n][f"{part}_ms"] for n in SINKHORN_MIX),
+            "plain_ms": sum(rows[n][f"{part}_plain_ms"] for n in SINKHORN_MIX),
+            "bound_ms": sum(rows[n][f"{part}_bound_ms"] for n in SINKHORN_MIX),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            # No single PyTorch call computes the iterated projection.
+            "library_ms": None,
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: unfolded mHC block
+
+
+def unfolded_bound_ms(n: int, d: int):
+    """As kernel A's bound with the extra ``@ H_pre`` product: 10·N·d² FLOP,
+    (4·N·d + 10·d² + 24·d) bytes."""
+    t_ops = 10.0 * n * d * d / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (4.0 * n * d + 10.0 * d * d + 24.0 * d) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_unfolded(card: str):
+    """Kernel C against its plain version at the 18 sites of the validation
+    forward (416², batch 8) and at a ragged count. Inputs are kernel A's
+    well-conditioned ones with a near-identity H_pre = sigmoid(6·I - 3 + noise)."""
+    shapes = sorted(set(mhc_sites(TRAIN_BATCH, TRAIN_IMAGE))
+                    | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
+    per_shape = {}
+    for n, d in shapes:
+        x, args = mhc_inputs(n, d, seed=n * 5 + d)
+        r = np.random.default_rng(d)
+        h_pre = torch.sigmoid(torch.from_numpy(
+            (6.0 * np.eye(d) - 3.0 + 0.5 * r.standard_normal((d, d))).astype(np.float32)))
+        args = (h_pre.to("cuda", torch.bfloat16).contiguous(), *args)
+        out = mhc_mod.mhc_block_unfolded(x, *args)
+        torch.cuda.synchronize()
+        ref = mhc_mod.mhc_block_unfolded_plain(x, *args)
+        a = out.float().flatten().cpu().numpy()
+        b = ref.float().flatten().cpu().numpy()
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            fail(f"mhc_block_unfolded n={n} d={d}: non-finite output")
+        corr = float(np.corrcoef(a, b)[0, 1])
+        mean_abs = float(np.mean(np.abs(a - b)))
+        ms = time_ms(lambda: mhc_mod.mhc_block_unfolded(x, *args))
+        plain_ms = time_ms(lambda: mhc_mod.mhc_block_unfolded_plain(x, *args))
+        bound, bound_by = unfolded_bound_ms(n, d)
+        row = {"phase": "kernel", "kernel": "mhc_block_unfolded", "n": n, "d": d, "corr": corr,
+               "mean_abs_err": mean_abs, "max_abs_err": float(np.max(np.abs(a - b))),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": None, "card": card}
+        print(json.dumps(row), flush=True)
+        if not (corr > KERNEL_MIN_CORR and mean_abs < KERNEL_MAX_MEAN_ABS):
+            fail(f"mhc_block_unfolded n={n} d={d} disagrees with its plain version: corr {corr} "
+                 f"(need > {KERNEL_MIN_CORR}), mean |diff| {mean_abs} "
+                 f"(need < {KERNEL_MAX_MEAN_ABS})")
+        per_shape[(n, d)] = row
+    return per_shape
+
+
+def unfolded_summary(per_shape, launches: int):
+    """Kernel C over the 18 launches of one validation forward (416², batch 8)."""
+    sites = mhc_sites(TRAIN_BATCH, TRAIN_IMAGE)
+    t_ops = sum(10.0 * n * d * d / PEAK_BF16_FLOPS * 1e3 for n, d in sites)
+    t_bytes = sum((4.0 * n * d + 10.0 * d * d + 24.0 * d) / PEAK_BYTES * 1e3 for n, d in sites)
+    return {
+        "name": "mhc_block_unfolded",
+        "route": "cuda",
+        "source": "hvs_tpu_torch/csrc/mhc_block.cu",
+        "replaces": "hvs_tpu/ops/pallas/mhc_pallas.py:80",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
+        "ms": sum(per_shape[s]["ms"] for s in sites),
+        "plain_ms": sum(per_shape[s]["plain_ms"] for s in sites),
+        "bound_ms": sum(per_shape[s]["bound_ms"] for s in sites),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # No single PyTorch call computes the fused block.
+        "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Training path
+
+
+def phase_train(card: str) -> dict:
+    """The full-width flagship trained through ``ManifoldConstrainedTrainer.train``
+    on the entry point's synthetic loader, then validated over 2 batches.
+
+    Per train step kernel B runs 25 forward launches in the model forward
+    and 25 in the manifold regulariser, plus 25 in the optimizer's projection
+    on projection steps; 49 backward launches (the feature head's output does
+    not reach the loss, so its forward Sinkhorn is not differentiated; its
+    regulariser term is). A validation forward runs 25 forward launches of B
+    (no history) and 18 of C. Returns the launch counts of this phase."""
+    import shutil
+    import tempfile
+
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.train import make_synthetic_loader
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+
+    steps, warmup, val_batches, project_every = 10, 2, 2, 4
+    workdir = tempfile.mkdtemp(prefix="hvs_train_smoke_")
+    log_path = f"{workdir}/metrics.jsonl"
+    try:
+        model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=0)
+        config = TrainerConfig(num_classes=TRAIN_CLASSES, max_boxes=TRAIN_BOXES,
+                               project_every=project_every, stability_check_every=5,
+                               backbone_lr_factor=0.1, checkpoint_dir=workdir,
+                               metrics_log=log_path)
+        trainer = ManifoldConstrainedTrainer(model, config, seed=0)
+        trainer.init_state()
+        train_fn = make_synthetic_loader(TRAIN_BATCH, TRAIN_IMAGE, steps, TRAIN_CLASSES,
+                                         TRAIN_BOXES, seed=0)
+        val_fn = make_synthetic_loader(TRAIN_BATCH, TRAIN_IMAGE, val_batches, TRAIN_CLASSES,
+                                       TRAIN_BOXES, seed=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        result = trainer.train(train_fn, val_fn, epochs=1)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trainer.close()
+        with open(log_path) as f:
+            log = [json.loads(line) for line in f]
+        # Validation timed on its own, after the counted run.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = trainer.validate(val_fn())
+        torch.cuda.synchronize()
+        val_ms = (time.perf_counter() - t0) / val_batches * 1e3
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # Each metrics row is written after the step's metrics reached the host
+    # (a synchronising copy), so row-to-row time is the step's wall time.
+    step_ms = [(b["time"] - a["time"]) * 1e3 for a, b in zip(log, log[1:])][warmup - 1:]
+    n_proj = sum(1 for i in range(steps) if (i + 1) % project_every == 0)
+    last = log[-1]
+    row = {"phase": "train", "image": TRAIN_IMAGE, "batch": TRAIN_BATCH,
+           "classes": TRAIN_CLASSES, "steps": steps, "timed_steps": len(step_ms),
+           "projection_steps": n_proj, "step_ms_median": float(np.median(step_ms)),
+           "step_ms": step_ms, "val_ms_per_batch": val_ms, "wall_s": wall_s,
+           "loss_first": log[0]["loss"], "loss_last": last["loss"],
+           "grad_norm": last["grad_norm"], "ds_error_max": last["ds_error_max"],
+           "signal_ratio_mean": last["signal_ratio_mean"], "val_loss": val["val_loss"],
+           "best_val_loss": result["best_val_loss"], "lr_scale": trainer.state.lr_scale,
+           "stability_alerts": len(trainer.monitor.alerts), "peak_mem_gb": peak_gb,
+           "launches": counts, "card": card}
+    print(json.dumps(row), flush=True)
+    values = [r[k] for r in log for k in ("loss", "grad_norm", "ds_error_max",
+                                          "signal_ratio_mean")]
+    values += list(val.values()) + [result["best_val_loss"]]
+    if not np.isfinite(values).all():
+        fail(f"train: non-finite metrics {row}")
+    if trainer.state.step != steps or len(log) != steps:
+        fail(f"train ran {trainer.state.step} steps ({len(log)} logged), expected {steps}")
+    n_mhc = len(SINKHORN_MIX)
+    want = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES * val_batches,
+            "sinkhorn_forward": 2 * n_mhc * steps + n_mhc * n_proj + n_mhc * val_batches,
+            "sinkhorn_backward": (2 * n_mhc - 1) * steps}
+    if counts != want:
+        fail(f"train launch counts {counts}, expected {want}")
+    return counts
+
+
+def phase_train_parity(card: str) -> None:
+    """One train step, dropout off, full width at 320², batch 2: the port on
+    the card (kernels) against the port on the CPU (plain versions), from
+    the same weights (H_res near identity, as in the serve parity) and batch,
+    in fp32 (where the two should agree to rounding) and in bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        row = train_step_pair(dtype)
+        row["card"] = card
+        print(json.dumps(row), flush=True)
+        tol = TRAIN_PARITY[row["dtype"]]
+        ok = (row["finite"]
+              and abs(row["loss_cuda"] - row["loss_cpu"]) <= tol["loss_rtol"] * abs(row["loss_cpu"])
+              and abs(row["grad_norm_cuda"] - row["grad_norm_cpu"])
+              <= tol["grad_norm_rtol"] * row["grad_norm_cpu"]
+              and row["h_res_grads"] == len(SINKHORN_MIX)
+              and row["h_res_grad_cos_min"] > tol["h_res_grad_min_cos"]
+              and row["mhc_update_cos"] > tol["mhc_update_min_cos"]
+              and row["param_max_abs_diff"] <= row["param_limit"])
+        if not ok:
+            fail(f"train step on the card disagrees with the CPU: {row}; limits {tol}, "
+                 f"parameters within {row['param_limit']}")
+
+
+def train_step_pair(dtype: torch.dtype) -> dict:
+    import copy
+
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.models.layers import Dropout, ManifoldHyperConnection
+    from hvs_tpu_torch.train import make_synthetic_loader
+    from hvs_tpu_torch.training import TrainerConfig, TrainState, train_step
+    from hvs_tpu_torch.training.optimizer import ManifoldAwareOptimizer, partition_label
+    from hvs_tpu_torch.training.schedule import cosine_annealing_with_warmup
+    from hvs_tpu_torch.training.trainer import batch_to
+
+    model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=1, dtype=dtype)
+    r = np.random.default_rng(2)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+            if isinstance(m, ManifoldHyperConnection):
+                d = m.dim
+                m.H_res_raw.copy_(torch.from_numpy(
+                    (6.0 * np.eye(d) + r.standard_normal((d, d))).astype(np.float32)))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    start = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    # No warmup, so the step moves every parameter (lr(0) = 1e-3).
+    config = TrainerConfig(num_classes=TRAIN_CLASSES, warmup_steps=0, backbone_lr_factor=0.1)
+    lr = cosine_annealing_with_warmup(config.learning_rate, 0, config.total_steps)
+    batch = next(make_synthetic_loader(2, 320, 1, TRAIN_CLASSES, TRAIN_BOXES, seed=3)())
+    results = {}
+    for name, m, dev in (("cuda", model, torch.device("cuda")),
+                         ("cpu", cpu_model, torch.device("cpu"))):
+        params = dict(m.named_parameters())
+        tx = ManifoldAwareOptimizer(params, lr, weight_decay=config.weight_decay,
+                                    mhc_lr_factor=config.mhc_lr_factor,
+                                    clip_regular=config.clip_regular, clip_mhc=config.clip_mhc,
+                                    project_every=config.project_every,
+                                    sk_iters=config.sk_iters, backbone_lr_factor=0.1)
+        t0 = time.perf_counter()
+        metrics, grads = train_step(m, tx, config, TrainState(), batch_to(batch, dev))
+        results[name] = dict(
+            loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+            h_res={k: g.float().cpu() for k, g in grads.items() if k.endswith("H_res_raw")},
+            params={k: v.detach().float().cpu() for k, v in params.items()},
+            seconds=time.perf_counter() - t0)
+
+    def cos(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
+
+    g, c = results["cuda"], results["cpu"]
+    hres_cos = {k: cos(g["h_res"][k], c["h_res"][k]) for k in c["h_res"]}
+    # The SGD partitions' update is -lr·factor·(clipped gradient), so its
+    # cosine measures the gradients the optimizer used; an Adam first step is
+    # ±lr·factor per element, bounded below.
+    mhc = [k for k in start if partition_label(k, 0.1).startswith("mhc")]
+    upd = {side: torch.cat([(r_["params"][k] - start[k]).flatten() for k in mhc])
+           for side, r_ in results.items()}
+    max_dp = max(float((g["params"][k] - c["params"][k]).abs().max()) for k in start)
+    finite = bool(np.isfinite([g["loss"], c["loss"], g["grad_norm"], c["grad_norm"]]).all()
+                  and all(torch.isfinite(v).all() for v in g["params"].values()))
+    return {"phase": "train_parity", "dtype": str(dtype).split(".")[-1], "image": 320,
+            "batch": 2, "loss_cuda": g["loss"], "loss_cpu": c["loss"],
+            "grad_norm_cuda": g["grad_norm"], "grad_norm_cpu": c["grad_norm"],
+            "h_res_grads": len(hres_cos), "h_res_grad_cos_min": min(hres_cos.values()),
+            "h_res_grad_cos": sorted(hres_cos.values()),
+            "mhc_update_cos": cos(upd["cuda"], upd["cpu"]), "param_max_abs_diff": max_dp,
+            "param_limit": 2 * lr(0) + 1e-6, "finite": finite, "step_s_cuda": g["seconds"],
+            "step_s_cpu": c["seconds"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
@@ -312,19 +774,28 @@ def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"phase": "device", "card": card, "kind": kind,
+                      "sm_clock_max_mhz": nvidia_smi("clocks.max.sm"),
                       "count": torch.cuda.device_count(), "torch": torch.__version__,
                       "cuda": torch.version.cuda, "port": hvs_tpu_torch.__name__}), flush=True)
+    sm_clock_hz = float(nvidia_smi("clocks.max.sm")) * 1e6
     t0 = time.perf_counter()
-    build.build(["mhc_block"])
+    build.build(["mhc_block", "sinkhorn"])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "per_source_s": build.build_seconds}), flush=True)
 
     per_shape = phase_kernels(card)
-    launches = phase_serve(card)
+    sink_rows = phase_sinkhorn(card, sm_clock_hz)
+    unfolded_rows = phase_unfolded(card)
+    serve_launches = phase_serve(card)
     phase_parity(card)
+    train_launches = phase_train(card)
+    phase_train_parity(card)
 
     print(card)
-    print(json.dumps({"kernels": [kernel_summary(per_shape, launches)]}))
+    print(json.dumps({"kernels": [kernel_summary(per_shape, serve_launches),
+                                  *sinkhorn_summary(sink_rows, train_launches),
+                                  unfolded_summary(unfolded_rows,
+                                                   train_launches["mhc_block_unfolded"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

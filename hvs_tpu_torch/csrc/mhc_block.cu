@@ -1,9 +1,13 @@
-// Fused serve-path mHC block for Hopper (sm_90a).
+// Fused mHC block for Hopper (sm_90a), in two modes.
 //
-// Replaces the TPU kernel hvs_tpu/ops/pallas/mhc_pallas.py::mhc_block_pallas_packed
-// (kernel body _mhc_packed_kernel). Per token row of x [n, d] (bf16):
+// Serve mode replaces the TPU kernel
+// hvs_tpu/ops/pallas/mhc_pallas.py::mhc_block_pallas_packed (kernel body
+// _mhc_packed_kernel); unfolded mode replaces mhc_block_pallas (kernel body
+// _mhc_kernel), the chain of a deterministic training-model forward. Per
+// token row of x [n, d] (bf16):
 //
 //   y   = bf16(LN1(x))                       LN statistics in exact fp32, eps 1e-6
+//   y   = bf16(y @ H_pre)                    unfolded mode only (W1 is then unfolded)
 //   y   = bf16(gelu(bf16(bf16(y @ W1f) + bf16(b1))))
 //   y   = bf16(gelu(bf16(bf16(y @ W2)  + bf16(b2))))
 //   y   = bf16(y @ H_post)
@@ -15,8 +19,8 @@
 // matmul) exists only for the TPU's 128 lanes and is not carried over: rows
 // are read as [n, d] directly.
 //
-// What bounds it on an H100: 8*n*d^2 FLOP against 4*n*d bytes of activations
-// (plus 5*d^2 weights), about 2*d FLOP per byte. That is below the card's
+// What bounds it on an H100: 8*n*d^2 FLOP (10*n*d^2 unfolded) against 4*n*d
+// bytes of activations (plus 4 or 5 d^2 weights), about 2*d FLOP per byte. That is below the card's
 // ridge (~295 FLOP/B) at d <= 128, so there the kernel is memory-bound, and
 // above it at d >= 256, where it is bound by the tensor cores.
 //
@@ -32,7 +36,9 @@
 //   * fp32 accumulators live in registers as wmma m16n16k16 bf16 fragments;
 //     each warp owns a fixed FM x FN grid of 16x16 output tiles, and applies
 //     the epilogue (rounding, bias, GELU, residual add) through a 1 KB
-//     per-warp shared scratch tile.
+//     per-warp shared scratch tile;
+//   * unfolded mode is a template flag: one more tile_gemm with a kRound
+//     epilogue before the W1 product, so serve mode compiles as before.
 // wgmma, TMA and warp specialisation are left for later work.
 
 #include <cuda_bf16.h>
@@ -239,9 +245,10 @@ __device__ __forceinline__ void epilogue(AccFrag (&acc)[Layout<D>::FM][Layout<D>
   }
 }
 
-template <int D>
+template <int D, bool kUnfolded>
 __global__ void __launch_bounds__(kThreads)
     mhc_block_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, long long n,
+                     const bf16* __restrict__ h_pre,
                      const bf16* __restrict__ w1f, const float* __restrict__ b1,
                      const bf16* __restrict__ w2, const float* __restrict__ b2,
                      const bf16* __restrict__ h_post, const bf16* __restrict__ h_res,
@@ -281,6 +288,10 @@ __global__ void __launch_bounds__(kThreads)
   AccFrag acc[L::FM][L::FN];
   tile_gemm<D>(xs, h_res, chunks, acc, wm, wn);  // residual first: frees xs
   epilogue<D, kRound>(acc, xs, nullptr, nullptr, scratch, wm, wn, lane);
+  if constexpr (kUnfolded) {
+    tile_gemm<D>(ys, h_pre, chunks, acc, wm, wn);
+    epilogue<D, kRound>(acc, ys, nullptr, nullptr, scratch, wm, wn, lane);
+  }
   tile_gemm<D>(ys, w1f, chunks, acc, wm, wn);
   epilogue<D, kBiasGelu>(acc, ys, nullptr, b1, scratch, wm, wn, lane);
   tile_gemm<D>(ys, w2, chunks, acc, wm, wn);
@@ -298,50 +309,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-cudaError_t launch(const void* x, void* out, long long n, const void* w1f, const void* b1,
-                   const void* w2, const void* b2, const void* h_post, const void* h_res,
-                   const void* ln1_s, const void* ln1_b, const void* ln2_s, const void* ln2_b,
-                   cudaStream_t stream) {
+template <int D, bool kUnfolded>
+cudaError_t launch(const void* x, void* out, long long n, const void* h_pre, const void* w1f,
+                   const void* b1, const void* w2, const void* b2, const void* h_post,
+                   const void* h_res, const void* ln1_s, const void* ln1_b, const void* ln2_s,
+                   const void* ln2_b, cudaStream_t stream) {
   using L = Layout<D>;
-  cudaError_t err = cudaFuncSetAttribute(mhc_block_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(mhc_block_kernel<D, kUnfolded>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::kSmemBytes));
   if (err != cudaSuccess) return err;
   const long long blocks = (n + L::BM - 1) / L::BM;
-  mhc_block_kernel<D><<<static_cast<unsigned>(blocks), kThreads, L::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), n, static_cast<const bf16*>(w1f),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+  mhc_block_kernel<D, kUnfolded><<<static_cast<unsigned>(blocks), kThreads, L::kSmemBytes,
+                                   stream>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), n, static_cast<const bf16*>(h_pre),
+      static_cast<const bf16*>(w1f), static_cast<const float*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const float*>(b2),
       static_cast<const bf16*>(h_post), static_cast<const bf16*>(h_res),
       static_cast<const float*>(ln1_s), static_cast<const float*>(ln1_b),
       static_cast<const float*>(ln2_s), static_cast<const float*>(ln2_b));
   return cudaGetLastError();
 }
 
+template <bool kUnfolded>
+int dispatch(const void* x, void* out, long long n, int d, const void* h_pre, const void* w1,
+             const void* b1, const void* w2, const void* b2, const void* h_post,
+             const void* h_res, const void* ln1_s, const void* ln1_b, const void* ln2_s,
+             const void* ln2_b, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define HVS_MHC_CASE(D)                                                                    \
+  case D:                                                                                  \
+    return static_cast<int>(launch<D, kUnfolded>(x, out, n, h_pre, w1, b1, w2, b2, h_post, \
+                                                 h_res, ln1_s, ln1_b, ln2_s, ln2_b, s));
+  switch (d) {
+    HVS_MHC_CASE(32)
+    HVS_MHC_CASE(64)
+    HVS_MHC_CASE(128)
+    HVS_MHC_CASE(256)
+    HVS_MHC_CASE(512)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef HVS_MHC_CASE
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Every pointer is a device pointer;
-// x and out are [n, d] bf16 row-major, the five matrices [d, d] bf16
-// row-major (applied as row @ W), the six vectors [d] fp32. Returns the CUDA
-// error code of the launch (0 on success).
+// Plain C entry points, loaded with ctypes. Every pointer is a device pointer;
+// x and out are [n, d] bf16 row-major, the matrices [d, d] bf16 row-major
+// (applied as row @ W), the six vectors [d] fp32. Each returns the CUDA error
+// code of the launch (0 on success).
+
+// Serve mode: H_pre folded into w1f.
 extern "C" int hvs_mhc_block(const void* x, void* out, long long n, int d, const void* w1f,
                              const void* b1, const void* w2, const void* b2, const void* h_post,
                              const void* h_res, const void* ln1_s, const void* ln1_b,
                              const void* ln2_s, const void* ln2_b, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return launch<32>(x, out, n, w1f, b1, w2, b2, h_post, h_res, ln1_s, ln1_b, ln2_s, ln2_b, s);
-    case 64:
-      return launch<64>(x, out, n, w1f, b1, w2, b2, h_post, h_res, ln1_s, ln1_b, ln2_s, ln2_b, s);
-    case 128:
-      return launch<128>(x, out, n, w1f, b1, w2, b2, h_post, h_res, ln1_s, ln1_b, ln2_s, ln2_b, s);
-    case 256:
-      return launch<256>(x, out, n, w1f, b1, w2, b2, h_post, h_res, ln1_s, ln1_b, ln2_s, ln2_b, s);
-    case 512:
-      return launch<512>(x, out, n, w1f, b1, w2, b2, h_post, h_res, ln1_s, ln1_b, ln2_s, ln2_b, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(x, out, n, d, nullptr, w1f, b1, w2, b2, h_post, h_res, ln1_s, ln1_b,
+                         ln2_s, ln2_b, stream);
+}
+
+// Unfolded mode: y @ H_pre (rounded to bf16), then y @ W1.
+extern "C" int hvs_mhc_block_unfolded(const void* x, void* out, long long n, int d,
+                                      const void* h_pre, const void* w1, const void* b1,
+                                      const void* w2, const void* b2, const void* h_post,
+                                      const void* h_res, const void* ln1_s, const void* ln1_b,
+                                      const void* ln2_s, const void* ln2_b, void* stream) {
+  return dispatch<true>(x, out, n, d, h_pre, w1, b1, w2, b2, h_post, h_res, ln1_s, ln1_b,
+                        ln2_s, ln2_b, stream);
 }

@@ -1,8 +1,8 @@
 """Hybrid CNN backbone with channel-wise mHC, NHWC at every boundary.
 
 Counterpart of ``hvs_tpu/models/backbone.py`` (``ConvMHCBlock`` with the
-fused serve tail, ``HybridVisionBackbone``). The standard (training) tail
-and the int8 ``QuantConv`` path are not ported yet.
+standard and the fused serve tail, ``HybridVisionBackbone``). The int8
+``QuantConv`` path is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,25 +18,34 @@ from .layers import Conv, ManifoldHyperConnection, SqueezeExcite, group_norm
 
 class ConvMHCBlock(nn.Module):
     """Bottleneck residual block: 1x1 reduce -> 3x3 (optionally strided) ->
-    channel mHC at the bottleneck width -> 1x1 expand -> fused serve tail.
+    channel mHC at the bottleneck width -> 1x1 expand -> tail.
 
-    The serve tail folds GroupNorm, the SE gate, the shortcut (with its own
-    GroupNorm when projected) and SiLU into one elementwise pass over the
-    expanded map: GroupNorm is ``y*s + t`` once its statistics are known, the
-    SE input is the spatial mean of that map (``ch_mean*s + t``), and the SE
-    gate is per channel, so the tail is ``silu(y*(s*g) + t*g + shortcut)``.
+    Standard tail (training, and any forward of a model that computes its
+    constraints per forward): GroupNorm -> SE gate -> + shortcut (GroupNorm
+    when projected) -> SiLU, rounding to ``dtype`` after each step as JAX's.
+
+    Fused serve tail (serve constraints, eval mode): folds GroupNorm, the SE
+    gate, the shortcut and SiLU into one elementwise pass over the expanded
+    map: GroupNorm is ``y*s + t`` once its statistics are known, the SE input
+    is the spatial mean of that map (``ch_mean*s + t``), and the SE gate is
+    per channel, so the tail is ``silu(y*(s*g) + t*g + shortcut)``.
+
+    ``mhc`` are keyword options of the mHC layer (``sk_iters``, ``monitor``,
+    ``precomputed_constraints``); its dropout rate is ``dropout_rate``.
     """
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0, **mhc):
         super().__init__()
         mid = max(16, channels // 2)  # bottleneck width
         self.dtype = dtype
+        self.precomputed_constraints = mhc.get("precomputed_constraints", False)
         self.reduce = Conv(in_channels, mid, (1, 1), use_bias=False, dtype=dtype)
         self.GroupNorm_0 = group_norm(mid, dtype)
         self.spatial = Conv(mid, mid, (3, 3), (stride, stride), use_bias=False, dtype=dtype)
         self.GroupNorm_1 = group_norm(mid, dtype)
-        self.mhc = ManifoldHyperConnection(mid, 1, 1, dtype=dtype)
+        self.mhc = ManifoldHyperConnection(mid, 1, 1, dtype=dtype, dropout_rate=dropout_rate,
+                                           **mhc)
         self.expand = Conv(mid, channels, (1, 1), use_bias=False, dtype=dtype)
         self.GroupNorm_2 = group_norm(channels, dtype)
         self.se = SqueezeExcite(channels, dtype=dtype)
@@ -52,6 +61,9 @@ class ConvMHCBlock(nn.Module):
         y = F.silu(self.GroupNorm_0(self.reduce(x)))
         y = F.silu(self.GroupNorm_1(self.spatial(y)))
         y = self.expand(self.mhc(y))
+        if not (self.precomputed_constraints and not self.training):
+            shortcut = x if self.shortcut is None else self.GroupNorm_3(self.shortcut(x))
+            return F.silu(self.se(self.GroupNorm_2(y)) + shortcut)
 
         y32 = y.float()
         ch_mean = y32.mean(dim=(1, 2))
@@ -80,7 +92,7 @@ class HybridVisionBackbone(nn.Module):
 
     def __init__(self, base_channels: int = 32, stage_blocks: Sequence[int] = (2, 3, 4, 2),
                  stage_channels: Sequence[int] = (64, 128, 256, 512),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, **mhc):
         super().__init__()
         self.dtype = dtype
         self.stem1 = Conv(3, base_channels, (3, 3), (2, 2), use_bias=False, dtype=dtype)
@@ -95,7 +107,7 @@ class HybridVisionBackbone(nn.Module):
             for block_idx in range(n_blocks):
                 stride = 2 if (block_idx == 0 and stage_idx > 0) else 1
                 name = f"stage{stage_idx + 1}_block{block_idx}"
-                self.add_module(name, ConvMHCBlock(in_ch, ch, stride, dtype=dtype))
+                self.add_module(name, ConvMHCBlock(in_ch, ch, stride, dtype=dtype, **mhc))
                 names.append(name)
                 in_ch = ch
             self.stages.append(names)

@@ -27,10 +27,12 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 class FeaturePyramidNetwork(nn.Module):
     """1x1 laterals to ``fpn_channels``, top-down nearest upsample + add, a 3x3
     refine, GroupNorm + SiLU, a channel mHC per level, and 1x1 projections to
-    ``OUT_CHANNELS``. Input: the backbone's three scales."""
+    ``OUT_CHANNELS``. Input: the backbone's three scales. ``mhc`` are keyword
+    options of the mHC layers (their dropout rate is ``dropout_rate``, 0 as in
+    JAX)."""
 
     def __init__(self, in_channels: Sequence[int] = (128, 256, 512), fpn_channels: int = 256,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0, **mhc):
         super().__init__()
         self.dtype = dtype
         for i, c in enumerate(in_channels):
@@ -40,7 +42,8 @@ class FeaturePyramidNetwork(nn.Module):
             self.add_module(f"refine{i}", Conv(fpn_channels, fpn_channels, (3, 3),
                                                use_bias=False, dtype=dtype))
             self.add_module(f"GroupNorm_{i}", group_norm(fpn_channels, dtype))
-            self.add_module(f"mhc{i}", ManifoldHyperConnection(fpn_channels, 1, 1, dtype=dtype))
+            self.add_module(f"mhc{i}", ManifoldHyperConnection(
+                fpn_channels, 1, 1, dtype=dtype, dropout_rate=dropout_rate, **mhc))
             self.add_module(f"out{i}", Conv(fpn_channels, out_ch, (1, 1), use_bias=False,
                                             dtype=dtype))
 

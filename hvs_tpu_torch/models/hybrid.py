@@ -24,33 +24,46 @@ from .yolo_head import YOLODetectionHead, postprocess_detections
 class HybridVisionSystem(nn.Module):
     """The flagship CNN+ViT detector on NHWC images in [0, 1].
 
-    Defaults are the flagship's widths. The model is built with a seeded,
-    flax-like random init (``seed``) on ``device``: the CUDA card unless
+    Defaults are the flagship's widths and the JAX model's training flags:
+    the mHC constraints are computed in every forward (Sinkhorn with
+    ``sk_iters`` iterations), ``dropout_rate`` reaches the ViT and the
+    feature mHC (the head towers keep the layer default 0.1, backbone and FPN
+    0, as in JAX), and ``monitor`` turns on the per-layer telemetry, returned
+    under ``"stability"`` ({mHC module path: metrics}) as the JAX
+    ``stability`` collection. Torch's ``train()``/``eval()`` take the part of
+    JAX's ``deterministic`` flag. The model is built with a seeded, flax-like
+    random init (``seed``) on ``device``: the CUDA card unless
     ``device="cpu"`` is passed. Real weights come from a flax tree through
-    ``hvs_tpu_torch.convert.load_flax_params``. ``sk_iters`` is the Sinkhorn
-    iteration count of the mHC constraints, computed once at load.
+    ``hvs_tpu_torch.convert.load_flax_params``.
     """
 
     def __init__(self, num_classes: int = 80, sk_iters: int = 20, base_channels: int = 32,
                  stage_blocks: Sequence[int] = (2, 3, 4, 2),
                  stage_channels: Sequence[int] = (64, 128, 256, 512), vit_dim: int = 256,
                  vit_depth: int = 6, vit_heads: int = 8, fpn_channels: int = 256,
-                 head_channels: int = 256, feature_dim: int = 256,
-                 dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+                 head_channels: int = 256, feature_dim: int = 256, dropout_rate: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16, monitor: bool = False,
+                 precomputed_constraints: bool = False, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.dtype = dtype
         self.sk_iters = sk_iters
+        mhc = dict(sk_iters=sk_iters, monitor=monitor,
+                   precomputed_constraints=precomputed_constraints)
         self.backbone = HybridVisionBackbone(base_channels, stage_blocks, stage_channels,
-                                             dtype=dtype)
+                                             dtype=dtype, **mhc)
         self.vit_encoder = HybridVisionEncoder(stage_channels[-1], vit_dim, vit_depth, vit_heads,
-                                               dtype=dtype)
-        self.fpn = FeaturePyramidNetwork(tuple(stage_channels[1:]), fpn_channels, dtype=dtype)
+                                               dtype=dtype, dropout_rate=dropout_rate, **mhc)
+        self.fpn = FeaturePyramidNetwork(tuple(stage_channels[1:]), fpn_channels, dtype=dtype,
+                                         **mhc)
         self.detection_head = YOLODetectionHead(OUT_CHANNELS, num_classes, head_channels,
-                                                dtype=dtype)
+                                                dtype=dtype, **mhc)
         self.feature_proj = Dense(sum(OUT_CHANNELS), feature_dim, dtype=dtype)
-        self.mhc_features = ManifoldHyperConnection(feature_dim, 1, 2, dtype=dtype)
+        self.mhc_features = ManifoldHyperConnection(feature_dim, 1, 2, dtype=dtype,
+                                                    dropout_rate=dropout_rate, **mhc)
+        self._monitored = [(name, m) for name, m in self.named_modules()
+                           if isinstance(m, ManifoldHyperConnection) and m.monitor]
         init_weights(self, seed)
         self.to(device)
 
@@ -62,12 +75,22 @@ class HybridVisionSystem(nn.Module):
         det = self.detection_head(fused)
         pooled = torch.cat([fused[k].float().mean(dim=(1, 2)) for k in OUT_NAMES], dim=-1)
         feats = self.mhc_features(self.feature_proj(pooled.to(self.dtype)))
-        return {"detection": det, "features": feats, "fused_features": fused}
+        out = {"detection": det, "features": feats, "fused_features": fused}
+        if self._monitored:
+            out["stability"] = {name: m.metrics for name, m in self._monitored}
+        return out
 
 
 class ProductionHybridVision(HybridVisionSystem):
-    """Serving variant: the flagship with the mHC constraints computed once at
-    load (``Detector`` installs them). Same parameters as the flagship."""
+    """Serving variant: telemetry off, dropout 0, the mHC constraints computed
+    once at load (``Detector`` installs them). Same parameters as the
+    flagship, so training weights load directly."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("monitor", False)
+        kwargs.setdefault("dropout_rate", 0.0)
+        kwargs.setdefault("precomputed_constraints", True)
+        super().__init__(**kwargs)
 
 
 def detect(model: HybridVisionSystem, images: torch.Tensor, score_threshold: float = 0.25,

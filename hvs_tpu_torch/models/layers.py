@@ -1,4 +1,5 @@
-"""Core layers: mHC (serve branch), GroupNorm, SqueezeExcite, attention.
+"""Core layers: mHC (serve and training branches), GroupNorm, SqueezeExcite,
+attention, dropout.
 
 Counterpart of ``hvs_tpu/models/layers.py``. Public layouts follow the JAX
 package: feature maps are NHWC, dense kernels are [d_in, d_out] applied as
@@ -8,11 +9,16 @@ flax tree onto these modules path for path. Parameters are fp32; each layer
 computes in its ``dtype``, with fp32 statistics and softmax, as the JAX
 layers do.
 
-Only the serve branch of ``ManifoldHyperConnection`` exists so far: the
-constrained matrices are computed once at load (``constraints.py``) and the
-layer is deterministic. Sites with ``expansion_rate == 1`` and
-``mlp_ratio == 1`` in bf16 run the fused block (``ops/mhc_block.py``): the
-Hopper kernel on a CUDA tensor, its plain version on a CPU tensor.
+``ManifoldHyperConnection`` has both branches of the JAX layer, selected by
+``precomputed_constraints``. Serve (True): the constrained matrices are
+computed once at load (``constraints.py``) and bf16 sites with
+``expansion_rate == 1`` and ``mlp_ratio == 1`` run the fused serve block.
+Training (False): every forward computes them (Sinkhorn through its Hopper
+kernel), applies dropout in train mode and records telemetry when
+``monitor`` is set; in eval mode without autograd the same sites run the
+unfolded block. Each block is the Hopper kernel on a CUDA tensor and its
+plain version on a CPU tensor (``ops/mhc_block.py``). Torch's ``training``
+flag plays the part of JAX's ``deterministic=False``.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.mhc_block import SUPPORTED_WIDTHS, layernorm as _layernorm, mhc_block
+from ..ops.mhc_block import SUPPORTED_WIDTHS, layernorm as _layernorm, mhc_block, \
+    mhc_block_unfolded
+from ..ops.sinkhorn import doubly_stochastic_error, sinkhorn_log
 
 Generator = Optional[torch.Generator]
 
@@ -211,27 +219,73 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Dropout
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` in train mode: keep each element with probability
+    1 - rate and scale it by 1/(1 - rate), in the input dtype. It draws from
+    ``generator`` (``set_dropout_generator``), or torch's default generator
+    when none is set; the bits differ from JAX's for any seed."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(model: nn.Module, generator: Generator) -> None:
+    """Make every ``Dropout`` of ``model`` draw from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+# ---------------------------------------------------------------------------
 # mHC
 
 
 class ManifoldHyperConnection(nn.Module):
-    """mHC layer, serve branch: ``out = LN2(x @ H_res + MLP(LN1(x) @ H_pre) @ H_post)``
-    with H_pre folded into the MLP's first kernel.
+    """mHC layer: ``out = LN2(x @ H_res + MLP(LN1(x) @ H_pre) @ H_post)`` with
+    H_pre = sigmoid(H_pre_raw), H_post = 2·sigmoid(H_post_raw) and H_res =
+    Sinkhorn(H_res_raw), a doubly stochastic matrix.
 
-    The constrained matrices (``h_pre``, ``h_post``, ``h_res``,
-    ``w1_folded``) are computed once by ``constraints.compute_constraints``
-    and installed with ``set_constraints``; they are buffers in ``dtype``.
-    The training branch (Sinkhorn per step, dropout, telemetry) is not
-    ported yet.
+    Serve branch (``precomputed_constraints=True``): the constrained matrices
+    (``h_pre``, ``h_post``, ``h_res``, ``w1_folded`` = H_pre @ W1) come from
+    ``constraints.compute_constraints`` through ``set_constraints``; they are
+    buffers in ``dtype`` and the layer is deterministic.
+
+    Training branch (``False``, the JAX default): each forward computes the
+    constraints in fp32 (Sinkhorn with ``sk_iters`` iterations and
+    temperature ``tau``) and casts them to ``dtype``. In train mode dropout
+    (``dropout_rate``) follows both GELUs and LN2, as in JAX, and autograd
+    differentiates the chain. With ``monitor`` the layer leaves its telemetry
+    (``signal_ratio``, ``ds_error``, ``row_sum_error``, ``col_sum_error``;
+    detached tensors) in ``self.metrics`` after each forward, as the JAX
+    layer sows it into the ``stability`` collection.
     """
 
     def __init__(self, dim: int, expansion_rate: int = 2, mlp_ratio: int = 2,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, *, sk_iters: int = 20, tau: float = 1.0,
+                 dropout_rate: float = 0.1, monitor: bool = False,
+                 precomputed_constraints: bool = False):
         super().__init__()
         d = dim
         hidden = d * expansion_rate
         mlp_hidden = hidden * mlp_ratio
         self.dim, self.dtype = dim, dtype
+        self.sk_iters, self.tau = sk_iters, tau
+        self.monitor = monitor
+        self.precomputed_constraints = precomputed_constraints
         self.H_pre_raw = nn.Parameter(torch.empty(d, hidden))
         self.H_post_raw = nn.Parameter(torch.empty(hidden, d))
         self.H_res_raw = nn.Parameter(torch.empty(d, d))
@@ -243,9 +297,11 @@ class ManifoldHyperConnection(nn.Module):
         self.norm_pre_bias = nn.Parameter(torch.zeros(d))
         self.norm_post_scale = nn.Parameter(torch.ones(d))
         self.norm_post_bias = nn.Parameter(torch.zeros(d))
-        # The fused block serves the sites whose matrices are all [d, d].
+        self.dropout = Dropout(dropout_rate)
+        # The fused blocks serve the sites whose matrices are all [d, d].
         self.fused = (expansion_rate == 1 and mlp_ratio == 1 and dtype == torch.bfloat16
                       and dim in SUPPORTED_WIDTHS)
+        self.metrics: dict = {}
         for name in ("h_pre", "h_post", "h_res", "w1_folded"):
             self.register_buffer(name, None, persistent=False)
 
@@ -266,13 +322,17 @@ class ManifoldHyperConnection(nn.Module):
             setattr(self, name, value.contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.precomputed_constraints:
+            return self._serve(x.to(self.dtype))
+        return self._train_branch(x.to(self.dtype))
+
+    def _serve(self, x_in: torch.Tensor) -> torch.Tensor:
         if self.h_res is None:
             raise RuntimeError(
                 "mHC constraints are not installed: run load_constraints(model, "
                 "compute_constraints(param_tree(model))) first (Detector does this at load)"
             )
         dt = self.dtype
-        x_in = x.to(dt)
         if self.fused:
             out = mhc_block(
                 x_in.reshape(-1, self.dim), self.w1_folded, self.mlp_in_bias,
@@ -287,6 +347,41 @@ class ManifoldHyperConnection(nn.Module):
         y = y @ self.h_post
         res = x_in @ self.h_res
         return _layernorm(res + y, self.norm_post_scale, self.norm_post_bias).to(dt)
+
+    def _train_branch(self, x_in: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h_pre = torch.sigmoid(self.H_pre_raw).to(dt)
+        h_post = (2.0 * torch.sigmoid(self.H_post_raw)).to(dt)
+        h_res32 = sinkhorn_log(self.H_res_raw, self.sk_iters, self.tau)
+        h_res = h_res32.to(dt)
+        w1, w2 = self.mlp_in_kernel.to(dt), self.mlp_out_kernel.to(dt)
+        if self.fused and not self.training and not torch.is_grad_enabled():
+            # A deterministic forward with nothing to differentiate: the
+            # unfolded block (it has no backward, here or in JAX).
+            out = mhc_block_unfolded(
+                x_in.reshape(-1, self.dim), h_pre, w1, self.mlp_in_bias, w2, self.mlp_out_bias,
+                h_post, h_res, self.norm_pre_scale, self.norm_pre_bias,
+                self.norm_post_scale, self.norm_post_bias,
+            ).reshape(x_in.shape)
+        else:
+            y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt) @ h_pre
+            y = self.dropout(gelu(y @ w1 + self.mlp_in_bias.to(dt)))
+            y = self.dropout(gelu(y @ w2 + self.mlp_out_bias.to(dt)))
+            out = _layernorm(x_in @ h_res + y @ h_post, self.norm_post_scale,
+                             self.norm_post_bias).to(dt)
+            out = self.dropout(out)
+        if self.monitor:
+            with torch.no_grad():
+                in_norm = torch.linalg.vector_norm(x_in.float(), dim=-1).mean()
+                out_norm = torch.linalg.vector_norm(out.float(), dim=-1).mean()
+                h = h_res32.detach()
+                self.metrics = {
+                    "signal_ratio": out_norm / (in_norm + 1e-8),
+                    "ds_error": doubly_stochastic_error(h),
+                    "row_sum_error": (h.sum(dim=-1) - 1.0).abs().amax(),
+                    "col_sum_error": (h.sum(dim=-2) - 1.0).abs().amax(),
+                }
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -315,13 +410,16 @@ class SqueezeExcite(nn.Module):
 
 class DenseAttention(nn.Module):
     """Multi-head self-attention: dense QKV, matmuls in ``dtype``, softmax in
-    fp32 (explicit products, so the roundings follow the JAX layer)."""
+    fp32 (explicit products, so the roundings follow the JAX layer), dropout
+    on the attention weights in train mode."""
 
-    def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -329,20 +427,23 @@ class DenseAttention(nn.Module):
         qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, head_dim)
         q, k, v = (a.transpose(1, 2) for a in qkv.unbind(dim=2))
         logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(head_dim)
-        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        attn = self.dropout(torch.softmax(logits, dim=-1).to(self.dtype))
         out = (attn @ v).transpose(1, 2).reshape(b, t, self.dim)
         return self.proj(out)
 
 
 class MHCTransformerBlock(nn.Module):
-    """Pre-norm block: ``x + DenseAttention(LN(x))``, then an mHC layer as FFN."""
+    """Pre-norm block: ``x + DenseAttention(LN(x))``, then an mHC layer as FFN;
+    ``dropout_rate`` goes to both."""
 
-    def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.1, **mhc):
         super().__init__()
         self.dtype = dtype
         self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
-        self.attn = DenseAttention(dim, num_heads, dtype=dtype)
-        self.mhc_ffn = ManifoldHyperConnection(dim, expansion_rate=1, mlp_ratio=2, dtype=dtype)
+        self.attn = DenseAttention(dim, num_heads, dtype=dtype, dropout_rate=dropout_rate)
+        self.mhc_ffn = ManifoldHyperConnection(dim, expansion_rate=1, mlp_ratio=2, dtype=dtype,
+                                               dropout_rate=dropout_rate, **mhc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)

@@ -56,10 +56,12 @@ def make_anchor_grid(grid_h: int, grid_w: int, anchors) -> np.ndarray:
 
 class YOLOPredictionHead(nn.Module):
     """Per-scale tower: 1x1 reduce -> GN/SiLU -> 3x3 -> GN/SiLU -> channel mHC
-    -> 1x1 to A*(5+C) logits; returns [B, H, W, A, 5+C]."""
+    -> 1x1 to A*(5+C) logits; returns [B, H, W, A, 5+C]. The mHC keeps the
+    layer's default dropout rate (0.1), as the JAX tower passes none; ``mhc``
+    are its other keyword options."""
 
     def __init__(self, in_channels: int, num_classes: int = 80, head_channels: int = 256,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, **mhc):
         super().__init__()
         self.dtype = dtype
         self.per_anchor = 5 + num_classes
@@ -67,7 +69,7 @@ class YOLOPredictionHead(nn.Module):
         self.GroupNorm_0 = group_norm(head_channels, dtype)
         self.conv = Conv(head_channels, head_channels, (3, 3), use_bias=False, dtype=dtype)
         self.GroupNorm_1 = group_norm(head_channels, dtype)
-        self.mhc = ManifoldHyperConnection(head_channels, 1, 1, dtype=dtype)
+        self.mhc = ManifoldHyperConnection(head_channels, 1, 1, dtype=dtype, **mhc)
         self.predict = Conv(head_channels, NUM_ANCHORS * self.per_anchor, (1, 1), dtype=dtype,
                             bias_init=self._bias_init)
 
@@ -121,12 +123,12 @@ class YOLODetectionHead(nn.Module):
     concatenated fine to coarse."""
 
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024), num_classes: int = 80,
-                 head_channels: int = 256, dtype: torch.dtype = torch.bfloat16):
+                 head_channels: int = 256, dtype: torch.dtype = torch.bfloat16, **mhc):
         super().__init__()
         self.num_classes = num_classes
         for key, c in zip(SCALE_ORDER, in_channels):
             self.add_module(f"head_{key}", YOLOPredictionHead(c, num_classes, head_channels,
-                                                              dtype=dtype))
+                                                              dtype=dtype, **mhc))
         self._anchor_grids: Dict[Any, torch.Tensor] = {}
 
     def _anchor_grid(self, scale_idx: int, h: int, w: int, device) -> torch.Tensor:

@@ -1,11 +1,20 @@
-"""Box geometry for xyxy boxes on trailing ``[..., 4]`` axes.
+"""Box geometry on trailing ``[..., 4]`` axes (xyxy unless named cxcywh).
 
-Counterpart of the parts of ``hvs_tpu/ops/boxes.py`` that NMS uses.
+Counterpart of the parts of ``hvs_tpu/ops/boxes.py`` that NMS and the YOLO
+loss use.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) -> (x1, y1, x2, y2)."""
+    cx, cy, w, h = boxes.unbind(dim=-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -28,3 +37,23 @@ def box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor
 def pairwise_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """All-pairs IoU: ``a`` [..., N, 4] x ``b`` [..., M, 4] -> [..., N, M]."""
     return box_iou(a[..., :, None, :], b[..., None, :, :], eps=eps)
+
+
+def box_ciou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Complete IoU of xyxy boxes, elementwise with broadcasting: IoU minus
+    the centre-distance and aspect-ratio penalties. The aspect weight alpha
+    is held constant for gradients (detached), as in the JAX function."""
+    iou = box_iou(a, b, eps)
+    lt = torch.minimum(a[..., :2], b[..., :2])
+    rb = torch.maximum(a[..., 2:], b[..., 2:])
+    c2 = ((rb - lt) ** 2).sum(dim=-1) + eps
+    ca = (a[..., :2] + a[..., 2:]) / 2
+    cb = (b[..., :2] + b[..., 2:]) / 2
+    rho2 = ((ca - cb) ** 2).sum(dim=-1)
+    wa = torch.clamp(a[..., 2] - a[..., 0], min=eps)
+    ha = torch.clamp(a[..., 3] - a[..., 1], min=eps)
+    wb = torch.clamp(b[..., 2] - b[..., 0], min=eps)
+    hb = torch.clamp(b[..., 3] - b[..., 1], min=eps)
+    v = (4.0 / math.pi ** 2) * (torch.atan(wb / hb) - torch.atan(wa / ha)) ** 2
+    alpha = (v / (1.0 - iou + v + eps)).detach()
+    return iou - rho2 / c2 - alpha * v

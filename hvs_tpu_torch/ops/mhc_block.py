@@ -1,16 +1,22 @@
-"""Fused serve-path mHC block: the Hopper kernel's wrapper and its plain version.
+"""Fused mHC block: the Hopper kernel's wrappers and their plain versions.
 
-Replaces the TPU kernel ``hvs_tpu/ops/pallas/mhc_pallas.py::mhc_block_pallas_packed``
-(kernel body ``_mhc_packed_kernel``). The CUDA source is
-``hvs_tpu_torch/csrc/mhc_block.cu``; it is built with nvcc at first use.
+``mhc_block`` (serve mode) replaces the TPU kernel
+``hvs_tpu/ops/pallas/mhc_pallas.py::mhc_block_pallas_packed`` (kernel body
+``_mhc_packed_kernel``); ``mhc_block_unfolded`` replaces ``mhc_block_pallas``
+(kernel body ``_mhc_kernel``), the chain with a separate ``@ H_pre`` that a
+deterministic forward of the training model runs. Both are modes of one
+CUDA source, ``hvs_tpu_torch/csrc/mhc_block.cu``, built with nvcc at first
+use. Neither has a backward: training differentiates the plain chain.
 
 Per token row: LN1 (fp32 statistics, eps 1e-6) -> ``@ W1_folded + b1`` -> GELU
 (tanh) -> ``@ W2 + b2`` -> GELU -> ``@ H_post``; plus ``x @ H_res``; add; LN2.
 bf16 operands, fp32 accumulation, a round to bf16 after LN1, after each
 product, each bias add, each GELU and the residual add.
 
-What bounds it on an H100: 8·N·d² FLOP against 4·N·d activation bytes
-(+ ~10·d² weight bytes), about 2·d FLOP per byte, so it is memory-bound at
+The unfolded mode rounds ``LN1(x) @ H_pre`` to bf16 before ``@ W1``.
+
+What bounds it on an H100: 8·N·d² FLOP (10·N·d² unfolded) against 4·N·d
+activation bytes (+ ~8-10·d² weight bytes), about 2·d FLOP per byte, so it is memory-bound at
 d <= 128 and tensor-core-bound at d >= 256 (the card's bf16 ridge is ~295
 FLOP/byte). The design reads x once and writes the output once, keeps every
 intermediate in shared memory, and streams the [d, d] weights from L2 in
@@ -30,13 +36,12 @@ import torch.nn.functional as F
 
 SUPPORTED_WIDTHS = (32, 64, 128, 256, 512)
 
-# Kernel launches made by ``mhc_block`` in this process (CUDA tensors only).
+# Kernel launches in this process (CUDA tensors only): ``mhc_block`` (serve
+# mode) and ``mhc_block_unfolded``.
 launches = 0
+launches_unfolded = 0
 
-_argtypes = (
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-    + [ctypes.c_void_p] * 11
-)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -52,9 +57,21 @@ def mhc_block_plain(x, w1_folded, b1, w2, b2, h_post, h_res,
                     ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
     """The kernel's function in plain PyTorch, rounding at the same points.
     ``x`` [N, d]; returns [N, d] in ``x.dtype``."""
+    y = layernorm(x, ln1_scale, ln1_bias).to(torch.bfloat16)
+    return _chain(x, y, w1_folded, b1, w2, b2, h_post, h_res, ln2_scale, ln2_bias)
+
+
+def mhc_block_unfolded_plain(x, h_pre, w1, b1, w2, b2, h_post, h_res,
+                             ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
+    """The unfolded kernel's function in plain PyTorch: ``LN1(x) @ H_pre``
+    rounded to bf16, then the serve chain with ``w1`` in place of W1_folded."""
+    y = layernorm(x, ln1_scale, ln1_bias).to(torch.bfloat16) @ h_pre.to(torch.bfloat16)
+    return _chain(x, y, w1, b1, w2, b2, h_post, h_res, ln2_scale, ln2_bias)
+
+
+def _chain(x, y, w1, b1, w2, b2, h_post, h_res, ln2_scale, ln2_bias) -> torch.Tensor:
     bf = torch.bfloat16
-    y = layernorm(x, ln1_scale, ln1_bias).to(bf)
-    y = F.gelu(y @ w1_folded.to(bf) + b1.to(bf), approximate="tanh")
+    y = F.gelu(y @ w1.to(bf) + b1.to(bf), approximate="tanh")
     y = F.gelu(y @ w2.to(bf) + b2.to(bf), approximate="tanh")
     y = y @ h_post.to(bf)
     res = x.to(bf) @ h_res.to(bf)
@@ -87,15 +104,28 @@ def _check(x, mats, vecs) -> None:
             )
 
 
-def _library():
+def _launch(entry: str, x: torch.Tensor, mats: dict, vecs: dict, args) -> torch.Tensor:
+    """Checks the operands, then launches ``entry`` of the library on the
+    current stream with ``args`` (device pointers after x, out, n, d)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"mhc_block runs on cuda or cpu tensors, got {x.device}")
+    _check(x, mats, vecs)
     from .. import build
 
-    lib = build.load("mhc_block")
-    fn = lib.hvs_mhc_block
+    fn = getattr(build.load("mhc_block"), entry)
     if fn.argtypes is None:
-        fn.argtypes = _argtypes
+        fn.argtypes = _ARGTYPES + [ctypes.c_void_p] * (len(args) + 1)
         fn.restype = ctypes.c_int
-    return fn
+    out = torch.empty_like(x)
+    n, d = x.shape
+    if n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), n, d, *[a.data_ptr() for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")
+    return out
 
 
 def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,
@@ -109,28 +139,35 @@ def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,
     if x.device.type == "cpu":
         return mhc_block_plain(x, w1_folded, b1, w2, b2, h_post, h_res,
                                ln1_scale, ln1_bias, ln2_scale, ln2_bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"mhc_block runs on cuda or cpu tensors, got {x.device}")
-    mats = {"w1_folded": w1_folded, "w2": w2, "h_post": h_post, "h_res": h_res}
-    vecs = {"b1": b1, "b2": b2, "ln1_scale": ln1_scale, "ln1_bias": ln1_bias,
-            "ln2_scale": ln2_scale, "ln2_bias": ln2_bias}
-    _check(x, mats, vecs)
-    fn = _library()
-    out = torch.empty_like(x)
-    n, d = x.shape
-    if n == 0:
-        return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), out.data_ptr(), n, d,
-            w1_folded.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            h_post.data_ptr(), h_res.data_ptr(),
-            ln1_scale.data_ptr(), ln1_bias.data_ptr(),
-            ln2_scale.data_ptr(), ln2_bias.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"mhc_block kernel launch failed with CUDA error {err}")
+    out = _launch("hvs_mhc_block", x,
+                  {"w1_folded": w1_folded, "w2": w2, "h_post": h_post, "h_res": h_res},
+                  {"b1": b1, "b2": b2, "ln1_scale": ln1_scale, "ln1_bias": ln1_bias,
+                   "ln2_scale": ln2_scale, "ln2_bias": ln2_bias},
+                  (w1_folded, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias, ln2_scale,
+                   ln2_bias))
     global launches
     launches += 1
+    return out
+
+
+def mhc_block_unfolded(x, h_pre, w1, b1, w2, b2, h_post, h_res,
+                       ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
+    """Unfolded mHC block (``@ H_pre`` then ``@ W1``) on ``x`` [N, d].
+
+    A CPU ``x`` takes the plain version. A CUDA ``x`` must be bf16 and
+    contiguous, the five matrices [d, d] bf16 and the vectors [d] fp32 on the
+    same device; the kernel is launched on the current stream, or this
+    raises. The output carries no gradient.
+    """
+    if x.device.type == "cpu":
+        return mhc_block_unfolded_plain(x, h_pre, w1, b1, w2, b2, h_post, h_res,
+                                        ln1_scale, ln1_bias, ln2_scale, ln2_bias)
+    out = _launch("hvs_mhc_block_unfolded", x,
+                  {"h_pre": h_pre, "w1": w1, "w2": w2, "h_post": h_post, "h_res": h_res},
+                  {"b1": b1, "b2": b2, "ln1_scale": ln1_scale, "ln1_bias": ln1_bias,
+                   "ln2_scale": ln2_scale, "ln2_bias": ln2_bias},
+                  (h_pre, w1, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias, ln2_scale,
+                   ln2_bias))
+    global launches_unfolded
+    launches_unfolded += 1
     return out

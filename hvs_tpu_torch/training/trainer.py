@@ -1,0 +1,400 @@
+"""ManifoldConstrainedTrainer: the train and eval steps and the host loop.
+
+Counterpart of ``hvs_tpu/training/trainer.py`` (``TrainerConfig``,
+``global_norm``, ``_prepare_images``, ``make_train_step``,
+``make_eval_step``, ``ManifoldConstrainedTrainer`` without
+``train_chunked``). One train step: the model forward in train mode
+(dropout, mHC telemetry), the YOLO loss plus ``manifold_reg_alpha`` times
+the manifold regulariser, autograd, the manifold-aware optimizer, the update
+scaled by ``lr_scale``, and the optional parameter EMA. Validation runs the
+model in eval mode without autograd, where the eligible mHC sites launch
+the unfolded block. The host loop keeps the JAX trainer's stability
+checks (window maxima between checks), LR corrections, plateau and
+manifold-aware controllers, early stopping and checkpoints (``torch.save``).
+
+The model and every tensor of the state live on one device: the CUDA card
+unless ``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..constants import IMAGENET_MEAN, IMAGENET_STD
+from ..device import DeviceLike, resolve_device
+from ..models.layers import set_dropout_generator
+from .losses import build_targets, manifold_regularization_loss, mhc_yolo_loss
+from .optimizer import ManifoldAwareOptimizer
+from .schedule import (ManifoldAwareScheduler, PlateauSchedulerWithReset,
+                       cosine_annealing_with_warmup)
+from .stability import StabilityMonitor, StabilityThresholds
+
+Tensor = torch.Tensor
+Batch = Dict[str, Any]
+
+
+@dataclass
+class TrainerConfig:
+    """Hyperparameters; the same fields and defaults as the JAX trainer's."""
+
+    num_classes: int = 80
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.01
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
+    manifold_reg_alpha: float = 0.01
+    clip_regular: float = 1.0
+    clip_mhc: float = 0.5
+    mhc_lr_factor: float = 0.5
+    project_every: int = 100
+    sk_iters: int = 20
+    stability_check_every: int = 100
+    checkpoint_every_epochs: int = 5
+    early_stopping_patience: int = 10
+    checkpoint_dir: str = "checkpoints"
+    max_boxes: int = 64
+    ema_decay: float = 0.0  # 0 disables EMA
+    cls_mode: str = "bce"
+    cls_pos_weight: float = 1.0
+    backbone_lr_factor: float = 1.0
+    use_plateau: bool = False
+    plateau_patience: int = 5
+    plateau_factor: float = 0.5
+    use_manifold_schedule: bool = False
+    metrics_log: Optional[str] = None
+    checkpoint_every_steps: int = 0  # 0 disables
+    # Alert threshold on the PRE-clip global gradient norm (see the JAX config).
+    grad_explosion_threshold: float = 2000.0
+
+
+@dataclass
+class TrainState:
+    """What the step changes besides the model's parameters and the
+    optimizer's state: the step count, the host-set LR multiplier, and the
+    parameter EMA (None when disabled)."""
+
+    step: int = 0
+    lr_scale: float = 1.0
+    ema_params: Optional[Dict[str, Tensor]] = None
+
+
+def global_norm(tensors: Iterable[Tensor]) -> Tensor:
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+def prepare_images(images: Tensor) -> Tensor:
+    """uint8 batches are normalized on the device (ImageNet mean and std);
+    float batches pass through (already normalized)."""
+    if images.dtype == torch.uint8:
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)
+        return (images.float() / 255.0 - mean) / std
+    return images
+
+
+def batch_to(batch: Batch, device: torch.device) -> Dict[str, Tensor]:
+    """A batch of numpy arrays or tensors as tensors on ``device``."""
+    return {k: (torch.from_numpy(np.asarray(v)) if not isinstance(v, Tensor) else v).to(device)
+            for k, v in batch.items()}
+
+
+def _targets(config: TrainerConfig, images: Tensor, batch: Dict[str, Tensor]):
+    h, w = images.shape[1], images.shape[2]
+    grids = [(h // 8, w // 8), (h // 16, w // 16), (h // 32, w // 32)]
+    return build_targets(batch["boxes"], batch["labels"], batch["box_mask"], grids,
+                         config.num_classes)
+
+
+def train_step(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
+               state: TrainState, batch: Dict[str, Tensor]
+               ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One optimizer step on ``batch`` (tensors on the model's device).
+
+    Updates the model's parameters, ``tx`` and ``state`` in place; returns
+    (metrics as 0-dim tensors, the gradients by parameter name).
+    """
+    model.train()
+    images = prepare_images(batch["images"])
+    targets = _targets(config, images, batch)
+    params = dict(model.named_parameters())
+    outputs = model(images)
+    det_loss, det_metrics = mhc_yolo_loss(outputs["detection"]["raw"], targets,
+                                          config.num_classes, cls_mode=config.cls_mode,
+                                          cls_pos_weight=config.cls_pos_weight)
+    reg_loss, reg_metrics = manifold_regularization_loss(params, sk_iters=config.sk_iters)
+    loss = det_loss + config.manifold_reg_alpha * reg_loss
+    # Parameters the loss does not reach (the feature head) get zeros, as in JAX.
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                 materialize_grads=True)))
+
+    grad_norm = global_norm(grads.values())
+    tx.step(grads, state.lr_scale)
+    if config.ema_decay > 0.0 and state.ema_params is not None:
+        d = config.ema_decay
+        with torch.no_grad():
+            for name, e in state.ema_params.items():
+                e.copy_(d * e + (1.0 - d) * params[name].to(e.dtype))
+    state.step += 1
+
+    metrics = {**det_metrics, **reg_metrics, "detection_loss": det_loss,
+               "loss": loss, "grad_norm": grad_norm}
+    metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+    stability = outputs.get("stability", {})
+    if stability:
+        metrics["ds_error_max"] = torch.stack([m["ds_error"] for m in stability.values()]).max()
+        metrics["signal_ratio_mean"] = torch.stack(
+            [m["signal_ratio"] for m in stability.values()]).mean()
+    return metrics, grads
+
+
+@torch.no_grad()
+def eval_step(model: nn.Module, config: TrainerConfig, batch: Dict[str, Tensor],
+              params: Optional[Dict[str, Tensor]] = None) -> Dict[str, Tensor]:
+    """Validation loss on ``batch``: the model in eval mode (deterministic,
+    no autograd), optionally with other ``params`` (the EMA) swapped in."""
+    model.eval()
+    images = prepare_images(batch["images"])
+    targets = _targets(config, images, batch)
+    if params is None:
+        outputs = model(images)
+    else:
+        outputs = torch.func.functional_call(model, params, (images,))
+    loss, metrics = mhc_yolo_loss(outputs["detection"]["raw"], targets, config.num_classes,
+                                  cls_mode=config.cls_mode, cls_pos_weight=config.cls_pos_weight)
+    return {"val_loss": loss, **{f"val_{k}": torch.as_tensor(v) for k, v in metrics.items()}}
+
+
+def _host(metrics: Dict[str, Tensor]) -> Dict[str, float]:
+    """All metrics to the host in one transfer."""
+    keys = list(metrics)
+    values = torch.stack([metrics[k].float().reshape(()) for k in keys]).cpu().tolist()
+    return dict(zip(keys, values))
+
+
+class ManifoldConstrainedTrainer:
+    """Host-side training loop for a ``HybridVisionSystem``.
+
+    ``seed`` seeds the dropout generator (the model's own init is seeded at
+    construction). The model is moved to ``device``.
+    """
+
+    def __init__(self, model: nn.Module, config: TrainerConfig = TrainerConfig(),
+                 device: DeviceLike = None, seed: int = 0):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.config = config
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        set_dropout_generator(self.model, self.generator)
+        self.monitor = StabilityMonitor(
+            StabilityThresholds(grad_explosion=config.grad_explosion_threshold))
+        self.history: Dict[str, list] = {"train_loss": [], "val_loss": []}
+        self.best_val_loss = float("inf")
+        self.epochs_without_improvement = 0
+        # lr_scale = stability corrections x plateau x manifold-aware.
+        self._stab_scale = 1.0
+        self.plateau = (PlateauSchedulerWithReset(factor=config.plateau_factor,
+                                                  patience=config.plateau_patience)
+                        if config.use_plateau else None)
+        self.manifold_sched = ManifoldAwareScheduler() if config.use_manifold_schedule else None
+        # Max since the last check, so a spike between checks is not missed.
+        self._window_max: Dict[str, float] = {}
+        self._metrics_fh = None
+        self.schedule = cosine_annealing_with_warmup(config.learning_rate, config.warmup_steps,
+                                                     config.total_steps)
+        self.tx: Optional[ManifoldAwareOptimizer] = None
+        self.state: Optional[TrainState] = None
+
+    def params(self) -> Dict[str, Tensor]:
+        return dict(self.model.named_parameters())
+
+    # ------------------------------------------------------------------
+    def init_state(self, sample_batch: Optional[Batch] = None) -> TrainState:
+        """A fresh optimizer and train state for the model's current
+        parameters (the model is initialised at construction, so the sample
+        batch the JAX trainer needs for ``init`` is not used)."""
+        del sample_batch
+        c = self.config
+        self.tx = ManifoldAwareOptimizer(
+            self.params(), self.schedule, weight_decay=c.weight_decay,
+            mhc_lr_factor=c.mhc_lr_factor, clip_regular=c.clip_regular, clip_mhc=c.clip_mhc,
+            project_every=c.project_every, sk_iters=c.sk_iters,
+            backbone_lr_factor=c.backbone_lr_factor)
+        ema = ({k: v.detach().clone() for k, v in self.params().items()}
+               if c.ema_decay > 0.0 else None)
+        self.state = TrainState(step=0, lr_scale=1.0, ema_params=ema)
+        return self.state
+
+    def train_step(self, batch: Batch) -> Dict[str, Tensor]:
+        assert self.state is not None, "call init_state first"
+        metrics, _ = train_step(self.model, self.tx, self.config, self.state,
+                                batch_to(batch, self.device))
+        return metrics
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, loader: Iterable, epoch: int) -> Dict[str, float]:
+        """One epoch with periodic stability checks and corrections; the
+        check reads the maximum since the last check of the spike-prone
+        scalars. Returns the epoch means of the step metrics."""
+        agg: Dict[str, float] = {}
+        n = 0
+        for batch in loader:
+            host = _host(self.train_step(batch))
+            for k in ("grad_norm", "loss", "ds_error_max", "signal_ratio_mean"):
+                if k in host and np.isfinite(host[k]):
+                    self._window_max[k] = max(self._window_max.get(k, 0.0), host[k])
+            step = self.state.step
+            self._log_step_metrics(step, host)
+            if step % self.config.stability_check_every == 0:
+                check = dict(host)
+                for k in ("grad_norm", "ds_error_max", "signal_ratio_mean"):
+                    if k in self._window_max:
+                        check[k] = self._window_max[k]
+                report = self.monitor.check_stability(check, params=self.params())
+                self._window_max = {}
+                if self.manifold_sched is not None:
+                    self.manifold_sched.step(check)
+                    self._sync_lr_scale()
+                if not report["is_stable"]:
+                    self._apply_stability_corrections(report)
+                elif self._stab_scale < 1.0:
+                    # Corrections are a brake, not a ratchet: recover after clean checks.
+                    self._stab_scale = min(self._stab_scale * 1.25, 1.0)
+                    self._sync_lr_scale()
+            if self.config.checkpoint_every_steps and \
+                    step % self.config.checkpoint_every_steps == 0:
+                self.save_checkpoint(f"step_{step}")
+            n += 1
+            for k, v in host.items():
+                agg[k] = agg.get(k, 0.0) + v
+        return {k: v / max(n, 1) for k, v in agg.items()}
+
+    def _log_step_metrics(self, step: int, host: Dict[str, float]) -> None:
+        if self.config.metrics_log is None:
+            return
+        if self._metrics_fh is None:
+            self._metrics_fh = open(self.config.metrics_log, "a", buffering=1)
+        row = {"step": step, "time": time.time(), "lr_scale": self.state.lr_scale}
+        for k in ("loss", "grad_norm", "detection_loss", "ds_error_max", "signal_ratio_mean",
+                  "reg_loss"):
+            if k in host:
+                row[k] = host[k]
+        self._metrics_fh.write(json.dumps(row) + "\n")
+
+    def close(self) -> None:
+        """Close the per-step metrics log, if one is open."""
+        if self._metrics_fh is not None:
+            self._metrics_fh.close()
+            self._metrics_fh = None
+
+    def _sync_lr_scale(self) -> None:
+        scale = self._stab_scale
+        if self.plateau is not None:
+            scale *= self.plateau.scale
+        if self.manifold_sched is not None:
+            scale *= self.manifold_sched.scale
+        # The JAX trainer keeps lr_scale as an fp32 array.
+        self.state.lr_scale = float(np.float32(max(scale, 1e-3)))
+
+    def _apply_stability_corrections(self, report: Dict[str, Any]) -> None:
+        """Halve the LR multiplier on instability."""
+        self._stab_scale = max(self._stab_scale * 0.5, 1e-3)
+        self._sync_lr_scale()
+        self.monitor.record_correction(self.state.lr_scale)
+
+    # ------------------------------------------------------------------
+    def eval_params(self, use_ema: bool = True) -> Optional[Dict[str, Tensor]]:
+        """The EMA weights when maintained, else None (the model's own)."""
+        if use_ema and self.state is not None and self.state.ema_params is not None:
+            return self.state.ema_params
+        return None
+
+    def validate(self, loader: Iterable, use_ema: bool = True) -> Dict[str, float]:
+        params = self.eval_params(use_ema)
+        agg: Dict[str, float] = {}
+        n = 0
+        for batch in loader:
+            metrics = _host(eval_step(self.model, self.config, batch_to(batch, self.device),
+                                      params))
+            n += 1
+            for k, v in metrics.items():
+                agg[k] = agg.get(k, 0.0) + v
+        return {k: v / max(n, 1) for k, v in agg.items()}
+
+    # ------------------------------------------------------------------
+    def train(self, train_loader_fn: Callable[[], Iterable],
+              val_loader_fn: Optional[Callable[[], Iterable]] = None, epochs: int = 1,
+              resume_from: Optional[str] = None) -> Dict[str, Any]:
+        """Epochs with validation, early stopping and checkpoints."""
+        if self.state is None:
+            self.init_state()
+        if resume_from:
+            self.load_checkpoint(resume_from)
+        for epoch in range(epochs):
+            train_metrics = self.train_epoch(train_loader_fn(), epoch)
+            self.history["train_loss"].append(train_metrics.get("loss", float("nan")))
+            if val_loader_fn is not None:
+                val_metrics = self.validate(val_loader_fn())
+                self.history["val_loss"].append(val_metrics["val_loss"])
+                if self.plateau is not None:
+                    self.plateau.step(val_metrics["val_loss"])
+                    self._sync_lr_scale()
+                if val_metrics["val_loss"] < self.best_val_loss:
+                    self.best_val_loss = val_metrics["val_loss"]
+                    self.epochs_without_improvement = 0
+                    self.save_checkpoint("best")
+                else:
+                    self.epochs_without_improvement += 1
+                if self.epochs_without_improvement >= self.config.early_stopping_patience:
+                    break
+            if (epoch + 1) % self.config.checkpoint_every_epochs == 0:
+                self.save_checkpoint(f"epoch_{epoch + 1}")
+        return {"history": self.history, "best_val_loss": self.best_val_loss}
+
+    # ------------------------------------------------------------------
+    def _path(self, name: str) -> str:
+        if os.path.isabs(name):
+            return name
+        return os.path.abspath(os.path.join(self.config.checkpoint_dir, name))
+
+    def save_checkpoint(self, name: str) -> str:
+        """The full train state (parameters, optimizer state, step, lr_scale,
+        EMA) with ``torch.save``, and the history beside it as JSON."""
+        path = self._path(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"params": {k: v.detach() for k, v in self.params().items()},
+                    "opt_state": self.tx.state_dict(), "step": self.state.step,
+                    "lr_scale": self.state.lr_scale, "ema_params": self.state.ema_params},
+                   path + ".pt")
+        with open(path + ".history.json", "w") as f:
+            json.dump(self.history, f)
+        return path
+
+    def load_checkpoint(self, name_or_path: str) -> None:
+        """Restore a state written by ``save_checkpoint`` onto the live model
+        and optimizer (``init_state`` first)."""
+        assert self.state is not None, "init_state before load_checkpoint"
+        path = self._path(name_or_path)
+        ckpt = torch.load(path + ".pt", map_location=self.device)
+        with torch.no_grad():
+            for name, p in self.params().items():
+                p.copy_(ckpt["params"][name])
+        self.tx.load_state_dict(ckpt["opt_state"])
+        ema = ckpt.get("ema_params")
+        if ema is not None and self.state.ema_params is not None:
+            for name, e in self.state.ema_params.items():
+                e.copy_(ema[name])
+        self.state.step = int(ckpt["step"])
+        self.state.lr_scale = float(ckpt["lr_scale"])
+        hist = path + ".history.json"
+        if os.path.exists(hist):
+            with open(hist) as f:
+                self.history = json.load(f)
+

@@ -26,7 +26,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 IMAGE = 640
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("mhc_block (kernel A)", ("mhc_block_kernel",)),
+    ("mhc_block (kernel A or C)", ("mhc_block_kernel",)),
+    ("sinkhorn forward (kernel B)", ("sinkhorn_forward_kernel",)),
+    ("sinkhorn backward (kernel B)", ("sinkhorn_backward_kernel",)),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "winograd", "fprop")),
     ("matmul", ("gemm", "cutlass", "cublas", "matmul", "splitk")),
     ("reduction", ("reduce", "norm", "mean", "sum")),
@@ -76,6 +78,14 @@ def main() -> None:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
+    summarize(prof, args.iters, wall_ms, card, {"batch": args.batch, "image": IMAGE},
+              "forward")
+
+
+def summarize(prof, iters: int, wall_ms: float, card: str, head: dict, unit: str) -> None:
+    """Prints the profile of ``iters`` repetitions of one ``unit`` (a forward,
+    a train step): wall and summed device ms per unit, the idle share, device
+    ms by category and the top 20 kernels."""
     by_name = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
         dev_us = getattr(ev, "device_time", None)
@@ -84,22 +94,21 @@ def main() -> None:
         if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us:
             by_name[ev.name][0] += dev_us
             by_name[ev.name][1] += 1
-    device_ms = sum(v[0] for v in by_name.values()) / 1e3 / args.iters
+    device_ms = sum(v[0] for v in by_name.values()) / 1e3 / iters
     cats = defaultdict(float)
     for name, (us, _) in by_name.items():
-        cats[category(name)] += us / 1e3 / args.iters
-    print(json.dumps({"batch": args.batch, "image": IMAGE, "wall_ms_per_forward": wall_ms,
-                      "device_ms_per_forward": device_ms,
+        cats[category(name)] += us / 1e3 / iters
+    print(json.dumps({**head, f"wall_ms_per_{unit}": wall_ms,
+                      f"device_ms_per_{unit}": device_ms,
                       "idle_share": (1.0 - device_ms / wall_ms) if wall_ms else None,
-                      "kernels_per_forward": sum(v[1] for v in by_name.values()) / args.iters,
+                      f"kernels_per_{unit}": sum(v[1] for v in by_name.values()) / iters,
                       "card": card}))
-    print(json.dumps({"device_ms_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
-                      "card": card}))
+    print(json.dumps({**head, "device_ms_by_category":
+                      dict(sorted(cats.items(), key=lambda kv: -kv[1])), "card": card}))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     for name, (us, count) in top:
-        print(json.dumps({"kernel": name[:120], "ms_per_forward": us / 1e3 / args.iters,
-                          "launches_per_forward": count / args.iters}))
-
+        print(json.dumps({"kernel": name[:120], f"ms_per_{unit}": us / 1e3 / iters,
+                          f"launches_per_{unit}": count / iters}))
 
 if __name__ == "__main__":
     main()

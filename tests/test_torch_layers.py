@@ -114,7 +114,7 @@ def test_dense_attention_matches_jax():
     jmod = jl.DenseAttention(dim=dim, num_heads=heads, dropout_rate=0.0, dtype=F32)
     params = _perturbed(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 6)
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
-    tmod = tl.DenseAttention(dim, heads, dtype=torch.float32)
+    tmod = tl.DenseAttention(dim, heads, dtype=torch.float32, dropout_rate=0.0)
     load_flax_params(tmod, params)
     np.testing.assert_allclose(tmod(_t(x)).detach().numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -127,7 +127,8 @@ def test_mhc_transformer_block_matches_jax():
     params = _perturbed(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 8)
     want = np.asarray(jmod.apply({"params": params, "constraints": jax_constraints(params, 10)},
                                  jnp.asarray(x)))
-    tmod = tl.MHCTransformerBlock(dim, heads, dtype=torch.float32)
+    tmod = tl.MHCTransformerBlock(dim, heads, dtype=torch.float32, dropout_rate=0.0,
+                                  precomputed_constraints=True)
     load_flax_params(tmod, params)
     load_constraints(tmod, compute_constraints(param_tree(tmod), 10))
     with torch.no_grad():
@@ -179,7 +180,8 @@ def test_conv_mhc_block_serve_tail_matches_jax():
         params = _perturbed(jmod.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"], 9)
         want = np.asarray(jmod.apply(
             {"params": params, "constraints": jax_constraints(params, 10)}, jnp.asarray(x)))
-        tmod = ConvMHCBlock(in_ch, ch, stride, dtype=torch.float32)
+        tmod = ConvMHCBlock(in_ch, ch, stride, dtype=torch.float32,
+                            precomputed_constraints=True).eval()
         load_flax_params(tmod, params)
         load_constraints(tmod, compute_constraints(param_tree(tmod), 10))
         with torch.no_grad():

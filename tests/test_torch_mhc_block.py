@@ -1,9 +1,11 @@
 """The fused mHC block of the port (hvs_tpu_torch.ops.mhc_block) and its layer.
 
-The plain version is held against the JAX Pallas kernel
-``mhc_block_pallas_packed``, which runs in interpret mode on the CPU as the
-JAX package's own tests run it. The layer is held against the JAX layer's
-XLA path in fp32. The CUDA kernel itself runs only on a card; its tests are
+The serve block's plain version is held against the JAX Pallas kernel
+``mhc_block_pallas_packed`` and the unfolded block's against
+``mhc_block_pallas``; both run in interpret mode on the CPU as the JAX
+package's own tests run them. The layer is held against the JAX layer: the
+serve branch against its XLA path, the training branch against its
+non-precomputed path. The CUDA kernels run only on a card; their tests are
 in test_torch_gpu.py.
 """
 
@@ -17,7 +19,7 @@ import torch
 
 from hvs_tpu.models import ManifoldHyperConnection as JaxMHC
 from hvs_tpu.models import compute_constraints as jax_constraints
-from hvs_tpu.ops.pallas import mhc_block_pallas_packed
+from hvs_tpu.ops.pallas import mhc_block_pallas, mhc_block_pallas_packed
 from hvs_tpu.ops.sinkhorn import sinkhorn_log as jax_sinkhorn
 from hvs_tpu_torch.models.constraints import compute_constraints, param_tree
 from hvs_tpu_torch.models.layers import ManifoldHyperConnection
@@ -97,7 +99,8 @@ def test_mhc_layer_fp32_matches_jax_xla_path(d, expansion, ratio, x_shape):
                  "constraints": jax_constraints({"l": params}, 10)["l"]}
     want = np.asarray(layer.apply(variables, jnp.asarray(x)))
 
-    port = ManifoldHyperConnection(d, expansion, ratio, dtype=torch.float32)
+    port = ManifoldHyperConnection(d, expansion, ratio, dtype=torch.float32,
+                                   precomputed_constraints=True)
     with torch.no_grad():
         for k, v in params.items():
             getattr(port, k).copy_(torch.from_numpy(v))
@@ -119,7 +122,7 @@ def test_mhc_layer_bf16_fused_site_matches_jax():
     with jax.default_matmul_precision("bfloat16"):
         want = np.asarray(layer.apply(variables, jnp.asarray(x)), np.float32)
 
-    port = ManifoldHyperConnection(d, 1, 1, dtype=torch.bfloat16)
+    port = ManifoldHyperConnection(d, 1, 1, dtype=torch.bfloat16, precomputed_constraints=True)
     with torch.no_grad():
         for k, v in params.items():
             getattr(port, k).copy_(torch.from_numpy(v))
@@ -134,7 +137,7 @@ def test_mhc_layer_bf16_fused_site_matches_jax():
 
 
 def test_layer_without_constraints_raises():
-    port = ManifoldHyperConnection(32, 1, 1, dtype=torch.float32)
+    port = ManifoldHyperConnection(32, 1, 1, dtype=torch.float32, precomputed_constraints=True)
     with pytest.raises(RuntimeError, match="constraints"):
         port(torch.zeros(2, 32))
 
@@ -148,3 +151,112 @@ def test_layer_without_constraints_raises():
 ])
 def test_fused_sites(d, expansion, ratio, dtype, fused):
     assert ManifoldHyperConnection(d, expansion, ratio, dtype=dtype).fused == fused
+
+
+def _h_pre(d, seed):
+    """H_pre as the training forward makes it: sigmoid of logits at the init scale."""
+    r = np.random.default_rng(seed)
+    return (1.0 / (1.0 + np.exp(-0.1 * r.standard_normal((d, d))))).astype(np.float32)
+
+
+@pytest.mark.parametrize("d,n", [(128, 300), (256, 300)])
+def test_unfolded_plain_version_matches_jax_pallas_kernel(d, n):
+    x, args = _block_inputs(n, d, seed=d + 1)
+    h_pre = _h_pre(d, d)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(mhc_block_pallas(xj, jnp.asarray(h_pre), *[jnp.asarray(a) for a in args]),
+                      np.float32)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    got = mhc_mod.mhc_block_unfolded_plain(xt, torch.from_numpy(h_pre),
+                                           *[torch.from_numpy(a) for a in args])
+    assert got.dtype == torch.bfloat16 and got.shape == (n, d)
+    a, b = got.float().numpy().ravel(), want.ravel()
+    assert np.corrcoef(a, b)[0, 1] > MIN_CORR
+    assert np.mean(np.abs(a - b)) < MAX_MEAN_ABS
+
+
+def test_unfolded_wrapper_takes_plain_version_for_cpu_tensors():
+    x, args = _block_inputs(100, 32, seed=4)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    targs = [torch.from_numpy(_h_pre(32, 4))] + [torch.from_numpy(a) for a in args]
+    before = mhc_mod.launches_unfolded
+    out = mhc_mod.mhc_block_unfolded(xt, *targs)
+    assert mhc_mod.launches_unfolded == before
+    torch.testing.assert_close(out, mhc_mod.mhc_block_unfolded_plain(xt, *targs), rtol=0, atol=0)
+
+
+def _training_layer_pair(d, shape, seed, dtype):
+    """The JAX layer with per-forward constraints and the port's training
+    branch with the same weights, conditioned: H_res near identity as above,
+    H_pre = sigmoid(6·I - 3 + noise) and H_post = 2·sigmoid(6·I - 6 + noise)
+    near identity too. At the init scale H_pre is ~0.5 and H_post ~1
+    everywhere, so LN1(x) @ H_pre and y @ H_post are near-constant rows whose
+    bf16 rounding (JAX rounds inside GELU, PyTorch does not) the LayerNorms
+    would amplify over the signal."""
+    layer, params = _jax_layer(d, 1, 1, shape, seed=seed, conditioned=True)
+    r = np.random.default_rng(seed + 1)
+    eye = np.eye(d)
+    params["H_pre_raw"] = (6.0 * eye - 3.0 + 0.5 * r.standard_normal((d, d))).astype(np.float32)
+    params["H_post_raw"] = (6.0 * eye - 6.0 + 0.5 * r.standard_normal((d, d))).astype(np.float32)
+    layer = layer.clone(precomputed_constraints=False, dtype=dtype, monitor=True)
+    port = ManifoldHyperConnection(d, 1, 1, dtype=torch.bfloat16 if dtype == jnp.bfloat16
+                                   else torch.float32, sk_iters=10, monitor=True,
+                                   dropout_rate=0.0)
+    with torch.no_grad():
+        for k, v in params.items():
+            getattr(port, k).copy_(torch.from_numpy(v))
+    return layer, params, port
+
+
+@pytest.mark.parametrize("d,shape", [(32, (2, 7, 5, 32)), (64, (2, 6, 5, 64))])
+def test_training_layer_eval_forward_takes_unfolded_block_and_matches_jax(d, shape):
+    """A deterministic forward of the training model in bf16: the port runs
+    the unfolded block (its plain version here), JAX its XLA chain."""
+    layer, params, port = _training_layer_pair(d, shape, seed=d + 2, dtype=jnp.bfloat16)
+    x = np.random.default_rng(d).standard_normal(shape).astype(np.float32)
+    with jax.default_matmul_precision("bfloat16"):
+        want, coll = layer.apply({"params": params}, jnp.asarray(x), mutable=["stability"])
+    want = np.asarray(want, np.float32)
+    assert port.fused and not port.precomputed_constraints
+    port.eval()
+    calls = []
+    orig = mhc_mod.mhc_block_unfolded_plain
+    mhc_mod.mhc_block_unfolded_plain = lambda *a: calls.append(1) or orig(*a)
+    try:
+        with torch.no_grad():
+            got = port(torch.from_numpy(x))
+    finally:
+        mhc_mod.mhc_block_unfolded_plain = orig
+    assert calls == [1]
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    a, b = got.float().numpy().ravel(), want.ravel()
+    assert np.corrcoef(a, b)[0, 1] > MIN_CORR
+    assert np.mean(np.abs(a - b)) < MAX_MEAN_ABS
+    want_m = coll["stability"]["metrics"]
+    for k in ("ds_error", "row_sum_error", "col_sum_error"):
+        np.testing.assert_allclose(float(port.metrics[k]), float(want_m[k]), rtol=0, atol=1e-6)
+
+
+def test_training_layer_train_forward_matches_jax_fp32():
+    """The training branch in train mode (dropout 0) with its gradient, fp32."""
+    d, shape = 32, (2, 6, 32)
+    layer, params, port = _training_layer_pair(d, shape, seed=11, dtype=jnp.float32)
+    x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    w = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+
+    def loss(p):
+        out, coll = layer.apply({"params": p}, jnp.asarray(x), mutable=["stability"])
+        return jnp.sum(out * w), (out, coll["stability"]["metrics"])
+
+    (_, (want, want_m)), want_g = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    port.train()
+    got = port(torch.from_numpy(x))
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    for k, v in want_m.items():
+        np.testing.assert_allclose(float(port.metrics[k]), float(v), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    for k, g in jax.device_get(want_g).items():
+        gt = getattr(port, k).grad.numpy()
+        np.testing.assert_allclose(gt, g, rtol=0, atol=1e-4 * max(np.abs(g).max(), 1e-3),
+                                   err_msg=k)
