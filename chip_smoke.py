@@ -10,8 +10,10 @@ Phases, each of which fails the run with a non-zero exit:
      times (CUDA events) beside the least time the card could take:
      A (serve mHC block) at the token counts of the 640² serve path (batch 1
      and 16) and a ragged count; B (Sinkhorn, forward and backward) at the
-     five widths of the flagship's mHC matrices, a ragged width and the
-     25-matrix mix of one train step; C (unfolded mHC block) at the 18 sites
+     five widths of the flagship's mHC matrices, a ragged width, an uneven
+     cluster split (384) and a width of the streamed kernels (640), with each
+     launch's cluster size, then the 25-matrix mix of one train step through
+     the grouped call (one launch per width); C (unfolded mHC block) at the 18 sites
      of the validation forward at 416², batch 8, and a ragged count;
   3. serve: the full-width flagship ``ProductionHybridVision`` (seeded random
      weights, bf16) served by ``Detector`` at 640², batch 16 and batch 1; the
@@ -402,26 +404,30 @@ def sinkhorn_logits(n: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.float32)).cuda()
 
 
-def sinkhorn_bounds_ms(n: int, sm_clock_hz: float):
-    """Least times of one [n, n] matrix, forward (with the history kept) and
-    backward: bytes (each input read once, each output written once) over
-    the memory rate against the exponentials over the SFU rate."""
+def sinkhorn_bounds_ms(widths, sm_clock_hz: float):
+    """Least times of the [n, n] matrices of ``widths`` together, forward
+    (with the history kept) and backward: the larger of the bytes (each input
+    read once, each output written once) over the memory rate and the
+    exponentials over the SFU rate of all 132 SMs."""
     k = SK_ITERS
-    hist_bytes = 4.0 * 2 * (k + 1) * n
     sfu = SFU_PER_CLOCK * sm_clock_hz
     out = {}
-    for name, nbytes, exps in (("forward", 8.0 * n * n + hist_bytes, (2 * k + 2) * n * n),
-                               ("backward", 16.0 * n * n + hist_bytes, 2 * k * n * n)):
+    for name, per_byte, exps_per in (("forward", 8.0, 2 * k + 2), ("backward", 16.0, 2 * k)):
+        nbytes = sum(per_byte * n * n + 4.0 * 2 * (k + 1) * n for n in widths)
+        exps = sum(exps_per * n * n for n in widths)
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, exps / sfu * 1e3
         out[name] = (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes")
     return out
 
 
 def phase_sinkhorn(card: str, sm_clock_hz: float):
-    """Kernel B, forward and backward, against its plain version at the five
-    path widths and a ragged one, then on the 25 matrices of one step."""
+    """Kernel B, forward and backward, against its plain version: one matrix
+    at each of the five path widths, a ragged width, an uneven cluster split
+    above 256 (384) and one width of the streamed kernels (640), with each
+    launch's cluster size; then the 25 matrices of one step through the
+    grouped call, one launch per width, as the train step launches them."""
     rows = {}
-    for n in sorted(set(SINKHORN_MIX) | {77}):
+    for n in sorted(set(SINKHORN_MIX) | {77, 384, 640}):
         logits = sinkhorn_logits(n, seed=n)
         dp = sinkhorn_logits(n, seed=n + 1)
         p, hist = sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True)
@@ -435,7 +441,9 @@ def phase_sinkhorn(card: str, sm_clock_hz: float):
         g_scale = float(grad_ref.abs().max())
         g_err = float((grad - grad_ref).abs().max())
         finite = bool(torch.isfinite(p).all() and torch.isfinite(grad).all())
-        bounds = sinkhorn_bounds_ms(n, sm_clock_hz)
+        bounds = sinkhorn_bounds_ms([n], sm_clock_hz)
+        plans = {part: sink_mod.launch_plan(n, backward=part == "backward")
+                 for part in ("forward", "backward")}
         fwd_ms = time_ms(lambda: sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True))
         bwd_ms = time_ms(lambda: sink_mod.sinkhorn_backward(logits, p, dp, hist, SK_ITERS))
         with torch.no_grad():
@@ -443,6 +451,10 @@ def phase_sinkhorn(card: str, sm_clock_hz: float):
         plain_bwd_ms = time_ms_eager(
             lambda: torch.autograd.grad(p_ref, x, dp, retain_graph=True))
         row = {"phase": "kernel", "kernel": "sinkhorn", "n": n, "iters": SK_ITERS,
+               "forward_cluster": plans["forward"]["cluster"],
+               "backward_cluster": plans["backward"]["cluster"],
+               "forward_max_active_clusters": plans["forward"]["max_active_clusters"],
+               "backward_max_active_clusters": plans["backward"]["max_active_clusters"],
                "p_max_abs_err": p_err, "row_sum_err": row_err, "grad_max_abs_err": g_err,
                "grad_max_abs": g_scale, "forward_ms": fwd_ms, "forward_plain_ms": plain_fwd_ms,
                "forward_bound_ms": bounds["forward"][0], "forward_bound_by": bounds["forward"][1],
@@ -456,58 +468,91 @@ def phase_sinkhorn(card: str, sm_clock_hz: float):
                  f"(need <= {SINK_P_ATOL}), row sum error {row_err} (need <= {SINK_ROW_ATOL}), "
                  f"gradient max |diff| {g_err} (need <= {SINK_GRAD_RTOL} x {g_scale})")
         rows[n] = row
+    return rows, sinkhorn_mix(card, sm_clock_hz)
 
-    # The 25 matrices of one step through the autograd wrapper, as the model
-    # and the regulariser call it: one forward and one backward launch each.
+
+def sinkhorn_mix(card: str, sm_clock_hz: float) -> dict:
+    """The 25 matrices of one step through ``sinkhorn_log_many`` with
+    autograd, as the model forward and the regulariser call it: one forward
+    and one backward launch per width, each matrix held against its plain
+    version. Then the five launches of each direction timed together on the
+    stacked inputs, beside the plain version on the same stacks."""
+    widths = sorted(set(SINKHORN_MIX))
+    logits = [sinkhorn_logits(n, seed=1000 + i) for i, n in enumerate(SINKHORN_MIX)]
+    weights = [sinkhorn_logits(n, seed=2000 + i) for i, n in enumerate(SINKHORN_MIX)]
+    xs = [x.clone().requires_grad_() for x in logits]
     before = (sink_mod.launches_forward, sink_mod.launches_backward)
-    worst = 0.0
-    for i, n in enumerate(SINKHORN_MIX):
-        logits = sinkhorn_logits(n, seed=1000 + i)
-        weight = sinkhorn_logits(n, seed=2000 + i)
-        x = logits.clone().requires_grad_()
-        (sinkhorn_log(x, SK_ITERS) * weight).sum().backward()
-        ref = logits.clone().requires_grad_()
-        p_ref = sink_mod.sinkhorn_log_plain(ref, SK_ITERS)
-        (p_ref * weight).sum().backward()
-        with torch.no_grad():
-            p_err = float((sinkhorn_log(logits, SK_ITERS) - p_ref).abs().max())
-        g_err = float((x.grad - ref.grad).abs().max() / ref.grad.abs().max())
-        worst = max(worst, g_err)
-        if not (p_err <= SINK_P_ATOL and g_err <= SINK_GRAD_RTOL):
-            fail(f"sinkhorn mix matrix {i} (n={n}): P max |diff| {p_err}, relative gradient "
-                 f"error {g_err}")
+    ps = sink_mod.sinkhorn_log_many(xs, SK_ITERS)
+    sum((p * w).sum() for p, w in zip(ps, weights)).backward()
+    torch.cuda.synchronize()
     launched = (sink_mod.launches_forward - before[0], sink_mod.launches_backward - before[1])
-    if launched != (2 * len(SINKHORN_MIX), len(SINKHORN_MIX)):
+    if launched != (len(widths), len(widths)):
         fail(f"sinkhorn mix launched {launched} (forward, backward), expected "
-             f"{(2 * len(SINKHORN_MIX), len(SINKHORN_MIX))}")
-    print(json.dumps({"phase": "kernel", "kernel": "sinkhorn", "mix": len(SINKHORN_MIX),
-                      "worst_relative_grad_err": worst, "card": card}), flush=True)
-    return rows
+             f"{(len(widths), len(widths))}: one of each per width")
+    p_worst = g_worst = g_abs_worst = 0.0
+    for i, (x, p, w) in enumerate(zip(xs, ps, weights)):
+        ref = logits[i].clone().requires_grad_()
+        p_ref = sink_mod.sinkhorn_log_plain(ref, SK_ITERS)
+        (p_ref * w).sum().backward()
+        p_err = float((p.detach() - p_ref.detach()).abs().max())
+        g_abs = float((x.grad - ref.grad).abs().max())
+        g_err = g_abs / float(ref.grad.abs().max())
+        p_worst = max(p_worst, p_err)
+        g_worst = max(g_worst, g_err)
+        g_abs_worst = max(g_abs_worst, g_abs)
+        if not (p_err <= SINK_P_ATOL and g_err <= SINK_GRAD_RTOL):
+            fail(f"sinkhorn mix matrix {i} (n={SINKHORN_MIX[i]}): P max |diff| {p_err}, "
+                 f"relative gradient error {g_err}")
+
+    # The stacks one train step launches, one per width.
+    stacks = [torch.stack([x for x, m in zip(logits, SINKHORN_MIX) if m == n]) for n in widths]
+    dps = [torch.stack([w for w, m in zip(weights, SINKHORN_MIX) if m == n]) for n in widths]
+    fwd = [sink_mod.sinkhorn_forward(x, SK_ITERS, keep_history=True) for x in stacks]
+    fwd_ms = time_ms(lambda: [sink_mod.sinkhorn_forward(x, SK_ITERS, keep_history=True)
+                              for x in stacks])
+    bwd_ms = time_ms(lambda: [sink_mod.sinkhorn_backward(x, p, dp, h, SK_ITERS)
+                              for x, (p, h), dp in zip(stacks, fwd, dps)])
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: [sink_mod.sinkhorn_log_plain(x, SK_ITERS)
+                                        for x in stacks])
+    refs = [x.clone().requires_grad_() for x in stacks]
+    p_refs = [sink_mod.sinkhorn_log_plain(r, SK_ITERS) for r in refs]
+    plain_bwd_ms = time_ms_eager(lambda: torch.autograd.grad(p_refs, refs, dps,
+                                                             retain_graph=True))
+    bounds = sinkhorn_bounds_ms(SINKHORN_MIX, sm_clock_hz)
+    clusters = {part: {n: sink_mod.launch_plan(n, backward=part == "backward",
+                                               batch=SINKHORN_MIX.count(n))["cluster"]
+                       for n in widths} for part in ("forward", "backward")}
+    row = {"phase": "kernel", "kernel": "sinkhorn", "mix": len(SINKHORN_MIX),
+           "launches_per_direction": len(widths), "forward_clusters": clusters["forward"],
+           "backward_clusters": clusters["backward"], "forward_ms": fwd_ms,
+           "forward_plain_ms": plain_fwd_ms, "forward_bound_ms": bounds["forward"][0],
+           "forward_bound_by": bounds["forward"][1], "backward_ms": bwd_ms,
+           "backward_plain_ms": plain_bwd_ms, "backward_bound_ms": bounds["backward"][0],
+           "backward_bound_by": bounds["backward"][1], "p_max_abs_err": p_worst,
+           "grad_max_abs_err": g_abs_worst, "worst_relative_grad_err": g_worst, "card": card}
+    print(json.dumps(row), flush=True)
+    return row
 
 
-def sinkhorn_summary(rows, launches: dict):
-    """Kernel B forward and backward over the 25 matrices of one step (one
-    launch each, as the model forward and the regulariser's backward run
-    them), from this phase's per-width times."""
+def sinkhorn_summary(rows, mix: dict, launches: dict):
+    """Kernel B forward and backward over the 25 matrices of one step as the
+    train step launches them (one launch per width, timed in this phase),
+    with the largest error of any check of this phase."""
     out = []
     for part, name in (("forward", "sinkhorn_forward"), ("backward", "sinkhorn_backward")):
-        t_ops = t_bytes = 0.0
-        for n in SINKHORN_MIX:
-            bound, by = rows[n][f"{part}_bound_ms"], rows[n][f"{part}_bound_by"]
-            t_ops += bound if by == "operations" else 0.0
-            t_bytes += bound if by == "bytes" else 0.0
+        err_key = "p_max_abs_err" if part == "forward" else "grad_max_abs_err"
         out.append({
             "name": name,
             "route": "cuda",
             "source": "hvs_tpu_torch/csrc/sinkhorn.cu",
             "replaces": "hvs_tpu/ops/pallas/sinkhorn_pallas.py:62",
             "launches": launches[name],
-            "max_abs_err": max(r["p_max_abs_err"] if part == "forward"
-                               else r["grad_max_abs_err"] for r in rows.values()),
-            "ms": sum(rows[n][f"{part}_ms"] for n in SINKHORN_MIX),
-            "plain_ms": sum(rows[n][f"{part}_plain_ms"] for n in SINKHORN_MIX),
-            "bound_ms": sum(rows[n][f"{part}_bound_ms"] for n in SINKHORN_MIX),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": max([mix[err_key]] + [r[err_key] for r in rows.values()]),
+            "ms": mix[f"{part}_ms"],
+            "plain_ms": mix[f"{part}_plain_ms"],
+            "bound_ms": mix[f"{part}_bound_ms"],
+            "bound_by": mix[f"{part}_bound_by"],
             # No single PyTorch call computes the iterated projection.
             "library_ms": None,
         })
@@ -593,12 +638,13 @@ def phase_train(card: str) -> dict:
     """The full-width flagship trained through ``ManifoldConstrainedTrainer.train``
     on the entry point's synthetic loader, then validated over 2 batches.
 
-    Per train step kernel B runs 25 forward launches in the model forward
-    and 25 in the manifold regulariser, plus 25 in the optimizer's projection
-    on projection steps; 49 backward launches (the feature head's output does
-    not reach the loss, so its forward Sinkhorn is not differentiated; its
-    regulariser term is). A validation forward runs 25 forward launches of B
-    (no history) and 18 of C. Returns the launch counts of this phase."""
+    Kernel B runs one launch per matrix width (5) in each grouped call: per
+    train step 5 forward launches in the model forward and 5 in the manifold
+    regulariser, plus 5 in the optimizer's projection on projection steps,
+    and 10 backward launches (the feature head's matrix is in the model's
+    width-256 group, where it gets a zero gradient). A validation forward
+    runs 5 forward launches of B (no history) and 18 of C. Returns the launch
+    counts of this phase."""
     import shutil
     import tempfile
 
@@ -665,10 +711,10 @@ def phase_train(card: str) -> dict:
         fail(f"train: non-finite metrics {row}")
     if trainer.state.step != steps or len(log) != steps:
         fail(f"train ran {trainer.state.step} steps ({len(log)} logged), expected {steps}")
-    n_mhc = len(SINKHORN_MIX)
+    n_widths = len(set(SINKHORN_MIX))
     want = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES * val_batches,
-            "sinkhorn_forward": 2 * n_mhc * steps + n_mhc * n_proj + n_mhc * val_batches,
-            "sinkhorn_backward": (2 * n_mhc - 1) * steps}
+            "sinkhorn_forward": (2 * steps + n_proj + val_batches) * n_widths,
+            "sinkhorn_backward": 2 * n_widths * steps}
     if counts != want:
         fail(f"train launch counts {counts}, expected {want}")
     return counts
@@ -784,7 +830,7 @@ def main() -> None:
                       "per_source_s": build.build_seconds}), flush=True)
 
     per_shape = phase_kernels(card)
-    sink_rows = phase_sinkhorn(card, sm_clock_hz)
+    sink_rows, sink_mix = phase_sinkhorn(card, sm_clock_hz)
     unfolded_rows = phase_unfolded(card)
     serve_launches = phase_serve(card)
     phase_parity(card)
@@ -793,7 +839,7 @@ def main() -> None:
 
     print(card)
     print(json.dumps({"kernels": [kernel_summary(per_shape, serve_launches),
-                                  *sinkhorn_summary(sink_rows, train_launches),
+                                  *sinkhorn_summary(sink_rows, sink_mix, train_launches),
                                   unfolded_summary(unfolded_rows,
                                                    train_launches["mhc_block_unfolded"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,12 +8,13 @@ not ported yet.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..ops.sinkhorn import sinkhorn_log_many
 from .backbone import HybridVisionBackbone
 from .fpn import OUT_CHANNELS, OUT_NAMES, FeaturePyramidNetwork
 from .layers import Dense, ManifoldHyperConnection, init_weights
@@ -35,6 +36,12 @@ class HybridVisionSystem(nn.Module):
     random init (``seed``) on ``device``: the CUDA card unless
     ``device="cpu"`` is passed. Real weights come from a flax tree through
     ``hvs_tpu_torch.convert.load_flax_params``.
+
+    When the mHC layers compute their constraints (training and validation),
+    the forward first projects every layer's ``H_res_raw`` in one grouped
+    Sinkhorn call (one kernel launch per matrix width on the card) and hands
+    each layer its projection for this forward. JAX projects inside each
+    layer; the arithmetic is the same.
     """
 
     def __init__(self, num_classes: int = 80, sk_iters: int = 20, base_channels: int = 32,
@@ -64,10 +71,27 @@ class HybridVisionSystem(nn.Module):
                                                     dropout_rate=dropout_rate, **mhc)
         self._monitored = [(name, m) for name, m in self.named_modules()
                            if isinstance(m, ManifoldHyperConnection) and m.monitor]
+        # Layers that project H_res in their forward, grouped by (iterations, tau).
+        self._projecting: Dict[Tuple[int, float], List[ManifoldHyperConnection]] = {}
+        for m in self.modules():
+            if isinstance(m, ManifoldHyperConnection) and not m.precomputed_constraints:
+                self._projecting.setdefault((m.sk_iters, m.tau), []).append(m)
         init_weights(self, seed)
         self.to(device)
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        for (iters, tau), layers in self._projecting.items():
+            projected = sinkhorn_log_many([m.H_res_raw for m in layers], iters, tau)
+            for m, h_res in zip(layers, projected):
+                m.h_res_given = h_res
+        try:
+            return self._forward(images)
+        finally:
+            for layers in self._projecting.values():
+                for m in layers:
+                    m.h_res_given = None
+
+    def _forward(self, images: torch.Tensor) -> Dict[str, Any]:
         scales = self.backbone(images)
         enhanced = self.vit_encoder(scales["scale_large"])
         scales["scale_large"] = 0.5 * scales["scale_large"] + 0.5 * enhanced

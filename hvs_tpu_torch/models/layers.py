@@ -266,9 +266,12 @@ class ManifoldHyperConnection(nn.Module):
 
     Training branch (``False``, the JAX default): each forward computes the
     constraints in fp32 (Sinkhorn with ``sk_iters`` iterations and
-    temperature ``tau``) and casts them to ``dtype``. In train mode dropout
-    (``dropout_rate``) follows both GELUs and LN2, as in JAX, and autograd
-    differentiates the chain. With ``monitor`` the layer leaves its telemetry
+    temperature ``tau``) and casts them to ``dtype``. A model that holds the
+    layer may project every layer's H_res_raw in one grouped call first and
+    hand each its projection in ``h_res_given`` for one forward (see
+    ``HybridVisionSystem.forward``); a layer called on its own projects its
+    own. In train mode dropout (``dropout_rate``) follows both GELUs and
+    LN2, as in JAX, and autograd differentiates the chain. With ``monitor`` the layer leaves its telemetry
     (``signal_ratio``, ``ds_error``, ``row_sum_error``, ``col_sum_error``;
     detached tensors) in ``self.metrics`` after each forward, as the JAX
     layer sows it into the ``stability`` collection.
@@ -302,6 +305,7 @@ class ManifoldHyperConnection(nn.Module):
         self.fused = (expansion_rate == 1 and mlp_ratio == 1 and dtype == torch.bfloat16
                       and dim in SUPPORTED_WIDTHS)
         self.metrics: dict = {}
+        self.h_res_given: Optional[torch.Tensor] = None
         for name in ("h_pre", "h_post", "h_res", "w1_folded"):
             self.register_buffer(name, None, persistent=False)
 
@@ -352,7 +356,9 @@ class ManifoldHyperConnection(nn.Module):
         dt = self.dtype
         h_pre = torch.sigmoid(self.H_pre_raw).to(dt)
         h_post = (2.0 * torch.sigmoid(self.H_post_raw)).to(dt)
-        h_res32 = sinkhorn_log(self.H_res_raw, self.sk_iters, self.tau)
+        h_res32 = self.h_res_given
+        if h_res32 is None:
+            h_res32 = sinkhorn_log(self.H_res_raw, self.sk_iters, self.tau)
         h_res = h_res32.to(dt)
         w1, w2 = self.mlp_in_kernel.to(dt), self.mlp_out_kernel.to(dt)
         if self.fused and not self.training and not torch.is_grad_enabled():

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..models.yolo_head import COCO_ANCHORS_416, SCALE_ORDER, effective_anchors
 from ..ops.boxes import box_ciou, cxcywh_to_xyxy
-from ..ops.sinkhorn import sinkhorn_log
+from ..ops.sinkhorn import sinkhorn_log_many
 
 Tensor = torch.Tensor
 
@@ -201,11 +201,13 @@ def manifold_regularization_loss(params: Dict[str, Tensor], ds_weight: float = 1
     error of its finite-iteration Sinkhorn projection (the same projection the
     forward uses; Sinkhorn through the Hopper kernel on the card), the excess
     of the projection's spectral norm over 1, and the smoothness of the raw
-    matrix; averaged over the matrices."""
+    matrix; averaged over the matrices. The projections are one grouped call
+    (one kernel launch per width on the card)."""
     ds_total = spec_total = smooth_total = 0.0
     count = 0
-    for _, leaf in iter_h_res_leaves(params):
-        proj = sinkhorn_log(leaf.float(), n_iters=sk_iters)
+    leaves = [leaf for _, leaf in iter_h_res_leaves(params)]
+    projections = sinkhorn_log_many([leaf.float() for leaf in leaves], n_iters=sk_iters)
+    for leaf, proj in zip(leaves, projections):
         ds_total = ds_total + ((proj.sum(dim=-2) - 1.0) ** 2).mean()
         spec_total = spec_total + torch.relu(_spectral_norm_bound(proj) - 1.0) ** 2
         dr = leaf[1:, :] - leaf[:-1, :]

@@ -25,7 +25,8 @@ whole update by ``lr_scale`` (``step``), so with ``lr_scale < 1`` a projected
 parameter is not exactly ``log(P + 1e-9)``, as in the JAX trainer.
 
 JAX computes the projection on every step and selects it with ``jnp.where``;
-the port runs eagerly and launches Sinkhorn only on projection steps. The
+the port runs eagerly and launches Sinkhorn only on projection steps, over
+the square ``H_res_raw`` of both mHC partitions in one grouped call. The
 updates are identical.
 """
 
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.manifold import birkhoff_tangent_project
-from ..ops.sinkhorn import sinkhorn_log
+from ..ops.sinkhorn import sinkhorn_log_many
 
 MHC_PARAM_NAMES = ("H_pre_raw", "H_post_raw", "H_res_raw")
 ADAM_EPS = 1e-8      # optax.adamw's default
@@ -132,6 +133,7 @@ class ManifoldAwareOptimizer:
         f32 = np.float32
         lr = f32(self.lr(count))
         updates: Dict[str, Tensor] = {}
+        proposed: Dict[str, Tensor] = {}  # p + u of the H_res_raw to project
         for label, names in self.groups.items():
             adamw, clip, factor = self.chains[label]
             clipped = clip_by_global_norm([grads[n].float() for n in names], clip)
@@ -154,9 +156,11 @@ class ManifoldAwareOptimizer:
                 tr = self.trace[name].mul_(SGD_MOMENTUM).add_(g)
                 u = tr * step_size
                 if project and _is_square_h_res(name, u):
-                    proposed = p.float() + u
-                    u = torch.log(sinkhorn_log(proposed, n_iters=self.sk_iters) + 1e-9) - p
+                    proposed[name] = p.float() + u
                 updates[name] = u
+        projected = sinkhorn_log_many(list(proposed.values()), n_iters=self.sk_iters)
+        for name, proj in zip(proposed, projected):
+            updates[name] = torch.log(proj + 1e-9) - self.params[name]
         self.count = count + 1
         return updates
 

@@ -152,14 +152,14 @@ def make_eig_telemetry(sk_iters: int = 20):
     """
     import torch
 
-    from ..ops.sinkhorn import doubly_stochastic_error, sinkhorn_log
+    from ..ops.sinkhorn import doubly_stochastic_error, sinkhorn_log_many
     from .losses import iter_h_res_leaves
 
     @torch.no_grad()
     def eig_fn(params):
         maxes, mins, ds = [], [], []
-        for _, leaf in iter_h_res_leaves(params):
-            h = sinkhorn_log(leaf.float(), n_iters=sk_iters)
+        leaves = [leaf.float() for _, leaf in iter_h_res_leaves(params)]
+        for h in sinkhorn_log_many(leaves, n_iters=sk_iters):
             e = torch.linalg.eigvalsh(0.5 * (h + h.T))
             maxes.append(e[-1])
             mins.append(e[0])

@@ -27,8 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 IMAGE = 640
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("mhc_block (kernel A or C)", ("mhc_block_kernel",)),
-    ("sinkhorn forward (kernel B)", ("sinkhorn_forward_kernel",)),
-    ("sinkhorn backward (kernel B)", ("sinkhorn_backward_kernel",)),
+    ("sinkhorn forward (kernel B)", ("sinkhorn_forward_cluster", "sinkhorn_forward_streamed")),
+    ("sinkhorn backward (kernel B)", ("sinkhorn_backward_cluster", "sinkhorn_backward_streamed")),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "winograd", "fprop")),
     ("matmul", ("gemm", "cutlass", "cublas", "matmul", "splitk")),
     ("reduction", ("reduce", "norm", "mean", "sum")),

@@ -117,7 +117,7 @@ def _sinkhorn_logits(shape, seed, scale=1.0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [8, 32, 64, 77, 128, 256, 512])
+@pytest.mark.parametrize("n", [8, 32, 64, 77, 128, 256, 384, 512, 640])
 def test_sinkhorn_kernel_forward_and_backward_match_plain_version(n):
     """P to 1e-6 absolute, row sums exact to fp32 (1e-5), the unrolled
     gradient to 1e-5 of its largest magnitude."""
@@ -156,6 +156,94 @@ def test_sinkhorn_kernel_batch_and_temperature():
     assert float((x.grad - ref.grad).abs().max()) <= 1e-5 * float(ref.grad.abs().max())
 
 
+def _check_against_plain(logits, weight, n_iters=20, tau=1.0, cluster=0):
+    """Forward and backward launches (``cluster`` blocks per matrix, 0: the
+    wrapper's choice) against the plain version: P to 1e-6, row sums to 1e-5,
+    the gradient to 1e-5 of its largest magnitude, per matrix."""
+    p, hist = sink_mod.sinkhorn_forward(logits, n_iters, tau, keep_history=True, cluster=cluster)
+    grad = sink_mod.sinkhorn_backward(logits, p, weight, hist, n_iters, tau, cluster=cluster)
+    torch.cuda.synchronize()
+    ref = logits.clone().requires_grad_()
+    p_ref = sink_mod.sinkhorn_log_plain(ref, n_iters, tau)
+    (p_ref * weight).sum().backward()
+    assert torch.isfinite(p).all() and torch.isfinite(grad).all()
+    for i in range(logits.shape[0]):
+        assert float((p[i] - p_ref[i]).abs().max()) <= 1e-6, i
+        assert float((p[i].sum(dim=-1) - 1.0).abs().max()) <= 1e-5, i
+        g_ref = ref.grad[i]
+        assert float((grad[i] - g_ref).abs().max()) <= 1e-5 * float(g_ref.abs().max()), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 77, 128, 256, 384, 512, 640])
+def test_sinkhorn_kernel_batch_of_matrices_matches_plain_version(n):
+    """One launch over three matrices of one width (a cluster per matrix up
+    to 512, the streamed kernels at 640)."""
+    _need_card()
+    logits = _sinkhorn_logits((3, n, n), seed=n + 5)
+    weight = _sinkhorn_logits((3, n, n), seed=n + 6)
+    before = (sink_mod.launches_forward, sink_mod.launches_backward)
+    _check_against_plain(logits, weight)
+    assert (sink_mod.launches_forward, sink_mod.launches_backward) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,cluster", [(8, 1), (77, 2), (77, 4), (128, 4), (200, 8),
+                                       (256, 8), (384, 16), (512, 16)])
+def test_sinkhorn_kernel_every_cluster_size_matches_plain_version(n, cluster):
+    """Cluster sizes other than the wrapper's choice, with uneven row splits (77 over
+    4 blocks: 20, 20, 20, 17 rows; 200 over 8: 25 each; 384 over 16)."""
+    _need_card()
+    for backward in (False, True):
+        plan = sink_mod.launch_plan(n, backward=backward, cluster=cluster)
+        assert plan["cluster"] == cluster and plan["max_active_clusters"] >= 1
+    logits = _sinkhorn_logits((2, n, n), seed=n + cluster)
+    weight = _sinkhorn_logits((2, n, n), seed=n + cluster + 1)
+    _check_against_plain(logits, weight, n_iters=7, tau=0.7, cluster=cluster)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_launch_plans_fit_the_card():
+    """Every width's cluster, in both directions, can be scheduled: up to 512
+    a cluster (16 blocks for the backward at 512, a non-portable size), above
+    it one block per matrix."""
+    _need_card()
+    for n in (8, 32, 64, 77, 128, 256, 384, 512, 640, 1024):
+        for backward in (False, True):
+            plan = sink_mod.launch_plan(n, backward=backward)
+            assert plan["max_active_clusters"] >= 1, (n, backward, plan)
+            assert plan["smem_bytes"] <= 232448
+            assert (plan["cluster"] == 1) if n > sink_mod.CLUSTER_MAX_N else plan["cluster"] >= 1
+
+
+@pytest.mark.gpu
+def test_sinkhorn_grouped_call_launches_once_per_width():
+    """sinkhorn_log_many over widths 32, 256, 32, 512, 256, 64, 256: one
+    forward and one backward launch per width; each P and gradient as the
+    plain version's."""
+    _need_card()
+    widths = [32, 256, 32, 512, 256, 64, 256]
+    logits = [_sinkhorn_logits((n, n), seed=40 + i) for i, n in enumerate(widths)]
+    weights = [_sinkhorn_logits((n, n), seed=60 + i) for i, n in enumerate(widths)]
+    xs = [x.clone().requires_grad_() for x in logits]
+    before = (sink_mod.launches_forward, sink_mod.launches_backward)
+    ps = sink_mod.sinkhorn_log_many(xs, 20)
+    sum((p * w).sum() for p, w in zip(ps, weights)).backward()
+    torch.cuda.synchronize()
+    assert (sink_mod.launches_forward, sink_mod.launches_backward) == \
+        (before[0] + 4, before[1] + 4)
+    with torch.no_grad():
+        sink_mod.sinkhorn_log_many(logits, 20)
+    assert sink_mod.launches_forward == before[0] + 8
+    for x, p, w, logit in zip(xs, ps, weights, logits):
+        ref = logit.clone().requires_grad_()
+        p_ref = sink_mod.sinkhorn_log_plain(ref, 20)
+        (p_ref * w).sum().backward()
+        assert float((p - p_ref).abs().max()) <= 1e-6
+        assert float((x.grad - ref.grad).abs().max()) <= 1e-5 * float(ref.grad.abs().max())
+
+
 @pytest.mark.gpu
 def test_sinkhorn_plain_version_passes_gradcheck():
     _need_card()
@@ -177,3 +265,21 @@ def test_sinkhorn_wrapper_raises_instead_of_falling_back():
         sinkhorn_log(torch.zeros(2048, 2048, device="cuda"), 20)  # larger than the kernel takes
     with pytest.raises(ValueError):
         sinkhorn_log(x.t(), 20)  # not contiguous
+
+
+@pytest.mark.gpu
+def test_sinkhorn_kernel_is_deterministic():
+    """The cluster exchange merges partials in a fixed order: the same inputs
+    give the same bits, run after run (a race between blocks would not)."""
+    _need_card()
+    for n, batch in ((32, 2), (77, 3), (256, 15), (512, 1)):
+        logits = _sinkhorn_logits((batch, n, n), seed=n + 9)
+        dp = _sinkhorn_logits((batch, n, n), seed=n + 10)
+        runs = []
+        for _ in range(3):
+            p, hist = sink_mod.sinkhorn_forward(logits, 20, keep_history=True)
+            runs.append((p, hist, sink_mod.sinkhorn_backward(logits, p, dp, hist, 20)))
+        torch.cuda.synchronize()
+        for other in runs[1:]:
+            for a, b in zip(runs[0], other):
+                assert torch.equal(a, b), n

@@ -80,3 +80,71 @@ def test_plain_version_keeps_dtype_and_computes_fp64_in_fp64():
     # here in fp64; doubly_stochastic_error measures in fp32).
     assert float((p64.sum(dim=-2) - 1.0).abs().max()) < 1e-12
     assert float((p64.sum(dim=-1) - 1.0).abs().max()) < 1e-12
+
+
+def test_grouped_call_on_mixed_widths_matches_plain_and_jax():
+    """sinkhorn_log_many over widths 8, 8, 16, 77, 16 (tau 0.7): each P
+    within 1e-6 of the per-matrix plain version and of JAX's sinkhorn_log,
+    and d sum(P·W) / d logits of each matrix within 1e-5 of the largest entry
+    of jax.grad's."""
+    widths, tau = [8, 8, 16, 77, 16], 0.7
+    r = np.random.default_rng(11)
+    logits = [_h_init_logits(n, 20 + i) + r.standard_normal((n, n)).astype(np.float32)
+              for i, n in enumerate(widths)]
+    weights = [r.standard_normal((n, n)).astype(np.float32) for n in widths]
+
+    @jax.jit
+    def jax_run(xs):
+        ps = [jax_sinkhorn(x, 20, tau) for x in xs]
+        grads = jax.grad(lambda v: sum(jnp.sum(jax_sinkhorn(x, 20, tau) * w)
+                                       for x, w in zip(v, weights)))(xs)
+        return ps, grads
+
+    want_p, want_g = jax.device_get(jax_run([jnp.asarray(x) for x in logits]))
+    xs = [torch.from_numpy(x).requires_grad_() for x in logits]
+    got = tsink.sinkhorn_log_many(xs, 20, tau)
+    sum((p * torch.from_numpy(w)).sum() for p, w in zip(got, weights)).backward()
+    for i, (x, p) in enumerate(zip(xs, got)):
+        assert p.shape == x.shape
+        plain = tsink.sinkhorn_log_plain(x.detach(), 20, tau).numpy()
+        np.testing.assert_allclose(p.detach().numpy(), plain, rtol=0, atol=1e-6, err_msg=str(i))
+        np.testing.assert_allclose(p.detach().numpy(), want_p[i], rtol=0, atol=1e-6,
+                                   err_msg=str(i))
+        g = np.asarray(want_g[i])
+        np.testing.assert_allclose(x.grad.numpy(), g, rtol=0, atol=1e-5 * np.abs(g).max(),
+                                   err_msg=str(i))
+
+
+def test_grouped_call_on_cpu_launches_nothing():
+    xs = [torch.from_numpy(_h_init_logits(n, n)).requires_grad_() for n in (8, 24, 8)]
+    before = (tsink.launches_forward, tsink.launches_backward)
+    out = tsink.sinkhorn_log_many(xs, 20)
+    sum(p.sum() for p in out).backward()
+    assert (tsink.launches_forward, tsink.launches_backward) == before
+    assert tsink.sinkhorn_log_many([], 20) == []
+    for x, p in zip(xs, out):
+        torch.testing.assert_close(p, tsink.sinkhorn_log_plain(x, 20), rtol=0, atol=1e-7)
+        assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def test_cluster_size_takes_the_largest_cluster_the_card_holds_for_the_batch(monkeypatch):
+    """The rule over the H100's plans (clusters the card holds at once: 132,
+    66, 30, 15, 7 for 1, 2, 4, 8, 16 blocks; a slab that does not fit a block
+    gives no plan): at least 8 rows per block, the whole batch at once, else
+    the smallest size that fits. The flagship's step: 4, 8, 16, 8, 16."""
+    active = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+    def plan(device, n, backward, cluster):
+        rows = -(-n // cluster)
+        slab = rows * n * 4 * (2 if backward else 1)
+        return None if cluster > n or slab > 200_000 else (cluster, slab, active[cluster])
+
+    monkeypatch.setattr(tsink, "_plan", plan)
+    for backward in (False, True):
+        picks = [tsink.cluster_size(n, b, backward, device=0)
+                 for n, b in ((32, 2), (64, 3), (128, 4), (256, 15), (512, 1))]
+        assert picks == [4, 8, 16, 8, 16], (backward, picks)
+    assert tsink.cluster_size(8, 1, device=0) == 1      # fewer than 8 rows at any size > 1
+    assert tsink.cluster_size(256, 100, device=0) == 2  # no size holds 100: the smallest that fits
+    assert tsink.cluster_size(256, 100, True, device=0) == 4
+    assert tsink.cluster_size(640, 3, device=0) == 1    # the streamed kernels

@@ -33,6 +33,7 @@ from hvs_tpu.training.trainer import make_eval_step
 from hvs_tpu_torch.convert import flatten, load_flax_params, nest, to_flax_layout
 from hvs_tpu_torch.models import HybridVisionSystem
 from hvs_tpu_torch.models.layers import Dropout, ManifoldHyperConnection
+from hvs_tpu_torch.ops.sinkhorn import sinkhorn_log_plain as tsink_plain
 from hvs_tpu_torch.train import TINY, make_synthetic_loader
 from hvs_tpu_torch.training import losses as tlosses
 from hvs_tpu_torch.training import schedule as tschedule
@@ -372,6 +373,60 @@ def test_train_step_matches_jax(tiny_jax_run):
     for name, p in flatten(want["new_params"]).items():
         _close(to_flax_layout(name, trainer.params()[name].detach().numpy()), p, msg=name)
     assert trainer.state.step == 1 and trainer.tx.count == 1
+
+
+def test_model_projects_every_h_res_in_one_grouped_call(monkeypatch):
+    """The model forward projects all 13 mHC layers' H_res_raw in one grouped
+    call and hands each layer its projection for that forward; the outputs
+    and the telemetry equal those of each layer projecting its own (the JAX
+    arrangement), and a layer called on its own still projects its own."""
+    from hvs_tpu_torch.models import hybrid as hybrid_mod
+    from hvs_tpu_torch.models import layers as layers_mod
+
+    model = HybridVisionSystem(num_classes=NUM_CLASSES, dtype=torch.float32, monitor=True,
+                               device="cpu", seed=3, **TINY)
+    model.eval()
+    images = torch.from_numpy(
+        np.random.default_rng(4).uniform(size=(1, IMAGE, IMAGE, 3)).astype(np.float32))
+    calls = {"grouped": 0, "matrices": 0, "single": 0}
+    grouped_fn, single_fn = hybrid_mod.sinkhorn_log_many, layers_mod.sinkhorn_log
+
+    def grouped(mats, *args):
+        calls["grouped"] += 1
+        calls["matrices"] += len(mats)
+        return grouped_fn(mats, *args)
+
+    def single(*args):
+        calls["single"] += 1
+        return single_fn(*args)
+
+    monkeypatch.setattr(hybrid_mod, "sinkhorn_log_many", grouped)
+    monkeypatch.setattr(layers_mod, "sinkhorn_log", single)
+    layers = [m for m in model.modules() if isinstance(m, ManifoldHyperConnection)]
+    with torch.no_grad():
+        out = model(images)
+        assert calls == {"grouped": 1, "matrices": len(layers), "single": 0}
+        assert len(layers) == 13 and all(m.h_res_given is None for m in layers)
+        monkeypatch.setattr(model, "_projecting", {})
+        own = model(images)
+        assert calls["single"] == len(layers)
+    raw, raw_own = out["detection"]["raw"], own["detection"]["raw"]
+    for k in raw:
+        torch.testing.assert_close(raw[k], raw_own[k], rtol=1e-5, atol=1e-6, msg=k)
+    for name in out["stability"]:
+        for k, v in out["stability"][name].items():
+            torch.testing.assert_close(v, own["stability"][name][k], rtol=1e-5, atol=1e-7)
+
+    layer = model.mhc_features
+    x = torch.from_numpy(
+        np.random.default_rng(5).standard_normal((2, layer.dim)).astype(np.float32))
+    with torch.no_grad():
+        y = layer(x)
+    assert calls["single"] == len(layers) + 1
+    h_res = tsink_plain(layer.H_res_raw.detach(), layer.sk_iters)
+    torch.testing.assert_close(layer.metrics["col_sum_error"],
+                               (h_res.sum(dim=-2) - 1.0).abs().amax(), rtol=0, atol=0)
+    assert y.shape == x.shape and torch.isfinite(y).all()
 
 
 def test_validate_matches_jax_eval_step(tiny_jax_run):
