@@ -14,7 +14,9 @@ Phases, each of which fails the run with a non-zero exit:
      cluster split (384) and a width of the streamed kernels (640), with each
      launch's cluster size, then the 25-matrix mix of one train step through
      the grouped call (one launch per width); C (unfolded mHC block) at the 18 sites
-     of the validation forward at 416², batch 8, and a ragged count;
+     of the validation forward at 416², batch 8, and a ragged count; A and C
+     with each launch's row tile, threads and grid, and their time over the
+     18 sites beside the time recorded before their redesign;
   3. serve: the full-width flagship ``ProductionHybridVision`` (seeded random
      weights, bf16) served by ``Detector`` at 640², batch 16 and batch 1; the
      launch counters are zeroed just before and read just after;
@@ -60,12 +62,20 @@ SK_ITERS = 20
 # head towers and the feature head at 256.
 SINKHORN_MIX = [32] * 2 + [64] * 3 + [128] * 4 + [256] * 15 + [512]
 KERNEL_SITES = 18  # mHC sites of the flagship that the fused blocks serve
+# Kernels A and C over their 18 sites before the tensor-core redesign, as
+# recorded in PERF.md's kernel table (ms, NVIDIA H100 80GB HBM3, 700 W); a
+# constant, not measured in this run.
+RECORDED_BEFORE_REDESIGN_MS = {"mhc_block": 2.468, "mhc_block_unfolded": 1.084}
 
-# Kernel-vs-plain criteria (as in tests/test_pallas.py): the two compute the
-# same roundings; they differ only where fp32 accumulation order flips a bf16
-# rounding, and the final LayerNorm can amplify such a flip.
-KERNEL_MIN_CORR = 0.999
-KERNEL_MAX_MEAN_ABS = 0.05
+# Kernel-vs-plain criteria: the two compute the same roundings; they differ
+# where fp32 accumulation order flips a bf16 rounding (the final LayerNorm can
+# amplify such a flip) and by the kernel's hardware tanh in the GELU. Sound
+# builds read corr >= 0.99998 and mean |diff| <= 1e-3 at every main-path
+# shape; a build without the GELU reads corr 0.9922-0.9989 and mean |diff|
+# 0.036-0.100 there (PERF.md), so the limits sit between the two, tighter
+# than tests/test_pallas.py's 0.999 / 0.05.
+KERNEL_MIN_CORR = 0.9999
+KERNEL_MAX_MEAN_ABS = 5e-3
 
 # End-to-end CUDA-vs-CPU criteria: both run bf16 through ~60 layers; cuDNN
 # and the CPU's convolutions sum in different orders, so bf16 roundings flip
@@ -232,10 +242,12 @@ def mhc_inputs(n: int, d: int, seed: int):
     return x, (w1, b1, w2, b2, h_post, h_res.contiguous(), *ln)
 
 
-def phase_kernels(card: str):
-    """Kernel A against its plain version at every main-path shape."""
-    shapes = sorted(set(mhc_sites(1)) | set(mhc_sites(SERVE_BATCH))
-                    | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
+def phase_kernels(card: str, shapes=None):
+    """Kernel A against its plain version at every main-path shape (or at the
+    (tokens, d) pairs of ``shapes``, to time a few quickly)."""
+    if shapes is None:
+        shapes = sorted(set(mhc_sites(1)) | set(mhc_sites(SERVE_BATCH))
+                        | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
     per_shape = {}
     for n, d in shapes:
         x, args = mhc_inputs(n, d, seed=n * 7 + d)
@@ -252,7 +264,8 @@ def phase_kernels(card: str):
         ms = time_ms(lambda: mhc_mod.mhc_block(x, *args))
         plain_ms = time_ms(lambda: mhc_mod.mhc_block_plain(x, *args))
         bound, bound_by = mhc_bound_ms(n, d)
-        row = {"phase": "kernel", "kernel": "mhc_block", "n": n, "d": d, "corr": corr,
+        row = {"phase": "kernel", "kernel": "mhc_block", "n": n, "d": d,
+               "tile": mhc_mod.launch_plan(n, d), "corr": corr,
                "mean_abs_err": mean_abs, "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                "library_ms": None, "card": card}
@@ -262,7 +275,19 @@ def phase_kernels(card: str):
                  f"corr {corr} (need > {KERNEL_MIN_CORR}), mean |diff| {mean_abs} "
                  f"(need < {KERNEL_MAX_MEAN_ABS})")
         per_shape[(n, d)] = row
+    print_total("mhc_block", per_shape, mhc_sites(SERVE_BATCH), card)
     return per_shape
+
+
+def print_total(kernel: str, per_shape, sites, card: str) -> None:
+    """Kernel time over the 18 sites of one forward, where every site was
+    measured, beside the recorded time before the redesign."""
+    if all(s in per_shape for s in sites):
+        print(json.dumps({"phase": "kernel_total", "kernel": kernel, "sites": len(sites),
+                          "ms": sum(per_shape[s]["ms"] for s in sites),
+                          "recorded_before_redesign_ms": RECORDED_BEFORE_REDESIGN_MS[kernel],
+                          "bound_ms": sum(per_shape[s]["bound_ms"] for s in sites),
+                          "card": card}), flush=True)
 
 
 def kernel_summary(per_shape, launches: int):
@@ -571,12 +596,14 @@ def unfolded_bound_ms(n: int, d: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_unfolded(card: str):
+def phase_unfolded(card: str, shapes=None):
     """Kernel C against its plain version at the 18 sites of the validation
-    forward (416², batch 8) and at a ragged count. Inputs are kernel A's
-    well-conditioned ones with a near-identity H_pre = sigmoid(6·I - 3 + noise)."""
-    shapes = sorted(set(mhc_sites(TRAIN_BATCH, TRAIN_IMAGE))
-                    | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
+    forward (416², batch 8) and at a ragged count (or at ``shapes``). Inputs
+    are kernel A's well-conditioned ones with a near-identity
+    H_pre = sigmoid(6·I - 3 + noise)."""
+    if shapes is None:
+        shapes = sorted(set(mhc_sites(TRAIN_BATCH, TRAIN_IMAGE))
+                        | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
     per_shape = {}
     for n, d in shapes:
         x, args = mhc_inputs(n, d, seed=n * 5 + d)
@@ -596,7 +623,8 @@ def phase_unfolded(card: str):
         ms = time_ms(lambda: mhc_mod.mhc_block_unfolded(x, *args))
         plain_ms = time_ms(lambda: mhc_mod.mhc_block_unfolded_plain(x, *args))
         bound, bound_by = unfolded_bound_ms(n, d)
-        row = {"phase": "kernel", "kernel": "mhc_block_unfolded", "n": n, "d": d, "corr": corr,
+        row = {"phase": "kernel", "kernel": "mhc_block_unfolded", "n": n, "d": d,
+               "tile": mhc_mod.launch_plan(n, d), "corr": corr,
                "mean_abs_err": mean_abs, "max_abs_err": float(np.max(np.abs(a - b))),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                "library_ms": None, "card": card}
@@ -606,6 +634,7 @@ def phase_unfolded(card: str):
                  f"(need > {KERNEL_MIN_CORR}), mean |diff| {mean_abs} "
                  f"(need < {KERNEL_MAX_MEAN_ABS})")
         per_shape[(n, d)] = row
+    print_total("mhc_block_unfolded", per_shape, mhc_sites(TRAIN_BATCH, TRAIN_IMAGE), card)
     return per_shape
 
 

@@ -11,17 +11,21 @@ use. Neither has a backward: training differentiates the plain chain.
 Per token row: LN1 (fp32 statistics, eps 1e-6) -> ``@ W1_folded + b1`` -> GELU
 (tanh) -> ``@ W2 + b2`` -> GELU -> ``@ H_post``; plus ``x @ H_res``; add; LN2.
 bf16 operands, fp32 accumulation, a round to bf16 after LN1, after each
-product, each bias add, each GELU and the residual add.
+product, each bias add, each GELU and the residual add. The kernel's GELU
+takes the hardware tanh (``tanh.approx.f32``, relative error <= 2^-10.9),
+the plain version's the exact one.
 
 The unfolded mode rounds ``LN1(x) @ H_pre`` to bf16 before ``@ W1``.
 
 What bounds it on an H100: 8·N·d² FLOP (10·N·d² unfolded) against 4·N·d
 activation bytes (+ ~8-10·d² weight bytes), about 2·d FLOP per byte, so it is memory-bound at
 d <= 128 and tensor-core-bound at d >= 256 (the card's bf16 ridge is ~295
-FLOP/byte). The design reads x once and writes the output once, keeps every
-intermediate in shared memory, and streams the [d, d] weights from L2 in
-double-buffered k-chunks (they do not fit in shared memory at d >= 256); the
-source's header says more.
+FLOP/byte). The kernel reads x once and writes the output once, keeps every
+intermediate in shared memory, and runs the products on the tensor cores
+(mma.sync) with the rounding, bias, GELU and residual epilogues in
+registers; the [d, d] weights stream from L2 through a ring of k-chunks.
+One block runs per tile of ``ROW_TILE[d]`` token rows. The source's header
+says more.
 
 Unlike the TPU path there is no batch or token gate: every eligible site
 launches the kernel at every batch size.
@@ -35,6 +39,10 @@ import torch
 import torch.nn.functional as F
 
 SUPPORTED_WIDTHS = (32, 64, 128, 256, 512)
+# Token rows per block and threads per block of each width, as
+# csrc/mhc_block.cu's Config<d> sets them.
+ROW_TILE = {32: 128, 64: 128, 128: 64, 256: 64, 512: 32}
+THREADS = 256
 
 # Kernel launches in this process (CUDA tensors only): ``mhc_block`` (serve
 # mode) and ``mhc_block_unfolded``.
@@ -78,7 +86,15 @@ def _chain(x, y, w1, b1, w2, b2, h_post, h_res, ln2_scale, ln2_bias) -> torch.Te
     return layernorm(res + y, ln2_scale, ln2_bias).to(x.dtype)
 
 
-def _check(x, mats, vecs) -> None:
+# The kernels' operands after x, in the order of their C entry points; the
+# vectors are [d] fp32, the rest [d, d] bf16.
+SERVE_OPERANDS = ("w1_folded", "b1", "w2", "b2", "h_post", "h_res",
+                  "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
+UNFOLDED_OPERANDS = ("h_pre", "w1") + SERVE_OPERANDS[1:]
+_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
+
+
+def _check(x, names, args) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"mhc_block kernel takes bf16 x, got {x.dtype}")
     if x.dim() != 2 or x.shape[1] not in SUPPORTED_WIDTHS:
@@ -88,38 +104,52 @@ def _check(x, mats, vecs) -> None:
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("mhc_block kernel takes a contiguous, 16-byte aligned x")
     d = x.shape[1]
-    for name, m in mats.items():
-        if m.device != x.device or m.dtype != torch.bfloat16 or m.shape != (d, d) \
-                or not m.is_contiguous() or m.data_ptr() % 16:
+    for name, t in zip(names, args):
+        if name in _VECTORS:
+            if t.device != x.device or t.dtype != torch.float32 or t.shape != (d,) \
+                    or not t.is_contiguous():
+                raise ValueError(
+                    f"mhc_block kernel takes {name} as a contiguous [{d}] fp32 tensor on "
+                    f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
+                )
+        elif t.device != x.device or t.dtype != torch.bfloat16 or t.shape != (d, d) \
+                or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"mhc_block kernel takes {name} as a contiguous [{d}, {d}] bf16 tensor on "
-                f"{x.device}, got {tuple(m.shape)} {m.dtype} on {m.device}"
-            )
-    for name, v in vecs.items():
-        if v.device != x.device or v.dtype != torch.float32 or v.shape != (d,) \
-                or not v.is_contiguous():
-            raise ValueError(
-                f"mhc_block kernel takes {name} as a contiguous [{d}] fp32 tensor on "
-                f"{x.device}, got {tuple(v.shape)} {v.dtype} on {v.device}"
+                f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
 
 
-def _launch(entry: str, x: torch.Tensor, mats: dict, vecs: dict, args) -> torch.Tensor:
-    """Checks the operands, then launches ``entry`` of the library on the
-    current stream with ``args`` (device pointers after x, out, n, d)."""
+def launch_plan(n: int, d: int) -> dict:
+    """Row tile, threads and grid (one block per tile) of the launch for ``n``
+    rows of width ``d``."""
+    bm = ROW_TILE[d]
+    return {"bm": bm, "threads": THREADS, "grid": -(-n // bm)}
+
+
+def _launch(entry: str, x: torch.Tensor, names, args,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """Checks x and the operands ``args`` (named ``names``), then launches
+    ``entry`` of the library on the current stream. ``out`` (default: a new
+    tensor like x) may have more rows than x; the kernel writes only the
+    first N."""
     if x.device.type != "cuda":
         raise ValueError(f"mhc_block runs on cuda or cpu tensors, got {x.device}")
-    _check(x, mats, vecs)
+    _check(x, names, args)
+    n, d = x.shape
+    if out is None:
+        out = torch.empty_like(x)
+    elif out.device != x.device or out.dtype != x.dtype or out.dim() != 2 \
+            or out.shape[0] < n or out.shape[1] != d or not out.is_contiguous():
+        raise ValueError(f"mhc_block out must be a contiguous [>= {n}, {d}] tensor like x")
+    if n == 0:
+        return out
     from .. import build
 
     fn = getattr(build.load("mhc_block"), entry)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES + [ctypes.c_void_p] * (len(args) + 1)
         fn.restype = ctypes.c_int
-    out = torch.empty_like(x)
-    n, d = x.shape
-    if n == 0:
-        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), n, d, *[a.data_ptr() for a in args], stream)
@@ -139,10 +169,7 @@ def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,
     if x.device.type == "cpu":
         return mhc_block_plain(x, w1_folded, b1, w2, b2, h_post, h_res,
                                ln1_scale, ln1_bias, ln2_scale, ln2_bias)
-    out = _launch("hvs_mhc_block", x,
-                  {"w1_folded": w1_folded, "w2": w2, "h_post": h_post, "h_res": h_res},
-                  {"b1": b1, "b2": b2, "ln1_scale": ln1_scale, "ln1_bias": ln1_bias,
-                   "ln2_scale": ln2_scale, "ln2_bias": ln2_bias},
+    out = _launch("hvs_mhc_block", x, SERVE_OPERANDS,
                   (w1_folded, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias, ln2_scale,
                    ln2_bias))
     global launches
@@ -162,10 +189,7 @@ def mhc_block_unfolded(x, h_pre, w1, b1, w2, b2, h_post, h_res,
     if x.device.type == "cpu":
         return mhc_block_unfolded_plain(x, h_pre, w1, b1, w2, b2, h_post, h_res,
                                         ln1_scale, ln1_bias, ln2_scale, ln2_bias)
-    out = _launch("hvs_mhc_block_unfolded", x,
-                  {"h_pre": h_pre, "w1": w1, "w2": w2, "h_post": h_post, "h_res": h_res},
-                  {"b1": b1, "b2": b2, "ln1_scale": ln1_scale, "ln1_bias": ln1_bias,
-                   "ln2_scale": ln2_scale, "ln2_bias": ln2_bias},
+    out = _launch("hvs_mhc_block_unfolded", x, UNFOLDED_OPERANDS,
                   (h_pre, w1, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias, ln2_scale,
                    ln2_bias))
     global launches_unfolded

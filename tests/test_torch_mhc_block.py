@@ -10,6 +10,8 @@ in test_torch_gpu.py.
 """
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -260,3 +262,44 @@ def test_training_layer_train_forward_matches_jax_fp32():
         gt = getattr(port, k).grad.numpy()
         np.testing.assert_allclose(gt, g, rtol=0, atol=1e-4 * max(np.abs(g).max(), 1e-3),
                                    err_msg=k)
+
+
+# The kernels' launch (ops/mhc_block.py::launch_plan). The kernel itself runs
+# only on a card (test_torch_gpu.py); it runs one block per row tile, block b
+# on rows [b * tile, (b + 1) * tile) below N.
+_SPREAD = (1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129, 400, 1234, 1352, 5408, 6400, 8447,
+           8448, 8449, 16896, 16897, 25600, 86528, 102400, 409600)
+_SOURCE = Path(__file__).resolve().parents[1] / "hvs_tpu_torch" / "csrc" / "mhc_block.cu"
+
+
+@pytest.mark.parametrize("d", mhc_mod.SUPPORTED_WIDTHS)
+def test_row_tile_matches_the_kernel_source(d):
+    """The wrapper's tile and threads per width are the ones Config<d> in the
+    CUDA source sets (the source dispatches on d alone)."""
+    m = re.search(r"struct Config<%d> \{(?:\s*//[^\n]*)*\s*"
+                  r"static constexpr int BM = (\d+), kThreads = (\d+),"
+                  % d, _SOURCE.read_text())
+    assert m, f"no Config<{d}> in {_SOURCE.name}"
+    assert (mhc_mod.ROW_TILE[d], mhc_mod.THREADS) == (int(m[1]), int(m[2]))
+    assert mhc_mod.ROW_TILE[d] % 16 == 0
+
+
+@pytest.mark.parametrize("d", mhc_mod.SUPPORTED_WIDTHS)
+def test_launch_plan_covers_every_row_exactly_once(d):
+    for n in _SPREAD:
+        plan = mhc_mod.launch_plan(n, d)
+        assert plan["bm"] == mhc_mod.ROW_TILE[d] and plan["threads"] == mhc_mod.THREADS
+        seen = np.zeros(n, np.int64)
+        for block in range(plan["grid"]):
+            rows = seen[block * plan["bm"]:min(n, (block + 1) * plan["bm"])]
+            assert rows.size > 0, (n, plan)  # no block without rows
+            rows += 1
+        assert (seen == 1).all(), (n, plan)
+
+
+def test_launch_plan_at_the_flagship_sites():
+    """Grids of the 640² batch-16 serve forward's widest sites and of its
+    d = 512 fusion, whose 200 blocks of 32 rows fill the card's 132 SMs."""
+    assert [mhc_mod.launch_plan(n, d)["grid"] for n, d in (
+        (409600, 32), (102400, 64), (25600, 128), (102400, 256), (6400, 256), (6400, 512),
+        (400, 512))] == [3200, 800, 400, 1600, 100, 200, 13]
