@@ -8,8 +8,9 @@ Phases, each of which fails the run with a non-zero exit:
      started together);
   2. kernels: each kernel against its plain PyTorch version on the card, with
      times (CUDA events) beside the least time the card could take:
-     A (serve mHC block) at the token counts of the 640² serve path (batch 1
-     and 16) and a ragged count; B (Sinkhorn, forward and backward) at the
+     A (serve mHC block) at the token counts of the 640² serve path at every
+     engine bucket (batch 1, 2, 4, 8 and 16) and a ragged count; B (Sinkhorn,
+     forward and backward) at the
      five widths of the flagship's mHC matrices, a ragged width, an uneven
      cluster split (384) and a width of the streamed kernels (640), with each
      launch's cluster size, then the 25-matrix mix of one train step through
@@ -23,13 +24,29 @@ Phases, each of which fails the run with a non-zero exit:
   4. parity: the same weights with a well-conditioned H_res, one 320² image,
      the port on the card (kernels) against the port on the CPU (plain
      versions);
-  5. train: the full-width ``HybridVisionSystem`` (telemetry on, the JAX
+  5. engine: ``InferenceEngine`` with the flagship at 640², one CUDA graph
+     per bucket of (1, 2, 4, 8, 16) on the letterboxed path and per bucket
+     for 720x1280 raw frames (letterbox inside the graph): load and capture
+     seconds, service ms per bucket, peak memory, device ms per bucket-16
+     replay, ``infer_batch`` frames/s; graph against eager at buckets 1 and
+     16; the registered path and an unregistered mix of shapes; the
+     micro-batcher under 4 client threads with one hot swap mid-run (a probe
+     frame's result is the old or the new weights', never a mixture, and
+     after the swap the new weights', as a second engine built on them
+     gives it); the
+     stability report (kernel B on the card); A's launches as replays x 18;
+  6. train: the full-width ``HybridVisionSystem`` (telemetry on, the JAX
      dropout rates, bf16) trained by ``ManifoldConstrainedTrainer.train`` on
      the synthetic batches of ``hvs_tpu_torch.train`` (416², batch 8, 8
      classes, 64 boxes) for a few steps with a projection inside, then
      validated over 2 batches; counters zeroed just before, read just after;
-  6. train_parity: one train step, dropout off, the full-width model at 320²,
+  7. train_parity: one train step, dropout off, the full-width model at 320²,
      batch 2: the card (kernels) against the CPU (plain versions).
+The package pins its matmul precision flags itself (fp32 accumulation;
+``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
+them. It puts back torch's own flags before each phase that goes through an
+entry point (3-7) and fails unless they are pinned after it; the plain
+versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
 """
@@ -55,6 +72,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 SFU_PER_CLOCK = 16 * 132  # exponentials per clock: 16 per SM, 132 SMs
 IMAGE = 640
 SERVE_BATCH = 16
+ENGINE_BUCKETS = (1, 2, 4, 8, 16)  # the engine phase's batch buckets
 TRAIN_IMAGE, TRAIN_BATCH, TRAIN_CLASSES, TRAIN_BOXES = 416, 8, 8, 64
 SK_ITERS = 20
 # Widths of the flagship's 25 mHC residual matrices (H_res_raw): backbone
@@ -134,6 +152,42 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+# torch's process-wide matmul precision flags, which every entry point of
+# the package pins off (``hvs_tpu_torch.device.pin_matmul_precision``).
+PRECISION_FLAGS = ("cuda.matmul.allow_tf32", "cudnn.allow_tf32",
+                   "cuda.matmul.allow_bf16_reduced_precision_reduction")
+
+
+def _flag_owner(path: str):
+    *parents, leaf = path.split(".")
+    obj = torch.backends
+    for p in parents:
+        obj = getattr(obj, p)
+    return obj, leaf
+
+
+def read_flags() -> dict:
+    return {path: bool(getattr(*_flag_owner(path))) for path in PRECISION_FLAGS}
+
+
+def set_flags(values: dict) -> None:
+    for path, value in values.items():
+        setattr(*_flag_owner(path), value)
+
+
+def entry_point_phase(phase, defaults: dict, *args):
+    """Run one phase that goes through the package's entry points, starting
+    from torch's own flags (``defaults``, read before any phase ran), and
+    fail unless those entry points pinned the flags themselves: this script
+    never pins them."""
+    set_flags(defaults)
+    result = phase(*args)
+    flags = read_flags()
+    if any(flags.values()):
+        fail(f"{phase.__name__}: the entry points left the matmul precision flags {flags}")
+    return result
 
 
 def zero_counts() -> None:
@@ -243,10 +297,12 @@ def mhc_inputs(n: int, d: int, seed: int):
 
 
 def phase_kernels(card: str, shapes=None):
-    """Kernel A against its plain version at every main-path shape (or at the
-    (tokens, d) pairs of ``shapes``, to time a few quickly)."""
+    """Kernel A against its plain version at every main-path shape: the 18
+    sites of every engine bucket (which include the serve phase's batch 1
+    and 16) and a ragged count (or at the (tokens, d) pairs of ``shapes``,
+    to time a few quickly)."""
     if shapes is None:
-        shapes = sorted(set(mhc_sites(1)) | set(mhc_sites(SERVE_BATCH))
+        shapes = sorted(set().union(*(mhc_sites(b) for b in ENGINE_BUCKETS))
                         | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
     per_shape = {}
     for n, d in shapes:
@@ -414,6 +470,265 @@ def phase_parity(card: str) -> None:
         fail(f"CUDA and CPU serve outputs disagree: raw corr {corr} (need > {E2E_MIN_CORR}), "
              f"mean |diff| {mean_abs} (need < {E2E_MAX_MEAN_ABS}); class_scores max |diff| "
              f"{score_diff} (need < {E2E_SCORE_ATOL})")
+
+
+# ---------------------------------------------------------------------------
+# Serving engine
+
+
+def conditioned_params(seed: int) -> dict:
+    """Seeded flagship weights (the port's named parameters, on the card) with
+    the prediction convs conditioned as in ``tests/test_torch_serve.py``:
+    kernels x4, objectness bias 1, class biases N(0, 1). At plain random init
+    no score reaches the 0.25 threshold and the engine checks would compare
+    empty outputs."""
+    from hvs_tpu_torch.config import ModelConfig
+
+    model = ModelConfig().build_model(production=True, seed=seed)
+    r = np.random.default_rng(seed)
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    with torch.no_grad():
+        for name, value in params.items():
+            if ".predict." not in name:
+                continue
+            if name.endswith("kernel"):
+                value.mul_(4.0)
+            else:
+                bias = value.view(3, -1)
+                bias[:, 4] = 1.0
+                bias[:, 5:] = torch.from_numpy(
+                    r.standard_normal(tuple(bias[:, 5:].shape)).astype(np.float32)).cuda()
+    return params
+
+
+def packed_max_diff(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.max(np.abs(a - b)))
+
+
+def check_detections(dets, shapes, where: str) -> int:
+    """Finite Detections inside each image's pixel bounds; returns the count."""
+    total = 0
+    for det, (h, w) in zip(dets, shapes):
+        if det.image_size != (h, w):
+            fail(f"engine {where}: image_size {det.image_size}, expected {(h, w)}")
+        b = det.boxes
+        if not (np.isfinite(b).all() and np.isfinite(det.scores).all()):
+            fail(f"engine {where}: non-finite detections")
+        if len(b) and (b[:, [0, 2]].min() < 0 or b[:, [0, 2]].max() > w
+                       or b[:, [1, 3]].min() < 0 or b[:, [1, 3]].max() > h):
+            fail(f"engine {where}: boxes outside the {h}x{w} image")
+        total += len(b)
+    return total
+
+
+# Graph replay against the eager serve function on the same input: the same
+# kernels in the same order, so the two should be bitwise equal; the limit
+# allows fp32 rounding where cuBLAS or cuDNN picks another algorithm inside a
+# capture (boxes are normalized, scores in [0, 1], classes and counts exact).
+ENGINE_GRAPH_ATOL = 1e-5
+
+
+def phase_engine(card: str) -> None:
+    """The serving engine at the flagship's published widths: one CUDA graph
+    per bucket of (1, 2, 4, 8, 16) at 640², and per bucket for 720x1280 raw
+    frames (letterbox inside the graph); graph against eager at buckets 1 and
+    16; the registered and an unregistered mix of shapes; the micro-batcher
+    under 4 client threads for ~5 s with one hot swap mid-run; the stability
+    report (kernel B on the card)."""
+    import threading
+
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+    from hvs_tpu_torch.inference import EngineOverloaded, InferenceEngine
+
+    raw_hw = (720, 1280)
+    cfg = InferenceConfig()
+    cfg.preprocessing.image_size = IMAGE
+    cfg.performance.batch_buckets = ENGINE_BUCKETS
+    cfg.performance.warmup_raw_shapes = (raw_hw,)
+    old_params, new_params = conditioned_params(0), conditioned_params(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    engine = InferenceEngine(ModelConfig(), cfg, variables={"params": old_params})
+    b_per_load = sink_mod.launches_forward
+    t0 = time.perf_counter()
+    service = engine.warmup(cfg.performance.warmup_raw_shapes)
+    capture_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs = len(engine.replays)
+    print(json.dumps({"phase": "engine_load", "load_s": engine.load_seconds,
+                      "capture_s": capture_s, "graphs": graphs,
+                      "service_ms": {str(b): t * 1e3 for b, t in service.items()},
+                      "peak_mem_gb": peak_gb, "sinkhorn_launches_per_load": b_per_load,
+                      "kernel_sites": engine.kernel_sites, "card": card}), flush=True)
+    if graphs != 2 * len(cfg.performance.batch_buckets):
+        fail(f"engine captured {graphs} graphs, expected one per bucket and path")
+    if engine.kernel_sites != KERNEL_SITES:
+        fail(f"engine model has {engine.kernel_sites} kernel sites, expected {KERNEL_SITES}")
+
+    r = np.random.default_rng(0)
+    frames = r.integers(0, 256, (SERVE_BATCH, *raw_hw, 3), dtype=np.uint8)
+    # Graph against the eager serve function, buckets 1 and 16, both paths.
+    for b in (1, SERVE_BATCH):
+        for path in ("raw", "letterboxed"):
+            entry = engine._serve_fn_raw(b, raw_hw) if path == "raw" else engine._serve_fn(b)
+            with engine._serve_lock, torch.cuda.stream(engine._stream):
+                if path == "raw":
+                    entry.stage(list(frames[:b]), engine._stream)
+                else:
+                    engine._letterbox_into(entry.static_in, list(frames[:b]))
+                out, done = entry.run(engine._stream)
+                eager = entry.serve_eager(entry.static_in)
+                torch.cuda.synchronize()
+            g, e = out.numpy(), eager.cpu().numpy()
+            diff = packed_max_diff(g, e)
+            valid = int(g[:, 0, 6].sum())
+            row = {"phase": "engine_graph_vs_eager", "bucket": b, "path": path,
+                   "bitwise_equal": bool(np.array_equal(g, e)), "max_abs_diff": diff,
+                   "limit": ENGINE_GRAPH_ATOL, "detections": valid, "card": card}
+            print(json.dumps(row), flush=True)
+            if not (np.isfinite(g).all() and diff <= ENGINE_GRAPH_ATOL
+                    and np.array_equal(g[..., 5:7], e[..., 5:7])):
+                fail(f"engine graph and eager serve disagree: {row}")
+            if valid == 0:
+                fail(f"engine bucket {b} {path}: no detections; the comparison is vacuous")
+
+    # Device time per bucket-16 replay (CUDA events around 10 replays).
+    device_ms = {}
+    for path, entry in (("raw", engine._serve_fn_raw(SERVE_BATCH, raw_hw)),
+                        ("letterboxed", engine._serve_fn(SERVE_BATCH))):
+        with engine._serve_lock, torch.cuda.stream(engine._stream):
+            times = []
+            for _ in range(3):
+                a = torch.cuda.Event(enable_timing=True)
+                z = torch.cuda.Event(enable_timing=True)
+                a.record(engine._stream)
+                for _ in range(10):
+                    entry.graph.replay()
+                z.record(engine._stream)
+                z.synchronize()
+                times.append(a.elapsed_time(z) / 10)
+            entry.replays += 30
+        device_ms[path] = float(np.median(times))
+
+    # Registered path: infer_batch on 16 raw frames, 20 calls.
+    dets = engine.infer_batch(list(frames))
+    found = check_detections(dets, [raw_hw] * SERVE_BATCH, "registered path")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        engine.infer_batch(list(frames))
+    fps = SERVE_BATCH * 20 / (time.perf_counter() - t0)
+    # Unregistered mix: letterboxed eagerly on the card.
+    mix = [r.integers(0, 256, (*hw, 3), dtype=np.uint8)
+           for hw in ((480, 640), raw_hw, (300, 500), (1080, 1920))]
+    dets = engine.infer_batch(mix)
+    found_mix = check_detections(dets, [m.shape[:2] for m in mix], "unregistered mix")
+    print(json.dumps({"phase": "engine_serve", "infer_batch_fps_16x720p": fps,
+                      "device_ms_per_b16_replay": device_ms, "detections_16x720p": found,
+                      "detections_mix": found_mix, "card": card}), flush=True)
+
+    # Micro-batcher: 4 clients, ~5 s, one reload to other weights mid-run; a
+    # probe thread serves one fixed frame throughout. The old weights' result
+    # comes from this engine before the swap; the new weights' from a second
+    # engine built on them (its own raw graph at bucket 1), so a swap that
+    # left anything stale cannot pass for new.
+    probe = frames[0]
+    old_probe = engine.infer(probe)
+    ref_engine = InferenceEngine(ModelConfig(), cfg, variables={"params": new_params})
+    ref_engine.register_raw_shape(raw_hw, buckets=(1,))
+    ref_probe = ref_engine.infer(probe)
+    del ref_engine
+    engine.metrics.reset()
+    engine.start_batcher()
+    stop = threading.Event()
+    futures, rejected_at_client, probes = [], [0], []
+    lock = threading.Lock()
+
+    def client(seed: int) -> None:
+        rr = np.random.default_rng(seed)
+        period = 1.0 / 120.0  # each client offers 120 frames/s
+        nxt = time.perf_counter()
+        while not stop.is_set():
+            try:
+                fut = engine.submit(frames[rr.integers(SERVE_BATCH)])
+                with lock:
+                    futures.append(fut)
+            except EngineOverloaded:
+                with lock:
+                    rejected_at_client[0] += 1
+            nxt += period
+            time.sleep(max(0.0, nxt - time.perf_counter()))
+
+    def prober() -> None:
+        while not stop.is_set():
+            started = time.perf_counter()
+            probes.append((started, engine.infer(probe)))
+            time.sleep(0.02)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    threads.append(threading.Thread(target=prober))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(2.5)
+    reload_t0 = time.perf_counter()
+    engine.reload({"params": new_params})
+    reload_end = time.perf_counter()
+    reload_s = reload_end - reload_t0
+    time.sleep(2.5)
+    stop.set()
+    for t in threads:
+        t.join()
+    results, failed = [], 0
+    for fut in futures:
+        try:
+            results.append(fut.result(timeout=60))
+        except EngineOverloaded:
+            failed += 1
+    elapsed = time.perf_counter() - t0
+    stats = engine.get_performance_stats()
+    engine.stop_batcher()
+    new_probe = engine.infer(probe)
+    lat = np.array([d.latency_ms for d in results]) if results else np.zeros(1)
+
+    def same(a, b) -> bool:
+        return (len(a) == len(b) and np.array_equal(a.classes, b.classes)
+                and np.allclose(a.boxes, b.boxes, atol=1e-3) and np.allclose(a.scores, b.scores,
+                                                                            atol=1e-5))
+
+    n_old = sum(same(p, old_probe) for _, p in probes)
+    n_new = sum(same(p, ref_probe) for _, p in probes)
+    after = [p for started, p in probes if started > reload_end]
+    row = {"phase": "engine_batcher", "clients": 4, "seconds": elapsed,
+           "completed": len(results), "rejected": rejected_at_client[0],
+           "shed": stats.get("batcher_shed"), "shed_futures": failed,
+           "queue_capacity": stats.get("batcher_queue_capacity"),
+           "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+           "p99_ms": float(np.percentile(lat, 99)), "fps": len(results) / elapsed,
+           "reload_s": reload_s, "probes": len(probes), "probes_old": n_old,
+           "probes_new": n_new, "probes_after_swap": len(after),
+           "probes_after_swap_new": sum(same(p, ref_probe) for p in after),
+           "reloaded_equals_fresh_engine": same(new_probe, ref_probe),
+           "old_new_differ": not same(old_probe, ref_probe), "card": card}
+    print(json.dumps(row), flush=True)
+    if len(results) + failed != len(futures):
+        fail(f"engine batcher: not every future ended: {row}")
+    if not results or not after or n_old + n_new != len(probes) or not row["old_new_differ"] \
+            or row["probes_after_swap_new"] != len(after) \
+            or not row["reloaded_equals_fresh_engine"]:
+        fail(f"engine batcher / hot swap: {row}")
+    check_detections(results, [raw_hw] * len(results), "micro-batcher")
+
+    replays = sum(engine.replays.values())
+    report = engine.get_stability_report()
+    print(json.dumps({"phase": "engine_stability", **report, "card": card}), flush=True)
+    if not (report["num_mhc_layers"] == len(SINKHORN_MIX) and report["max_ds_error"] < 1e-3
+            and report["eigenvalue_constraint_satisfied"]):
+        fail(f"engine stability report: {report}")
+    print(json.dumps({"phase": "engine_launches",
+                      "graph_replays": {str(k): v for k, v in engine.replays.items()},
+                      "replays": replays, "mhc_block_launches": replays * KERNEL_SITES,
+                      "sinkhorn_launches_per_load": b_per_load, "card": card}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -758,18 +1073,22 @@ def phase_train_parity(card: str) -> None:
         row = train_step_pair(dtype)
         row["card"] = card
         print(json.dumps(row), flush=True)
-        tol = TRAIN_PARITY[row["dtype"]]
-        ok = (row["finite"]
-              and abs(row["loss_cuda"] - row["loss_cpu"]) <= tol["loss_rtol"] * abs(row["loss_cpu"])
-              and abs(row["grad_norm_cuda"] - row["grad_norm_cpu"])
-              <= tol["grad_norm_rtol"] * row["grad_norm_cpu"]
-              and row["h_res_grads"] == len(SINKHORN_MIX)
-              and row["h_res_grad_cos_min"] > tol["h_res_grad_min_cos"]
-              and row["mhc_update_cos"] > tol["mhc_update_min_cos"]
-              and row["param_max_abs_diff"] <= row["param_limit"])
-        if not ok:
-            fail(f"train step on the card disagrees with the CPU: {row}; limits {tol}, "
-                 f"parameters within {row['param_limit']}")
+        if not train_parity_within_limits(row):
+            fail(f"train step on the card disagrees with the CPU: {row}; limits "
+                 f"{TRAIN_PARITY[row['dtype']]}, parameters within {row['param_limit']}")
+
+
+def train_parity_within_limits(row: dict) -> bool:
+    """Whether a ``train_step_pair`` row meets the limits of its dtype."""
+    tol = TRAIN_PARITY[row["dtype"]]
+    return bool(row["finite"]
+                and abs(row["loss_cuda"] - row["loss_cpu"]) <= tol["loss_rtol"] * abs(row["loss_cpu"])
+                and abs(row["grad_norm_cuda"] - row["grad_norm_cpu"])
+                <= tol["grad_norm_rtol"] * row["grad_norm_cpu"]
+                and row["h_res_grads"] == len(SINKHORN_MIX)
+                and row["h_res_grad_cos_min"] > tol["h_res_grad_min_cos"]
+                and row["mhc_update_cos"] > tol["mhc_update_min_cos"]
+                and row["param_max_abs_diff"] <= row["param_limit"])
 
 
 def train_step_pair(dtype: torch.dtype) -> dict:
@@ -778,9 +1097,8 @@ def train_step_pair(dtype: torch.dtype) -> dict:
     from hvs_tpu_torch.models import HybridVisionSystem
     from hvs_tpu_torch.models.layers import Dropout, ManifoldHyperConnection
     from hvs_tpu_torch.train import make_synthetic_loader
-    from hvs_tpu_torch.training import TrainerConfig, TrainState, train_step
-    from hvs_tpu_torch.training.optimizer import ManifoldAwareOptimizer, partition_label
-    from hvs_tpu_torch.training.schedule import cosine_annealing_with_warmup
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig, train_step
+    from hvs_tpu_torch.training.optimizer import partition_label
     from hvs_tpu_torch.training.trainer import batch_to
 
     model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=1, dtype=dtype)
@@ -797,19 +1115,18 @@ def train_step_pair(dtype: torch.dtype) -> dict:
     start = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
     # No warmup, so the step moves every parameter (lr(0) = 1e-3).
     config = TrainerConfig(num_classes=TRAIN_CLASSES, warmup_steps=0, backbone_lr_factor=0.1)
-    lr = cosine_annealing_with_warmup(config.learning_rate, 0, config.total_steps)
     batch = next(make_synthetic_loader(2, 320, 1, TRAIN_CLASSES, TRAIN_BOXES, seed=3)())
     results = {}
     for name, m, dev in (("cuda", model, torch.device("cuda")),
                          ("cpu", cpu_model, torch.device("cpu"))):
-        params = dict(m.named_parameters())
-        tx = ManifoldAwareOptimizer(params, lr, weight_decay=config.weight_decay,
-                                    mhc_lr_factor=config.mhc_lr_factor,
-                                    clip_regular=config.clip_regular, clip_mhc=config.clip_mhc,
-                                    project_every=config.project_every,
-                                    sk_iters=config.sk_iters, backbone_lr_factor=0.1)
+        # Through the trainer, the entry point (it pins the precision flags
+        # and builds the optimizer); one step, gradients returned.
+        trainer = ManifoldConstrainedTrainer(m, config, device=dev)
+        trainer.init_state()
+        params = trainer.params()
+        lr = trainer.schedule
         t0 = time.perf_counter()
-        metrics, grads = train_step(m, tx, config, TrainState(), batch_to(batch, dev))
+        metrics, grads = train_step(m, trainer.tx, config, trainer.state, batch_to(batch, dev))
         results[name] = dict(
             loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
             h_res={k: g.float().cpu() for k, g in grads.items() if k.endswith("H_res_raw")},
@@ -843,9 +1160,6 @@ def train_step_pair(dtype: torch.dtype) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"phase": "device", "card": card, "kind": kind,
@@ -858,13 +1172,19 @@ def main() -> None:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "per_source_s": build.build_seconds}), flush=True)
 
+    # The kernel phases hold each kernel against a plain version whose
+    # result does not depend on these flags; every later phase starts from
+    # torch's own flags and must find them pinned by the package.
+    defaults = read_flags()
+    print(json.dumps({"phase": "flags", "torch_defaults": defaults}), flush=True)
     per_shape = phase_kernels(card)
     sink_rows, sink_mix = phase_sinkhorn(card, sm_clock_hz)
     unfolded_rows = phase_unfolded(card)
-    serve_launches = phase_serve(card)
-    phase_parity(card)
-    train_launches = phase_train(card)
-    phase_train_parity(card)
+    serve_launches = entry_point_phase(phase_serve, defaults, card)
+    entry_point_phase(phase_parity, defaults, card)
+    entry_point_phase(phase_engine, defaults, card)
+    train_launches = entry_point_phase(phase_train, defaults, card)
+    entry_point_phase(phase_train_parity, defaults, card)
 
     print(card)
     print(json.dumps({"kernels": [kernel_summary(per_shape, serve_launches),

@@ -28,3 +28,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def pin_matmul_precision() -> None:
+    """Turn off TF32 in cuBLAS and cuDNN and reduced-precision bf16 GEMM
+    reductions, so matmuls and convolutions accumulate in fp32 as the JAX
+    reference does (its kernels accumulate in fp32, its tests pin fp32
+    matmuls).
+
+    The three flags are process-wide: calling this from one entry point
+    changes them for every model and tensor in the process. Every entry point
+    of the port (``Detector``, ``InferenceEngine``,
+    ``ManifoldConstrainedTrainer``, ``python -m hvs_tpu_torch.train``) calls it.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -3,7 +3,8 @@
 Counterpart of the serve program that ``bench.py`` measures: the flagship
 forward with the mHC constraints computed once at load, on-device decode,
 class-aware fixed-shape NMS, and fixed-K boxes, scores and classes. The
-bucketed engine, letterbox and network servers are not ported yet.
+bucketed engine with its letterbox is ``inference/engine.py``; the network
+servers are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from ..convert import Tree, load_flax_params
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, pin_matmul_precision, resolve_device
 from ..models.constraints import compute_constraints, load_constraints, param_tree
 from ..models.hybrid import detect
 
@@ -30,7 +31,8 @@ class Detector:
         device: where to serve; the CUDA card unless ``"cpu"`` is passed. The
             model is moved there.
     At load the mHC constraints are computed once (``model.sk_iters``
-    Sinkhorn iterations) and installed on the model. Postprocessing uses the
+    Sinkhorn iterations) and installed on the model, and the process's matmul
+    precision flags are pinned (``device.pin_matmul_precision``). Postprocessing uses the
     serve program's settings: score threshold 0.25, IoU 0.45, 512 candidates
     before NMS, 100 detections out.
     """
@@ -42,6 +44,7 @@ class Detector:
     def __init__(self, model: nn.Module, params: Optional[Tree] = None, *,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        pin_matmul_precision()  # process-wide: fp32 accumulation, as the reference
         self.model = model.to(self.device).eval()
         if params is not None:
             load_flax_params(self.model, params)

@@ -320,10 +320,18 @@ class ManifoldHyperConnection(nn.Module):
         nn.init.ones_(self.norm_post_scale)
 
     def set_constraints(self, node: dict) -> None:
-        """Install this layer's entry of ``compute_constraints`` (cast to ``dtype``)."""
+        """Install this layer's entry of ``compute_constraints`` (cast to ``dtype``).
+
+        Once installed, later calls copy into the same buffers instead of
+        rebinding them: a CUDA graph captured over this layer reads the
+        buffers at fixed addresses, and a hot swap must reach it."""
         for name in ("h_pre", "h_post", "h_res", "w1_folded"):
             value = node[name].to(device=self.H_res_raw.device, dtype=self.dtype)
-            setattr(self, name, value.contiguous())
+            current = getattr(self, name)
+            if current is not None and current.shape == value.shape:
+                current.copy_(value)
+            else:
+                setattr(self, name, value.contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.precomputed_constraints:

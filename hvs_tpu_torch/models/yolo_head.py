@@ -103,7 +103,10 @@ def decode_predictions(raw: torch.Tensor, anchors: torch.Tensor) -> Dict[str, to
                             indexing="ij")
     grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]
     anc = anchors.permute(1, 2, 0, 3)[None]
-    center = (grid + xy) / torch.tensor([w, h], dtype=torch.float32, device=raw.device)
+    # Divided by Python scalars, not a tensor made from a list: that would be
+    # a host-to-device copy, which a CUDA graph capture does not allow.
+    cell = grid + xy
+    center = torch.cat([cell[..., :1] / w, cell[..., 1:] / h], dim=-1)
     half = anc[..., 2:4] * wh / 2
     boxes = torch.cat([center - half, center + half], dim=-1)
 

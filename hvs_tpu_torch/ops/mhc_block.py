@@ -73,16 +73,25 @@ def mhc_block_unfolded_plain(x, h_pre, w1, b1, w2, b2, h_post, h_res,
                              ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
     """The unfolded kernel's function in plain PyTorch: ``LN1(x) @ H_pre``
     rounded to bf16, then the serve chain with ``w1`` in place of W1_folded."""
-    y = layernorm(x, ln1_scale, ln1_bias).to(torch.bfloat16) @ h_pre.to(torch.bfloat16)
+    y = _mm(layernorm(x, ln1_scale, ln1_bias), h_pre)
     return _chain(x, y, w1, b1, w2, b2, h_post, h_res, ln2_scale, ln2_bias)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` on bf16 operands, summed in fp32 and rounded to bf16 once,
+    whatever the process's matmul flags: bf16 values are exact in fp32 and
+    in TF32, so neither TF32 nor a reduced-precision bf16 reduction can
+    change the product."""
+    bf = torch.bfloat16
+    return (a.to(bf).float() @ b.to(bf).float()).to(bf)
 
 
 def _chain(x, y, w1, b1, w2, b2, h_post, h_res, ln2_scale, ln2_bias) -> torch.Tensor:
     bf = torch.bfloat16
-    y = F.gelu(y @ w1.to(bf) + b1.to(bf), approximate="tanh")
-    y = F.gelu(y @ w2.to(bf) + b2.to(bf), approximate="tanh")
-    y = y @ h_post.to(bf)
-    res = x.to(bf) @ h_res.to(bf)
+    y = F.gelu(_mm(y, w1) + b1.to(bf), approximate="tanh")
+    y = F.gelu(_mm(y, w2) + b2.to(bf), approximate="tanh")
+    y = _mm(y, h_post)
+    res = _mm(x, h_res)
     return layernorm(res + y, ln2_scale, ln2_bias).to(x.dtype)
 
 

@@ -46,6 +46,35 @@ def _gather_boxes(boxes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
 
 
+def _greedy_fixed_point(suppress: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The greedy result: the unique fixed point of K <- {j valid : no kept
+    i suppresses j}, iterated from K = valid.
+
+    One sweep counts each candidate's kept suppressors in one batched
+    product and keeps those with none: ``keep = max(valid - keep @ S, 0)``
+    on 0/1 values, exact in fp16 up to 2048 candidates (fp32 on the CPU).
+    Eagerly the loop stops at the fixed point (typically a few sweeps; each
+    check waits on the device). Inside a CUDA graph capture nothing may wait
+    on the host, so all M sweeps are captured: sweeps past the fixed point
+    change nothing, and M bounds the depth of any suppression chain.
+    """
+    m = valid.shape[-1]
+    dtype = torch.float16 if valid.is_cuda and m <= 2048 else torch.float32
+    supp = suppress.to(dtype).reshape(-1, m, m)
+    valid_f = valid.to(dtype).reshape(-1, 1, m)
+    keep = valid_f
+    if valid.is_cuda and torch.cuda.is_current_stream_capturing():
+        for _ in range(m):
+            keep = torch.baddbmm(valid_f, keep, supp, alpha=-1).clamp_(min=0)
+    else:
+        for _ in range(m):
+            new = torch.baddbmm(valid_f, keep, supp, alpha=-1).clamp_(min=0)
+            if torch.equal(new, keep):
+                break
+            keep = new
+    return (keep > 0).reshape(valid.shape)
+
+
 def nms_fixed(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -75,14 +104,7 @@ def nms_fixed(
     # suppress[..., i, j]: higher-scored i of the same class overlaps lower-scored j.
     suppress = (pairwise_iou(b, b) > iou_threshold) & upper & same_class
 
-    # Iterate to the fixed point; converges in suppression-chain-depth steps.
-    keep = valid
-    for _ in range(m):
-        new = valid & ~(suppress & keep[..., :, None]).any(dim=-2)
-        if torch.equal(new, keep):
-            break
-        keep = new
-
+    keep = _greedy_fixed_point(suppress, valid)
     kept_scores = torch.where(keep, s, -1.0)
     k = min(max_detections, m)
     out_scores, out_idx = top_k_stable(kept_scores, k)

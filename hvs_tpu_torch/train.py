@@ -72,8 +72,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     if not args.synthetic:
         raise SystemExit("only --synthetic data is ported so far (the COCO data module is not)")
 
+    from .device import pin_matmul_precision
     from .models import HybridVisionSystem
     from .training import ManifoldConstrainedTrainer, TrainerConfig
+
+    pin_matmul_precision()
 
     widths = dict(TINY) if args.tiny else {}
     image_size, max_boxes = args.image_size, 64  # TrainingConfig's dataset.max_boxes

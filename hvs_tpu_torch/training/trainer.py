@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..constants import IMAGENET_MEAN, IMAGENET_STD
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, pin_matmul_precision, resolve_device
 from ..models.layers import set_dropout_generator
 from .losses import build_targets, manifold_regularization_loss, mhc_yolo_loss
 from .optimizer import ManifoldAwareOptimizer
@@ -189,6 +189,7 @@ class ManifoldConstrainedTrainer:
     def __init__(self, model: nn.Module, config: TrainerConfig = TrainerConfig(),
                  device: DeviceLike = None, seed: int = 0):
         self.device = resolve_device(device)
+        pin_matmul_precision()  # process-wide: fp32 accumulation, as the reference
         self.model = model.to(self.device)
         self.config = config
         self.generator = torch.Generator(device=self.device).manual_seed(seed)

@@ -109,6 +109,36 @@ def test_mhc_block_unfolded_kernel_matches_plain_version(d, n):
     assert np.mean(np.abs(a - b)) < MAX_MEAN_ABS
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(25600, 32), (6400, 256), (400, 512)])
+def test_mhc_block_plain_products_ignore_the_precision_flags(n, d):
+    """The plain versions, the kernels' references, sum every product in
+    fp32 whether TF32 and reduced-precision bf16 reductions are on or off
+    (bf16 operands are exact in TF32): the two settings differ only in sum
+    order, so two bf16 results differ by at most one bf16 ulp plus the fp32
+    sum-order bound 2·K·2^-24·(|x| @ |w|) (a bf16 sum would miss it by
+    ~2^-8·(|x| @ |w|))."""
+    _need_card()
+    cuda_mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (cuda_mm.allow_tf32, cudnn.allow_tf32,
+             cuda_mm.allow_bf16_reduced_precision_reduction)
+    x, args = _cuda_inputs(n, d, seed=d + 3)
+    outs = []
+    try:
+        for on in (True, False):
+            cuda_mm.allow_tf32 = cudnn.allow_tf32 = on
+            cuda_mm.allow_bf16_reduced_precision_reduction = on
+            outs.append(mhc_mod._mm(x, args[0]).float())
+    finally:
+        (cuda_mm.allow_tf32, cudnn.allow_tf32,
+         cuda_mm.allow_bf16_reduced_precision_reduction) = saved
+    a, b = outs
+    scale = (x.double().abs() @ args[0].double().abs()).float()
+    assert torch.isfinite(a).all()
+    bound = 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 2 * d * 2.0 ** -24 * scale
+    assert bool(((a - b).abs() <= bound).all())
+
+
 NAN_BITS = 0x7FC0  # a bf16 NaN: no output of the kernel
 
 
@@ -352,3 +382,118 @@ def test_sinkhorn_kernel_is_deterministic():
         for other in runs[1:]:
             for a, b in zip(runs[0], other):
                 assert torch.equal(a, b), n
+
+
+# ---------------------------------------------------------------------------
+# The serving engine: one CUDA graph per bucket
+
+
+def _tiny_card_engine(seed=0, variables=None):
+    """A small bf16 engine on the card whose mHC sites at d = 32, 64, 128 and
+    256 run kernel A; threshold 1e-4 so that random weights detect (their
+    scores sit near sigmoid(-4)^2 = 3e-4)."""
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+    from hvs_tpu_torch.inference import InferenceEngine
+
+    mc = ModelConfig(input_size=64, device="cuda")
+    mc.backbone.stage_blocks, mc.backbone.stage_channels = (1, 1, 1, 1), (32, 64, 128, 256)
+    mc.vit.dim, mc.vit.depth, mc.vit.num_heads = 64, 1, 4
+    mc.fusion.fpn_channels, mc.detection.head_channels = 64, 64
+    mc.detection.num_classes, mc.mhc.sinkhorn_iterations = 3, 5
+    ic = InferenceConfig(device="cuda")
+    ic.preprocessing.image_size = 64
+    ic.performance.batch_buckets = (1, 2)
+    ic.postprocessing.score_threshold = 1e-4
+    ic.postprocessing.pre_nms_top_k = 64
+    ic.postprocessing.max_detections = 16
+    return InferenceEngine(mc, ic, variables=variables, rng_seed=seed)
+
+
+def _frames(seed, n, h=48, w=64):
+    return list(np.random.default_rng(seed).integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("raw", [False, True])
+def test_engine_graph_replay_equals_eager(raw):
+    _need_card()
+    engine = _tiny_card_engine()
+    engine.warmup([(48, 64)] if raw else [])
+    entry = engine._serve_fn_raw(2, (48, 64)) if raw else engine._serve_fn(2)
+    frames = _frames(1, 2, *((48, 64) if raw else (64, 64)))
+    with engine._serve_lock, torch.cuda.stream(engine._stream):
+        entry.stage(frames, engine._stream)
+        out, done = entry.run(engine._stream)
+        eager = entry.serve_eager(entry.static_in)
+        torch.cuda.synchronize()
+    assert entry.graph is not None
+    assert out[:, 0, 6].sum() > 0  # detections to compare
+    assert torch.equal(out, eager.cpu())
+
+
+@pytest.mark.gpu
+def test_engine_reload_after_capture_reaches_the_graph():
+    """reload copies into the captured parameters and constraint buffers,
+    so the graph serves the new weights; as an engine built on them."""
+    _need_card()
+    engine = _tiny_card_engine(seed=0)
+    engine.warmup()
+    frame = _frames(2, 1, 64, 64)[0]
+    before = engine.infer(frame)
+    other = _tiny_card_engine(seed=1)
+    new = {k: v.detach().clone() for k, v in other.model.named_parameters()}
+    engine.reload({"params": new})
+    after = engine.infer(frame)
+    want = other.infer(frame)
+    assert len(before) != len(after) or not np.allclose(before.scores, after.scores)
+    assert len(after) == len(want)
+    np.testing.assert_allclose(after.scores, want.scores, atol=1e-6)
+    np.testing.assert_allclose(after.boxes, want.boxes, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_engine_threads_dispatching_at_once_get_their_own_results():
+    import threading
+
+    _need_card()
+    engine = _tiny_card_engine()
+    engine.warmup([(48, 64)])
+    frames = _frames(3, 2)
+    # Thread i serves bucket 1 + i: its reference comes from the same graph.
+    want = [engine.infer_batch([f] * (1 + i))[0] for i, f in enumerate(frames)]
+    errors = []
+
+    def serve(i):
+        try:
+            for _ in range(20):
+                got = engine.infer_batch([frames[i]] * (1 + i))
+                for det in got:
+                    assert len(det) == len(want[i])
+                    np.testing.assert_allclose(det.scores, want[i].scores, atol=1e-6)
+        except Exception as err:  # surfaced below
+            errors.append(err)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+
+
+@pytest.mark.gpu
+def test_engine_counts_replays_and_kernel_a_counts_captures():
+    """Kernel A's counter counts launches at capture (and the eager warm-up
+    calls before it), not replays; the engine counts replays per graph, so
+    A's launches on the serve path are replays x kernel sites."""
+    _need_card()
+    engine = _tiny_card_engine()
+    assert engine.kernel_sites >= 4
+    engine.warmup()
+    launches = mhc_mod.launches
+    replays = sum(engine.replays.values())
+    for frame in _frames(4, 5, 64, 64):
+        engine.infer(frame)
+    assert mhc_mod.launches == launches
+    assert sum(engine.replays.values()) == replays + 5
+    assert engine.replays[1] >= 5

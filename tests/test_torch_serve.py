@@ -121,18 +121,20 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
         Detector(port)
 
 
-_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|hvs_tpu)(\.|\s|$)", re.M)
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|hvs_tpu)(\.|\s|$)", re.M)
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (and chip_smoke.py) leaves jax,
-    flax and hvs_tpu out of sys.modules; no source line imports them."""
+    """Importing every module of the port, its subpackages included (and
+    chip_smoke.py), leaves jax, flax, optax, orbax and hvs_tpu out of
+    sys.modules; no source line imports them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import hvs_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(hvs_tpu_torch.__path__, 'hvs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'hvs_tpu')]\n"
+        "bad = [n for n in sys.modules\n"
+        "       if n.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'hvs_tpu')]\n"
         "print(sorted(bad))\n"
         "sys.exit(1 if bad else 0)\n"
     )
