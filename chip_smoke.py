@@ -40,12 +40,23 @@ Phases, each of which fails the run with a non-zero exit:
      the synthetic batches of ``hvs_tpu_torch.train`` (416², batch 8, 8
      classes, 64 boxes) for a few steps with a projection inside, then
      validated over 2 batches; counters zeroed just before, read just after;
-  7. train_parity: one train step, dropout off, the full-width model at 320²,
+  7. train_chunked: the on-device loop (``train_chunked``) with
+     ``train_device``'s defaults: the flagship at 80 classes, 512 seeded
+     640² images (16 boxes each) in card memory, one captured train step
+     per resolution (416² batch 16, 640² batch 8) replayed for 2 chunks of
+     10 steps each, validation at 640² (kernel C at its 18 sites) after the
+     last chunk; checks a replay against the eager step from one state,
+     the card's sampler against ``apply_augment`` on the CPU, the
+     projection step, each step's lr against the host schedule, the
+     replays under sync debug mode "error" with one pull per chunk, and the
+     launches per step; ms and device ms per step, capture s, peak memory
+     per resolution, and one chunk at the ``train`` phase's configuration;
+  8. train_parity: one train step, dropout off, the full-width model at 320²,
      batch 2: the card (kernels) against the CPU (plain versions).
 The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
-entry point (3-7) and fails unless they are pinned after it; the plain
+entry point (3-8) and fails unless they are pinned after it; the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -66,6 +77,7 @@ from hvs_tpu_torch import build
 from hvs_tpu_torch.ops import mhc_block as mhc_mod
 from hvs_tpu_torch.ops import sinkhorn as sink_mod
 from hvs_tpu_torch.ops.sinkhorn import sinkhorn_log
+from hvs_tpu_torch.training.chunk import kernel_counts
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
@@ -74,6 +86,13 @@ IMAGE = 640
 SERVE_BATCH = 16
 ENGINE_BUCKETS = (1, 2, 4, 8, 16)  # the engine phase's batch buckets
 TRAIN_IMAGE, TRAIN_BATCH, TRAIN_CLASSES, TRAIN_BOXES = 416, 8, 8, 64
+# The train_chunked phase: train_device's defaults (sizes and batches, 80
+# classes, 16 boxes, EMA 0.999, validation batches of 4 at the largest
+# size), 512 images at 640², 2 chunks of 10 steps per size.
+CHUNK_BATCHES = {416: 16, 640: 8}
+CHUNK_CLASSES, CHUNK_BOXES, CHUNK_IMAGES, CHUNK_VAL_IMAGES = 80, 16, 512, 16
+CHUNK_STEPS, CHUNKS_PER_SIZE, CHUNK_VAL_BATCH = 10, 2, 4
+CHUNK_PROJECT_EVERY = 15  # projection steps 15 and 30, inside chunks 2 and 3
 SK_ITERS = 20
 # Widths of the flagship's 25 mHC residual matrices (H_res_raw): backbone
 # mids 32 x2, 64 x3, 128 x4, 256 x2; ViT 6 x 256 and the 512 fusion; FPN,
@@ -193,12 +212,6 @@ def entry_point_phase(phase, defaults: dict, *args):
 def zero_counts() -> None:
     mhc_mod.launches = mhc_mod.launches_unfolded = 0
     sink_mod.launches_forward = sink_mod.launches_backward = 0
-
-
-def read_counts() -> dict:
-    return {"mhc_block": mhc_mod.launches, "mhc_block_unfolded": mhc_mod.launches_unfolded,
-            "sinkhorn_forward": sink_mod.launches_forward,
-            "sinkhorn_backward": sink_mod.launches_backward}
 
 
 def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
@@ -875,10 +888,12 @@ def sinkhorn_mix(card: str, sm_clock_hz: float) -> dict:
     return row
 
 
-def sinkhorn_summary(rows, mix: dict, launches: dict):
+def sinkhorn_summary(rows, mix: dict, launches: dict, chunked: dict):
     """Kernel B forward and backward over the 25 matrices of one step as the
     train step launches them (one launch per width, timed in this phase),
-    with the largest error of any check of this phase."""
+    with the largest error of any check of this phase; ``launches`` counts
+    the eager phases' launches, ``chunked`` the replays' (per captured step
+    x replays) of ``train_chunked``."""
     out = []
     for part, name in (("forward", "sinkhorn_forward"), ("backward", "sinkhorn_backward")):
         err_key = "p_max_abs_err" if part == "forward" else "grad_max_abs_err"
@@ -888,6 +903,7 @@ def sinkhorn_summary(rows, mix: dict, launches: dict):
             "source": "hvs_tpu_torch/csrc/sinkhorn.cu",
             "replaces": "hvs_tpu/ops/pallas/sinkhorn_pallas.py:62",
             "launches": launches[name],
+            "launches_train_chunked": chunked[name],
             "max_abs_err": max([mix[err_key]] + [r[err_key] for r in rows.values()]),
             "ms": mix[f"{part}_ms"],
             "plain_ms": mix[f"{part}_plain_ms"],
@@ -913,11 +929,13 @@ def unfolded_bound_ms(n: int, d: int):
 
 def phase_unfolded(card: str, shapes=None):
     """Kernel C against its plain version at the 18 sites of the validation
-    forward (416², batch 8) and at a ragged count (or at ``shapes``). Inputs
+    forwards (416², batch 8 in ``train``; 640², batch 4 in
+    ``train_chunked``) and at a ragged count (or at ``shapes``). Inputs
     are kernel A's well-conditioned ones with a near-identity
     H_pre = sigmoid(6·I - 3 + noise)."""
     if shapes is None:
         shapes = sorted(set(mhc_sites(TRAIN_BATCH, TRAIN_IMAGE))
+                        | set(mhc_sites(CHUNK_VAL_BATCH, max(CHUNK_BATCHES)))
                         | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
     per_shape = {}
     for n, d in shapes:
@@ -953,8 +971,9 @@ def phase_unfolded(card: str, shapes=None):
     return per_shape
 
 
-def unfolded_summary(per_shape, launches: int):
-    """Kernel C over the 18 launches of one validation forward (416², batch 8)."""
+def unfolded_summary(per_shape, launches: int, chunked: int):
+    """Kernel C over the 18 launches of one validation forward (416², batch
+    8); ``chunked``: its launches in ``train_chunked``'s validation replays."""
     sites = mhc_sites(TRAIN_BATCH, TRAIN_IMAGE)
     t_ops = sum(10.0 * n * d * d / PEAK_BF16_FLOPS * 1e3 for n, d in sites)
     t_bytes = sum((4.0 * n * d + 10.0 * d * d + 24.0 * d) / PEAK_BYTES * 1e3 for n, d in sites)
@@ -964,6 +983,7 @@ def unfolded_summary(per_shape, launches: int):
         "source": "hvs_tpu_torch/csrc/mhc_block.cu",
         "replaces": "hvs_tpu/ops/pallas/mhc_pallas.py:80",
         "launches": launches,
+        "launches_train_chunked": chunked,
         "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
         "ms": sum(per_shape[s]["ms"] for s in sites),
         "plain_ms": sum(per_shape[s]["plain_ms"] for s in sites),
@@ -983,12 +1003,12 @@ def phase_train(card: str) -> dict:
     on the entry point's synthetic loader, then validated over 2 batches.
 
     Kernel B runs one launch per matrix width (5) in each grouped call: per
-    train step 5 forward launches in the model forward and 5 in the manifold
-    regulariser, plus 5 in the optimizer's projection on projection steps,
-    and 10 backward launches (the feature head's matrix is in the model's
-    width-256 group, where it gets a zero gradient). A validation forward
-    runs 5 forward launches of B (no history) and 18 of C. Returns the launch
-    counts of this phase."""
+    train step 5 forward launches in the model forward, 5 in the manifold
+    regulariser and 5 in the optimizer's projection (computed every step,
+    selected on projection steps), and 10 backward launches (the feature
+    head's matrix is in the model's width-256 group, where it gets a zero
+    gradient). A validation forward runs 5 forward launches of B (no
+    history) and 18 of C. Returns the launch counts of this phase."""
     import shutil
     import tempfile
 
@@ -1018,7 +1038,7 @@ def phase_train(card: str) -> dict:
         result = trainer.train(train_fn, val_fn, epochs=1)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        counts = read_counts()
+        counts = kernel_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         trainer.close()
         with open(log_path) as f:
@@ -1057,11 +1077,278 @@ def phase_train(card: str) -> dict:
         fail(f"train ran {trainer.state.step} steps ({len(log)} logged), expected {steps}")
     n_widths = len(set(SINKHORN_MIX))
     want = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES * val_batches,
-            "sinkhorn_forward": (2 * steps + n_proj + val_batches) * n_widths,
+            "sinkhorn_forward": (3 * steps + val_batches) * n_widths,
             "sinkhorn_backward": 2 * n_widths * steps}
     if counts != want:
         fail(f"train launch counts {counts}, expected {want}")
     return counts
+
+
+def phase_train_chunked(card: str) -> dict:
+    """The on-device training loop through ``ManifoldConstrainedTrainer.train_chunked``
+    at ``train_device``'s defaults and full width; then the checks on a
+    captured step, and one chunk at the ``train`` phase's configuration.
+
+    Per captured step, kernel B launches 15 forward (model, regulariser,
+    projection; 5 widths each) and 10 backward; a validation replay launches
+    5 B forward and 18 C. The kernels' counters count host launches
+    (warm-up steps and the capture), so the path's launches are each
+    captured step's times its replays. Returns those of this phase."""
+    import gc
+    import shutil
+    import tempfile
+
+    from hvs_tpu_torch.data import DeviceData, put_device_data
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.train_device import synthetic_arrays
+    from hvs_tpu_torch.training import (ManifoldConstrainedTrainer, TrainerConfig,
+                                        make_eig_telemetry)
+
+    check_sync_debug_mode()
+    sizes = tuple(CHUNK_BATCHES)
+    n_chunks = CHUNKS_PER_SIZE * len(sizes)
+    steps = n_chunks * CHUNK_STEPS
+    arrays = synthetic_arrays(CHUNK_IMAGES, max(sizes), CHUNK_BOXES, CHUNK_CLASSES, seed=0)
+    val_arrays = synthetic_arrays(CHUNK_VAL_IMAGES, max(sizes), CHUNK_BOXES, CHUNK_CLASSES,
+                                  seed=1)
+    data = put_device_data(*arrays)
+    val_data = put_device_data(*val_arrays)
+    print(json.dumps({"phase": "train_chunked_data", "images": CHUNK_IMAGES,
+                      "image": max(sizes), "image_bytes": data.images.numel(),
+                      "total_bytes": sum(t.numel() * t.element_size() for t in data),
+                      "card": card}), flush=True)
+    workdir = tempfile.mkdtemp(prefix="hvs_chunked_smoke_")
+    try:
+        model = HybridVisionSystem(num_classes=CHUNK_CLASSES, monitor=True, seed=0)
+        config = TrainerConfig(num_classes=CHUNK_CLASSES, max_boxes=CHUNK_BOXES,
+                               ema_decay=0.999, project_every=CHUNK_PROJECT_EVERY,
+                               checkpoint_dir=workdir, metrics_log=f"{workdir}/steps.jsonl")
+        trainer = ManifoldConstrainedTrainer(model, config, seed=0)
+        trainer.init_state()
+        progress = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        result = trainer.train_chunked(
+            data, total_steps=steps, out_sizes=sizes, batch_sizes=CHUNK_BATCHES,
+            chunk_steps=CHUNK_STEPS, val_data=val_data, val_out_size=max(sizes),
+            val_batch_size=CHUNK_VAL_BATCH, val_every_chunks=n_chunks, eig_every_chunks=2,
+            progress_fn=progress.append)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        host_counts = kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trainer.close()
+        with open(f"{workdir}/steps.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        chunks, val = trainer.chunks, trainer.val_chunk
+        launches = {k: sum(c.launches[k] * c.replays for c in chunks.values())
+                    + val.launches[k] * val.replays for k in host_counts}
+        rows = []
+        for o, c in chunks.items():
+            wall = [t["wall_ms"] / CHUNK_STEPS for t in c.timings]
+            dev = [t["device_ms"] / CHUNK_STEPS for t in c.timings]
+            rows.append({"phase": "train_chunked", "image": o, "batch": c.batch_size,
+                         "classes": CHUNK_CLASSES, "chunks": len(c.timings),
+                         "chunk_steps": CHUNK_STEPS, "ms_per_step": wall,
+                         "steps_per_s": [1e3 / w for w in wall], "device_ms_per_step": dev,
+                         "capture_s": c.capture_s, "peak_gb_after_capture": c.peak_gb,
+                         "launches_per_step": c.launches, "replays": c.replays,
+                         "pulls": c.pulls, "card": card})
+        val_row = {"phase": "train_chunked_val", "image": val.out_size, "batch": val.batch_size,
+                   "batches": val.n_batches, "ms_per_batch": val.timings[-1]["wall_ms"]
+                   / val.n_batches, "capture_s": val.capture_s, "launches_per_batch":
+                   val.launches, "replays": val.replays, "pulls": val.pulls,
+                   "val_loss": result["best_val_loss"], "card": card}
+        summary = {"phase": "train_chunked_run", "steps": steps, "wall_s": wall_s,
+                   "peak_mem_gb": peak_gb, "steps_per_sec": result["steps_per_sec"],
+                   "loss_first": log[0]["loss"], "loss_last": log[-1]["loss"],
+                   "lr_scale": trainer.state.lr_scale,
+                   "stability_alerts": len(trainer.monitor.alerts),
+                   "eig": {k: v for k, v in progress[-2].items() if k.startswith("eig_")},
+                   "launches_host": host_counts, "launches_replayed": launches, "card": card}
+        for row in rows + [val_row, summary]:
+            print(json.dumps(row), flush=True)
+
+        # Check 5 and 6: one pull per chunk, the count, finite metrics, the
+        # launches per step.
+        n_widths = len(set(SINKHORN_MIX))
+        want_step = {"mhc_block": 0, "mhc_block_unfolded": 0,
+                     "sinkhorn_forward": 3 * n_widths, "sinkhorn_backward": 2 * n_widths}
+        want_val = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES,
+                    "sinkhorn_forward": n_widths, "sinkhorn_backward": 0}
+        for o, c in chunks.items():
+            if (c.pulls, c.replays, len(c.timings)) != (CHUNKS_PER_SIZE,
+                                                        CHUNKS_PER_SIZE * CHUNK_STEPS,
+                                                        CHUNKS_PER_SIZE):
+                fail(f"train_chunked at {o}: {c.pulls} pulls and {c.replays} replays, "
+                     f"expected {CHUNKS_PER_SIZE} and {CHUNKS_PER_SIZE * CHUNK_STEPS}")
+            if c.launches != want_step:
+                fail(f"train_chunked at {o}: launches per captured step {c.launches}, "
+                     f"expected {want_step}")
+        if val.launches != want_val or val.pulls != 1:
+            fail(f"train_chunked validation: launches per batch {val.launches} (expected "
+                 f"{want_val}), {val.pulls} pulls (expected 1)")
+        if trainer.state.step != steps or int(trainer.tx.count) != steps or len(log) != steps:
+            fail(f"train_chunked ran {trainer.state.step} steps (count {int(trainer.tx.count)}, "
+                 f"{len(log)} rows), expected {steps}")
+        values = [r[k] for r in log for k in ("loss", "grad_norm", "ds_error_max",
+                                              "signal_ratio_mean", "lr")]
+        if not np.isfinite(values + [result["best_val_loss"]]).all():
+            fail(f"train_chunked: non-finite metrics {summary}")
+        # Check 4: each step's lr is the host schedule's at that step.
+        for r in log:
+            want_lr = trainer.schedule(r["step"] - 1)
+            if abs(r["lr"] - want_lr) > 1e-6 * want_lr + 1e-12:
+                fail(f"train_chunked step {r['step']}: lr {r['lr']} on the card, "
+                     f"{want_lr} on the host")
+
+        # Checks 1-3 on the 416² step, made a projection step.
+        step_row = captured_step_checks(trainer, chunks[min(sizes)], data,
+                                        make_eig_telemetry(config.sk_iters), card)
+        del trainer, chunks, val, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # One chunk at the train phase's configuration, beside its eager step.
+        same = chunked_at_train_config(
+            DeviceData(data.images, data.boxes, data.labels % TRAIN_CLASSES, data.mask), card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({**step_row, **same}), flush=True)
+    return launches
+
+
+def check_sync_debug_mode() -> None:
+    """torch's sync debug mode, which ``TrainChunk.run`` sets to "error"
+    around a chunk's replays, does raise on a host sync here."""
+    x = torch.ones(1, device="cuda")
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x.item()
+    except RuntimeError:
+        return
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    fail("torch.cuda.set_sync_debug_mode('error') did not raise on a sync")
+
+
+def captured_step_checks(trainer, chunk, data, eig_fn, card: str) -> dict:
+    """From one state (parameters, optimizer state with the count set so the
+    step projects, EMA, generator, lr_scale 1): a replay of the captured
+    step against the same step run eagerly, which draws the same batch
+    (check 1); the replay's batch against ``apply_augment`` on the CPU with
+    the replay's draws (check 2: pixel values within 1e-4, boxes within
+    1e-5, mask and labels exact); every constrained matrix after the
+    replayed projection step (check 3)."""
+    from hvs_tpu_torch.constants import IMAGENET_STD
+    from hvs_tpu_torch.data import DeviceData, apply_augment
+
+    trainer.tx.count.fill_(CHUNK_PROJECT_EVERY - 1)
+    trainer.lr_scale_t.fill_(1.0)
+    state = trainer.state_tensors()
+    n_params = len(list(trainer.model.parameters()))
+    start = [x.detach().clone() for x in state]
+    gen = trainer.generator.get_state()
+
+    def run(replay: bool) -> dict:
+        chunk.pos.zero_()
+        chunk.replay() if replay else chunk.step()
+        torch.cuda.synchronize()
+        out = {"row": chunk.metrics[0].clone(),
+               "params": [x.detach().clone() for x in state[:n_params]],
+               "draws": type(chunk.last_draws)(*(d.clone() for d in chunk.last_draws)),
+               "batch": {k: v.clone() for k, v in chunk.last_batch.items()}}
+        if replay:
+            out["eig"] = {k: float(v) for k, v in eig_fn(trainer.params()).items()}
+        with torch.no_grad():
+            for x, v in zip(state, start):
+                x.copy_(v)
+        trainer.generator.set_state(gen)
+        return out
+
+    g = run(True)
+    e = run(False)
+    keys = chunk.keys
+    rows = {k: (float(g["row"][i]), float(e["row"][i])) for i, k in enumerate(keys)}
+    upd_g = torch.cat([(a - s).flatten() for a, s in zip(g["params"], start)])
+    upd_e = torch.cat([(a - s).flatten() for a, s in zip(e["params"], start)])
+    cos = float((upd_g * upd_e).sum() / (upd_g.norm() * upd_e.norm() + 1e-30))
+    max_dp = float((upd_g - upd_e).abs().max())
+    lr = trainer.schedule(CHUNK_PROJECT_EVERY - 1)
+    same_draws = all(torch.equal(a, b) for a, b in zip(g["draws"], e["draws"]))
+    same_batch = all(torch.equal(g["batch"][k], e["batch"][k]) for k in g["batch"])
+    forward_keys = [k for k in keys if k != "grad_norm"]
+    forward_equal = all(rows[k][0] == rows[k][1] for k in forward_keys)
+    grad_rel = abs(rows["grad_norm"][0] - rows["grad_norm"][1]) / rows["grad_norm"][1]
+
+    # Check 2: the sampler on the card against apply_augment on the CPU.
+    d = g["draws"]
+    idx = d.idx
+    cpu_data = DeviceData(*(t.index_select(0, idx).cpu() for t in data))
+    cpu_draws = type(d)(torch.arange(len(idx)), *(t.cpu() for t in d[1:]))
+    want = apply_augment(cpu_data, cpu_draws, chunk.out_size, chunk.aug)
+    # In pixel values ([0, 1], before the ImageNet normalization divides by
+    # std ~0.225): each output pixel is two fp32 products over 640 terms,
+    # summed in other orders by cuBLAS and the CPU.
+    std = torch.tensor(IMAGENET_STD)
+    img_err = float(((g["batch"]["images"].cpu() - want["images"]) * std).abs().max())
+    box_err = float((g["batch"]["boxes"].cpu() - want["boxes"]).abs().max())
+    mask_equal = bool(torch.equal(g["batch"]["box_mask"].cpu(), want["box_mask"])
+                      and torch.equal(g["batch"]["labels"].cpu(), want["labels"]))
+
+    row = {"phase": "train_chunked_checks", "image": chunk.out_size, "batch": chunk.batch_size,
+           "projection_count": CHUNK_PROJECT_EVERY - 1, "same_draws": same_draws,
+           "same_batch": same_batch, "forward_metrics_equal": forward_equal,
+           "grad_norm_rel_diff": grad_rel, "update_cos": cos, "param_max_abs_diff": max_dp,
+           "param_limit": 2 * lr + 1e-6, "loss_graph": rows["loss"][0],
+           "loss_eager": rows["loss"][1], "sampler_pixel_max_abs_err": img_err,
+           "sampler_box_max_abs_err": box_err, "sampler_mask_labels_equal": mask_equal,
+           "ds_error_max_proj_after_projection": g["eig"]["ds_error_max_proj"],
+           "max_eigenvalue_after_projection": g["eig"]["max_eigenvalue"], "card": card}
+    print(json.dumps(row), flush=True)
+    tol = TRAIN_PARITY["float32"]
+    if not (same_draws and same_batch and forward_equal
+            and grad_rel <= tol["grad_norm_rtol"] and cos > tol["mhc_update_min_cos"]
+            and max_dp <= 2 * lr + 1e-6):
+        fail(f"train_chunked: a replay of the captured step disagrees with the eager step: "
+             f"{row}; metrics {rows}")
+    if not (img_err <= 1e-4 and box_err <= 1e-5 and mask_equal):
+        fail(f"train_chunked: the card's sampler disagrees with apply_augment on the CPU: {row}")
+    if not g["eig"]["ds_error_max_proj"] <= 1e-5:
+        fail(f"train_chunked: after the projection step the DS error is "
+             f"{g['eig']['ds_error_max_proj']} (need <= 1e-5)")
+    return {"checks": "passed"}
+
+
+def chunked_at_train_config(data, card: str) -> dict:
+    """One chunk of 10 steps at the ``train`` phase's configuration (416²,
+    batch 8, 8 classes, warm-up and projection as there), so that the
+    chunked step and the eager step of that phase stand side by side."""
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+
+    model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=0)
+    config = TrainerConfig(num_classes=TRAIN_CLASSES, max_boxes=CHUNK_BOXES, project_every=4,
+                           backbone_lr_factor=0.1)
+    trainer = ManifoldConstrainedTrainer(model, config, seed=0)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_chunked(data, total_steps=CHUNK_STEPS, batch_size=TRAIN_BATCH,
+                          out_sizes=(TRAIN_IMAGE,), chunk_steps=CHUNK_STEPS,
+                          eig_every_chunks=0)
+    c = trainer.chunks[TRAIN_IMAGE]
+    t = c.timings[0]
+    row = {"phase": "train_chunked_at_train_config", "image": TRAIN_IMAGE,
+           "batch": TRAIN_BATCH, "classes": TRAIN_CLASSES, "chunk_steps": CHUNK_STEPS,
+           "ms_per_step": t["wall_ms"] / CHUNK_STEPS,
+           "device_ms_per_step": t["device_ms"] / CHUNK_STEPS, "capture_s": c.capture_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    print(json.dumps(row), flush=True)
+    return {"at_train_config_ms_per_step": row["ms_per_step"]}
 
 
 def phase_train_parity(card: str) -> None:
@@ -1184,13 +1471,15 @@ def main() -> None:
     entry_point_phase(phase_parity, defaults, card)
     entry_point_phase(phase_engine, defaults, card)
     train_launches = entry_point_phase(phase_train, defaults, card)
+    chunked_launches = entry_point_phase(phase_train_chunked, defaults, card)
     entry_point_phase(phase_train_parity, defaults, card)
 
     print(card)
-    print(json.dumps({"kernels": [kernel_summary(per_shape, serve_launches),
-                                  *sinkhorn_summary(sink_rows, sink_mix, train_launches),
-                                  unfolded_summary(unfolded_rows,
-                                                   train_launches["mhc_block_unfolded"])]}))
+    print(json.dumps({"kernels": [
+        kernel_summary(per_shape, serve_launches),
+        *sinkhorn_summary(sink_rows, sink_mix, train_launches, chunked_launches),
+        unfolded_summary(unfolded_rows, train_launches["mhc_block_unfolded"],
+                         chunked_launches["mhc_block_unfolded"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

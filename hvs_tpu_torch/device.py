@@ -7,11 +7,12 @@ explicit CPU request, they raise.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -44,3 +45,16 @@ def pin_matmul_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def device_constant(key: Tuple, device: torch.device, make: Callable[[], Sequence]
+                    ) -> torch.Tensor:
+    """An fp32 tensor of the numbers ``make()`` returns, kept on ``device``
+    under ``key``: copied from the host once, so later calls copy nothing
+    (a CUDA graph capture does not allow such a copy)."""
+    full = key + (str(device),)
+    t = _CONSTANTS.get(full)
+    if t is None:
+        t = torch.tensor(make(), dtype=torch.float32).to(device)
+        _CONSTANTS[full] = t
+    return t

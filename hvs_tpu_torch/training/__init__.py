@@ -1,6 +1,8 @@
 """Training: losses, the manifold-aware optimizer, schedules, stability
-monitoring and the trainer (counterpart of ``hvs_tpu/training``)."""
+monitoring, the trainer and the captured steps of its on-device loop
+(counterpart of ``hvs_tpu/training``)."""
 
+from .chunk import TrainChunk, ValChunk
 from .losses import (LossWeights, bce_with_smoothing, build_targets, focal_bce,
                      iter_h_res_leaves, manifold_regularization_loss, mhc_yolo_loss)
 from .optimizer import ManifoldAwareOptimizer, is_mhc_path, partition_label
@@ -9,7 +11,7 @@ from .schedule import (ManifoldAwareScheduler, PlateauSchedulerWithReset,
 from .stability import (StabilityMonitor, StabilityThresholds, TrainingStabilityMetrics,
                         make_eig_telemetry)
 from .trainer import (ManifoldConstrainedTrainer, TrainerConfig, TrainState, eval_step,
-                      global_norm, prepare_images, train_step)
+                      global_norm, prepare_images, step_on_device, train_step)
 
 __all__ = [
     "LossWeights", "build_targets", "focal_bce", "bce_with_smoothing", "mhc_yolo_loss",
@@ -17,6 +19,6 @@ __all__ = [
     "is_mhc_path", "partition_label", "cosine_annealing_with_warmup",
     "PlateauSchedulerWithReset", "ManifoldAwareScheduler", "StabilityThresholds",
     "StabilityMonitor", "TrainingStabilityMetrics", "make_eig_telemetry", "TrainerConfig",
-    "TrainState", "global_norm", "prepare_images", "train_step", "eval_step",
-    "ManifoldConstrainedTrainer",
+    "TrainState", "global_norm", "prepare_images", "train_step", "step_on_device", "eval_step",
+    "ManifoldConstrainedTrainer", "TrainChunk", "ValChunk",
 ]

@@ -17,6 +17,7 @@ from typing import Dict, Iterator, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import device_constant
 from ..models.yolo_head import COCO_ANCHORS_416, SCALE_ORDER, effective_anchors
 from ..ops.boxes import box_ciou, cxcywh_to_xyxy
 from ..ops.sinkhorn import sinkhorn_log_many
@@ -47,6 +48,11 @@ def build_targets(gt_boxes: Tensor, gt_labels: Tensor, gt_mask: Tensor,
     winner unspecified; the port picks it deterministically (a max-reduce of
     the slot index per target, then a collision-free write).
 
+    Every shape is fixed by the inputs' (no boolean indexing, so no host
+    sync and nothing a CUDA graph cannot capture): slots that are padded,
+    belong to another scale or lose a collision are sent to a spare row
+    ``n_cells`` of buffers with ``n_cells + 1`` rows, which is dropped.
+
     Args:
         gt_boxes: [B, M, 4] normalized cxcywh ground truth (padded).
         gt_labels: [B, M] int class ids.
@@ -59,39 +65,43 @@ def build_targets(gt_boxes: Tensor, gt_labels: Tensor, gt_mask: Tensor,
     b, m, _ = gt_boxes.shape
     dev = gt_boxes.device
     a_per_scale = len(anchors[0])
-    flat_anchors = torch.tensor(
-        [wh for s in range(len(grid_sizes)) for wh in effective_anchors(s, grid_sizes[s][0], anchors)],
-        dtype=torch.float32, device=dev)  # [S*A, 2]
+    grids = tuple(tuple(g) for g in grid_sizes)
+    flat_anchors = device_constant(
+        ("anchors", grids, anchors), dev,
+        lambda: [wh for s in range(len(grids)) for wh in effective_anchors(s, grids[s][0], anchors)]
+    )  # [S*A, 2]
     gw, gh = gt_boxes[..., 2:3], gt_boxes[..., 3:4]
     aw, ah = flat_anchors[None, None, :, 0], flat_anchors[None, None, :, 1]
     inter = torch.minimum(gw, aw) * torch.minimum(gh, ah)
     wh_iou = inter / (gw * gh + aw * ah - inter + 1e-9)  # [B, M, S*A]
     best = torch.argmax(wh_iou, dim=-1)
     best_scale, best_anchor = best // a_per_scale, best % a_per_scale
-    batch_idx = torch.arange(b, device=dev)[:, None].expand(b, m)
-    slot = torch.arange(m, device=dev)[None, :].expand(b, m)
+    batch_idx = torch.arange(b, device=dev)[:, None]
+    slot = torch.arange(m, device=dev)[None, :].expand(b, m).reshape(-1)
+    boxes = gt_boxes.reshape(b * m, 4).float()
+    labels = gt_labels.reshape(b * m).long()
 
     targets = {}
-    for s, (gh_s, gw_s) in enumerate(grid_sizes):
+    for s, (gh_s, gw_s) in enumerate(grids):
         valid = (best_scale == s) & (gt_mask > 0.5)
         gx = torch.clamp(torch.floor(gt_boxes[..., 0] * gw_s), 0, gw_s - 1).long()
         gy = torch.clamp(torch.floor(gt_boxes[..., 1] * gh_s), 0, gh_s - 1).long()
         cell = ((batch_idx * gh_s + gy) * gw_s + gx) * a_per_scale + best_anchor
         n_cells = b * gh_s * gw_s * a_per_scale
-        cell = torch.where(valid, cell, torch.zeros_like(cell))
-        winner_slot = torch.full((n_cells,), -1, dtype=torch.long, device=dev).scatter_reduce(
-            0, cell[valid], slot[valid], reduce="amax")
-        win = valid & (winner_slot[cell] == slot)
-        idx = cell[win]
-        box_t = torch.zeros(n_cells, 4, dtype=torch.float32, device=dev)
-        obj_t = torch.zeros(n_cells, dtype=torch.float32, device=dev)
-        cls_t = torch.zeros(n_cells, dtype=torch.long, device=dev)
-        box_t[idx] = gt_boxes[win].float()
-        obj_t[idx] = 1.0
-        cls_t[idx] = gt_labels[win].long()
+        cell = torch.where(valid, cell, n_cells).reshape(-1)
+        winner_slot = torch.full((n_cells + 1,), -1, dtype=torch.long, device=dev).scatter_reduce(
+            0, cell, slot, reduce="amax")
+        idx = torch.where(winner_slot[cell] == slot, cell, n_cells)
+        box_t = torch.zeros(n_cells + 1, 4, dtype=torch.float32, device=dev)
+        obj_t = torch.zeros(n_cells + 1, dtype=torch.float32, device=dev)
+        cls_t = torch.zeros(n_cells + 1, dtype=torch.long, device=dev)
+        box_t[idx] = boxes
+        obj_t.index_fill_(0, idx, 1.0)  # a scalar setitem would copy from the host
+        cls_t[idx] = labels
         shape = (b, gh_s, gw_s, a_per_scale)
-        targets[SCALE_ORDER[s]] = {"box": box_t.reshape(shape + (4,)), "obj": obj_t.reshape(shape),
-                                   "cls": cls_t.reshape(shape)}
+        targets[SCALE_ORDER[s]] = {"box": box_t[:n_cells].reshape(shape + (4,)),
+                                   "obj": obj_t[:n_cells].reshape(shape),
+                                   "cls": cls_t[:n_cells].reshape(shape)}
     return targets
 
 
@@ -139,8 +149,8 @@ def mhc_yolo_loss(raw_outputs: Dict[str, Tensor], targets: Dict[str, Dict[str, T
 
         gy = torch.arange(h, dtype=torch.float32, device=raw.device)[None, :, None, None]
         gx = torch.arange(w, dtype=torch.float32, device=raw.device)[None, None, :, None]
-        anc = torch.tensor(effective_anchors(scale_idx, h), dtype=torch.float32,
-                           device=raw.device)  # [A, 2]
+        anc = device_constant(("loss_anchors", scale_idx, h), raw.device,
+                               lambda: effective_anchors(scale_idx, h))  # [A, 2]
         px = (gx + torch.sigmoid(raw[..., 0])) / w
         py = (gy + torch.sigmoid(raw[..., 1])) / h
         pw = anc[:, 0] * torch.exp(torch.clamp(raw[..., 2], -4, 4))

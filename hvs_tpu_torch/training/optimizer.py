@@ -20,21 +20,30 @@ It updates exactly as that ``optax.multi_transform`` does:
     update becomes ``log(Sinkhorn(p + u) + 1e-9) - p``.
 
 ``count`` is the number of updates made before this one (each optax inner
-chain keeps its own, and they are always equal). The caller multiplies the
-whole update by ``lr_scale`` (``step``), so with ``lr_scale < 1`` a projected
-parameter is not exactly ``log(P + 1e-9)``, as in the JAX trainer.
+chain keeps its own, and they are always equal). It is a 0-dim int32 tensor
+on the parameters' device, advanced inside ``update``; the learning rate,
+Adam's bias corrections and the projection test are computed from it on the
+device in fp32, as optax computes them under ``jit``. So a CUDA graph that
+captures ``update`` reads the current count on every replay instead of the
+one it saw at capture, and nothing in ``update`` waits on the host. The
+caller multiplies the whole update by ``lr_scale`` (``step``; a float or a
+0-dim tensor), so with ``lr_scale < 1`` a projected parameter is not exactly
+``log(P + 1e-9)``, as in the JAX trainer.
 
-JAX computes the projection on every step and selects it with ``jnp.where``;
-the port runs eagerly and launches Sinkhorn only on projection steps, over
-the square ``H_res_raw`` of both mHC partitions in one grouped call. The
-updates are identical.
+Each partition's tensors are updated together by ``torch._foreach_*`` ops
+(a few launches per partition, not a few per tensor); its clip reads one
+norm per tensor (``torch._foreach_norm``) and reduces them once. Like JAX,
+the port computes the projection of the square ``H_res_raw`` (both mHC
+partitions in one grouped Sinkhorn call, one launch per width) on every
+step and selects it with ``torch.where`` on projection steps: 5 forward
+launches of kernel B per step at the flagship's widths. The updates are
+identical to projecting only on those steps.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Union
 
-import numpy as np
 import torch
 
 from ..ops.manifold import birkhoff_tangent_project
@@ -45,7 +54,7 @@ ADAM_EPS = 1e-8      # optax.adamw's default
 SGD_MOMENTUM = 0.9   # the mHC chain's optax.sgd momentum
 
 Tensor = torch.Tensor
-Schedule = Union[float, Callable[[int], float]]
+Schedule = Union[float, Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]]
 
 
 def is_mhc_path(name: str) -> bool:
@@ -70,20 +79,32 @@ def _is_square_h_res(name: str, t: Tensor) -> bool:
     return name.rsplit(".", 1)[-1] == "H_res_raw" and t.dim() == 2 and t.shape[0] == t.shape[1]
 
 
+def global_norm(tensors: List[Tensor]) -> Tensor:
+    """The fp32 norm of all of ``tensors`` together: one norm per tensor
+    (``torch._foreach_norm``), then the norm of those."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
 def clip_by_global_norm(grads: List[Tensor], max_norm: float) -> List[Tensor]:
     """optax ``clip_by_global_norm``: ``g / norm · max_norm`` unless the global
     norm is below ``max_norm``."""
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-    return [torch.where(norm < max_norm, g, g / norm * max_norm) for g in grads]
+    norm = global_norm(grads)
+    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    return torch._foreach_mul(grads, factor)
 
 
 class ManifoldAwareOptimizer:
     """The optax chain of ``make_optimizer`` for a dict of named torch
     parameters, which ``step`` updates in place.
 
-    ``learning_rate`` is a float or a schedule ``step -> lr``. State: the step
-    count, Adam's moments (``mu``, ``nu``) of the AdamW partitions and the
-    momentum trace of the SGD partitions, all fp32 and keyed by name.
+    ``learning_rate`` is a float or a schedule ``step -> lr`` that takes a
+    0-dim tensor (``schedule.cosine_annealing_with_warmup``). State: the step
+    count (0-dim int32 on the parameters' device), Adam's moments (``mu``,
+    ``nu``) of the AdamW partitions and the momentum trace of the SGD
+    partitions, all fp32 and keyed by name. Every state tensor keeps its
+    address for the optimizer's life (``load_state_dict`` copies in place),
+    so a CUDA graph captured over ``step`` stays valid.
     """
 
     def __init__(self, params: Dict[str, Tensor], learning_rate: Schedule,
@@ -106,7 +127,8 @@ class ManifoldAwareOptimizer:
             "mhc": (False, clip_mhc, mhc_lr_factor),
             "mhc_backbone": (False, clip_mhc, mhc_lr_factor * backbone_lr_factor),
         }
-        self.count = 0
+        device = next(iter(params.values())).device
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.mu: Dict[str, Tensor] = {}
         self.nu: Dict[str, Tensor] = {}
         self.trace: Dict[str, Tensor] = {}
@@ -118,64 +140,75 @@ class ManifoldAwareOptimizer:
                 else:
                     self.trace[name] = zero
 
-    def lr(self, count: int) -> float:
+    def lr(self, count: Union[int, Tensor]) -> Union[float, Tensor]:
+        """The schedule at ``count`` (a float when it is constant)."""
         lr = self.learning_rate
-        return float(lr(count)) if callable(lr) else float(lr)
+        return lr(count) if callable(lr) else float(lr)
 
     @torch.no_grad()
     def update(self, grads: Dict[str, Tensor]) -> Dict[str, Tensor]:
         """The updates for ``grads`` (optax ``tx.update``); advances the state.
-
-        The scalars (step size, Adam's bias corrections) are rounded to fp32
-        as optax computes them: ``1 - 0.999**t`` differs by 1e-5 relative
-        between fp32 and fp64."""
+        Nothing here reads a value back from the device."""
         count = self.count
-        f32 = np.float32
-        lr = f32(self.lr(count))
+        t = (count + 1).float()
+        lr = self.lr(count)
         updates: Dict[str, Tensor] = {}
         proposed: Dict[str, Tensor] = {}  # p + u of the H_res_raw to project
         for label, names in self.groups.items():
             adamw, clip, factor = self.chains[label]
             clipped = clip_by_global_norm([grads[n].float() for n in names], clip)
-            step_size = float(-(lr * f32(factor)))
+            step_size = -(lr * factor)
+            params = [self.params[n] for n in names]
             if adamw:
-                t = f32(count + 1)
-                bc1, bc2 = float(f32(1) - f32(self.b1) ** t), float(f32(1) - f32(self.b2) ** t)
-                for name, g in zip(names, clipped):
-                    mu = self.mu[name].mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-                    nu = self.nu[name].mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-                    u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-                    u = u + self.weight_decay * self.params[name].float()
-                    updates[name] = u * step_size
+                mu = [self.mu[n] for n in names]
+                nu = [self.nu[n] for n in names]
+                torch._foreach_mul_(mu, self.b1)
+                torch._foreach_add_(mu, clipped, alpha=1.0 - self.b1)
+                torch._foreach_mul_(nu, self.b2)
+                torch._foreach_addcmul_(nu, clipped, clipped, value=1.0 - self.b2)
+                bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+                denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+                torch._foreach_add_(denom, ADAM_EPS)
+                u = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+                torch._foreach_add_(u, [p.float() for p in params], alpha=self.weight_decay)
+                torch._foreach_mul_(u, step_size)
+                updates.update(zip(names, u))
                 continue
-            project = self.use_projection and (count + 1) % self.project_every == 0
-            for name, g in zip(names, clipped):
-                p = self.params[name]
-                if _is_square_h_res(name, g):
-                    g = birkhoff_tangent_project(g, g)
-                tr = self.trace[name].mul_(SGD_MOMENTUM).add_(g)
-                u = tr * step_size
-                if project and _is_square_h_res(name, u):
-                    proposed[name] = p.float() + u
-                updates[name] = u
-        projected = sinkhorn_log_many(list(proposed.values()), n_iters=self.sk_iters)
-        for name, proj in zip(proposed, projected):
-            updates[name] = torch.log(proj + 1e-9) - self.params[name]
-        self.count = count + 1
+            g = [birkhoff_tangent_project(x, x) if _is_square_h_res(n, x) else x
+                 for n, x in zip(names, clipped)]
+            trace = [self.trace[n] for n in names]
+            torch._foreach_mul_(trace, SGD_MOMENTUM)
+            torch._foreach_add_(trace, g)
+            u = torch._foreach_mul(trace, step_size)
+            updates.update(zip(names, u))
+            if self.use_projection:
+                for n, p, un in zip(names, params, u):
+                    if _is_square_h_res(n, un):
+                        proposed[n] = p.float() + un
+        if proposed:
+            project = (count + 1) % self.project_every == 0
+            projected = sinkhorn_log_many(list(proposed.values()), n_iters=self.sk_iters)
+            for name, proj in zip(proposed, projected):
+                hard = torch.log(proj + 1e-9) - self.params[name]
+                updates[name] = torch.where(project, hard, updates[name])
+        count.add_(1)
         return updates
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, Tensor], lr_scale: float = 1.0) -> None:
+    def step(self, grads: Dict[str, Tensor], lr_scale: Union[float, Tensor] = 1.0) -> None:
         """Apply ``update(grads) · lr_scale`` to the parameters in place."""
-        for name, u in self.update(grads).items():
-            p = self.params[name]
-            p.add_((u * lr_scale).to(p.dtype))
+        updates = self.update(grads)
+        names = list(updates)
+        u = torch._foreach_mul([updates[n] for n in names], lr_scale)
+        params = [self.params[n] for n in names]
+        torch._foreach_add_(params, [x.to(p.dtype) for x, p in zip(u, params)])
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu, "trace": self.trace}
 
     def load_state_dict(self, state: dict) -> None:
-        self.count = int(state["count"])
+        """Copy a ``state_dict`` into this optimizer's own tensors."""
+        self.count.fill_(int(state["count"]))
         for key in ("mu", "nu", "trace"):
             own = getattr(self, key)
             for name, value in state[key].items():

@@ -1,25 +1,37 @@
 """Learning-rate schedules: warmup-cosine, plateau-with-reset, manifold-aware.
 
-Counterpart of ``hvs_tpu/training/schedule.py``, in plain Python. The
-warmup-cosine schedule is a function of the step; the plateau and
-manifold-aware schedulers are host-side controllers that emit a
-multiplicative ``lr_scale`` for the trainer.
+Counterpart of ``hvs_tpu/training/schedule.py``. The warmup-cosine schedule
+is a function of the step: of a Python int in fp64 on the host, or of a
+0-dim integer tensor in fp32 on that tensor's device (as the JAX schedule
+computes under ``jit``), so a captured train step can read the step count
+from the card. The plateau and manifold-aware schedulers are host-side
+controllers that emit a multiplicative ``lr_scale`` for the trainer.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
-Schedule = Callable[[int], float]
+import torch
+
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
 
 
 def cosine_annealing_with_warmup(base_lr: float, warmup_steps: int, total_steps: int,
                                  min_lr_ratio: float = 0.01) -> Schedule:
     """Linear warmup from 0, then cosine decay to ``min_lr_ratio·base_lr``."""
 
-    def schedule(step: int) -> float:
+    def schedule(step):
+        if isinstance(step, torch.Tensor):
+            s = step.float()
+            warm = base_lr * s / max(warmup_steps, 1)
+            progress = torch.clamp((s - warmup_steps) / max(total_steps - warmup_steps, 1),
+                                   0.0, 1.0)
+            cos = base_lr * (min_lr_ratio + (1 - min_lr_ratio) * 0.5
+                             * (1 + torch.cos(math.pi * progress)))
+            return torch.where(s < warmup_steps, warm, cos)
         step = float(step)
         if step < warmup_steps:
             return base_lr * step / max(warmup_steps, 1)

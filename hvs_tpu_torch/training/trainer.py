@@ -2,15 +2,18 @@
 
 Counterpart of ``hvs_tpu/training/trainer.py`` (``TrainerConfig``,
 ``global_norm``, ``_prepare_images``, ``make_train_step``,
-``make_eval_step``, ``ManifoldConstrainedTrainer`` without
-``train_chunked``). One train step: the model forward in train mode
-(dropout, mHC telemetry), the YOLO loss plus ``manifold_reg_alpha`` times
-the manifold regulariser, autograd, the manifold-aware optimizer, the update
-scaled by ``lr_scale``, and the optional parameter EMA. Validation runs the
-model in eval mode without autograd, where the eligible mHC sites launch
-the unfolded block. The host loop keeps the JAX trainer's stability
-checks (window maxima between checks), LR corrections, plateau and
-manifold-aware controllers, early stopping and checkpoints (``torch.save``).
+``make_eval_step``, ``ManifoldConstrainedTrainer`` with ``train_chunked``;
+the bodies of ``make_train_chunk`` and ``make_val_chunk`` are in
+``chunk.py``). One train step: the model forward in train mode (dropout,
+mHC telemetry), the YOLO loss plus ``manifold_reg_alpha`` times the
+manifold regulariser, autograd, the manifold-aware optimizer, the update
+scaled by ``lr_scale``, and the optional parameter EMA; nothing in it reads
+a value back to the host, so it can be captured in a CUDA graph. Validation
+runs the model in eval mode without autograd, where the eligible mHC sites
+launch the unfolded block. The host loops keep the JAX trainer's stability
+checks (window maxima between checks in ``train_epoch``, chunk maxima in
+``train_chunked``), LR corrections, plateau and manifold-aware controllers,
+early stopping and checkpoints (``torch.save``).
 
 The model and every tensor of the state live on one device: the CUDA card
 unless ``device="cpu"`` is passed.
@@ -22,17 +25,17 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..constants import IMAGENET_MEAN, IMAGENET_STD
+from ..data.device_pipeline import AugmentConfig, DeviceData, normalize
 from ..device import DeviceLike, pin_matmul_precision, resolve_device
 from ..models.layers import set_dropout_generator
 from .losses import build_targets, manifold_regularization_loss, mhc_yolo_loss
-from .optimizer import ManifoldAwareOptimizer
+from .optimizer import ManifoldAwareOptimizer, global_norm
 from .schedule import (ManifoldAwareScheduler, PlateauSchedulerWithReset,
                        cosine_annealing_with_warmup)
 from .stability import StabilityMonitor, StabilityThresholds
@@ -86,17 +89,11 @@ class TrainState:
     ema_params: Optional[Dict[str, Tensor]] = None
 
 
-def global_norm(tensors: Iterable[Tensor]) -> Tensor:
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
-
-
 def prepare_images(images: Tensor) -> Tensor:
     """uint8 batches are normalized on the device (ImageNet mean and std);
     float batches pass through (already normalized)."""
     if images.dtype == torch.uint8:
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)
-        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)
-        return (images.float() / 255.0 - mean) / std
+        return normalize(images.float() / 255.0)
     return images
 
 
@@ -113,14 +110,15 @@ def _targets(config: TrainerConfig, images: Tensor, batch: Dict[str, Tensor]):
                          config.num_classes)
 
 
-def train_step(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
-               state: TrainState, batch: Dict[str, Tensor]
-               ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    """One optimizer step on ``batch`` (tensors on the model's device).
-
-    Updates the model's parameters, ``tx`` and ``state`` in place; returns
-    (metrics as 0-dim tensors, the gradients by parameter name).
-    """
+def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
+                   batch: Dict[str, Tensor], lr_scale: Union[float, Tensor] = 1.0,
+                   ema_params: Optional[Dict[str, Tensor]] = None
+                   ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """The device work of one optimizer step on ``batch``: updates the
+    model's parameters, ``tx`` (its count included) and ``ema_params`` in
+    place and changes nothing on the host, so a CUDA graph can capture it.
+    Returns (metrics as 0-dim tensors, the gradients by parameter name); the
+    metrics include ``lr``, the schedule's rate at this step."""
     model.train()
     images = prepare_images(batch["images"])
     targets = _targets(config, images, batch)
@@ -136,16 +134,21 @@ def train_step(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConf
                                                  materialize_grads=True)))
 
     grad_norm = global_norm(grads.values())
-    tx.step(grads, state.lr_scale)
-    if config.ema_decay > 0.0 and state.ema_params is not None:
+    lr = tx.lr(tx.count)
+    if not isinstance(lr, Tensor):
+        lr = torch.full((), lr, dtype=torch.float32, device=loss.device)
+    tx.step(grads, lr_scale)
+    if config.ema_decay > 0.0 and ema_params is not None:
         d = config.ema_decay
+        names = list(ema_params)
+        ema = [ema_params[n] for n in names]
         with torch.no_grad():
-            for name, e in state.ema_params.items():
-                e.copy_(d * e + (1.0 - d) * params[name].to(e.dtype))
-    state.step += 1
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, [params[n].to(e.dtype) for n, e in zip(names, ema)],
+                                alpha=1.0 - d)
 
     metrics = {**det_metrics, **reg_metrics, "detection_loss": det_loss,
-               "loss": loss, "grad_norm": grad_norm}
+               "loss": loss, "grad_norm": grad_norm, "lr": lr}
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
     stability = outputs.get("stability", {})
     if stability:
@@ -153,6 +156,19 @@ def train_step(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConf
         metrics["signal_ratio_mean"] = torch.stack(
             [m["signal_ratio"] for m in stability.values()]).mean()
     return metrics, grads
+
+
+def train_step(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
+               state: TrainState, batch: Dict[str, Tensor]
+               ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One optimizer step on ``batch`` (tensors on the model's device).
+
+    Updates the model's parameters, ``tx`` and ``state`` in place; returns
+    (metrics as 0-dim tensors, the gradients by parameter name).
+    """
+    out = step_on_device(model, tx, config, batch, state.lr_scale, state.ema_params)
+    state.step += 1
+    return out
 
 
 @torch.no_grad()
@@ -231,7 +247,18 @@ class ManifoldConstrainedTrainer:
         ema = ({k: v.detach().clone() for k, v in self.params().items()}
                if c.ema_decay > 0.0 else None)
         self.state = TrainState(step=0, lr_scale=1.0, ema_params=ema)
+        # state.lr_scale on the device, for the captured steps of
+        # train_chunked; written from the host between chunks.
+        self.lr_scale_t = torch.ones((), dtype=torch.float32, device=self.device)
         return self.state
+
+    def state_tensors(self) -> list:
+        """Every tensor a train step changes in place: the parameters, the
+        optimizer's count and moments, and the EMA."""
+        tensors = list(self.params().values()) + [self.tx.count]
+        for group in (self.tx.mu, self.tx.nu, self.tx.trace, self.state.ema_params or {}):
+            tensors += list(group.values())
+        return tensors
 
     def train_step(self, batch: Batch) -> Dict[str, Tensor]:
         assert self.state is not None, "call init_state first"
@@ -284,7 +311,7 @@ class ManifoldConstrainedTrainer:
             self._metrics_fh = open(self.config.metrics_log, "a", buffering=1)
         row = {"step": step, "time": time.time(), "lr_scale": self.state.lr_scale}
         for k in ("loss", "grad_norm", "detection_loss", "ds_error_max", "signal_ratio_mean",
-                  "reg_loss"):
+                  "reg_loss", "lr"):
             if k in host:
                 row[k] = host[k]
         self._metrics_fh.write(json.dumps(row) + "\n")
@@ -309,6 +336,109 @@ class ManifoldConstrainedTrainer:
         self._stab_scale = max(self._stab_scale * 0.5, 1e-3)
         self._sync_lr_scale()
         self.monitor.record_correction(self.state.lr_scale)
+
+    # ------------------------------------------------------------------
+    def train_chunked(self, data: DeviceData, total_steps: int, batch_size: int = 16,
+                      out_sizes: Sequence[int] = (416,),
+                      batch_sizes: Optional[Dict[int, int]] = None, chunk_steps: int = 100,
+                      aug: Optional[AugmentConfig] = None, val_data: Optional[DeviceData] = None,
+                      val_out_size: Optional[int] = None, val_batch_size: int = 8,
+                      val_every_chunks: int = 10, eig_every_chunks: int = 10,
+                      progress_fn: Optional[Callable[[Dict[str, Any]], None]] = None
+                      ) -> Dict[str, Any]:
+        """The on-device training loop: ``data`` lives in device memory
+        (``put_device_data``), each step draws and augments its batch on the
+        device, and the host sees one [chunk_steps, n_metrics] block per
+        chunk.
+
+        One captured step per entry of ``out_sizes`` (batch from
+        ``batch_sizes``, else ``batch_size``), all in one graph memory pool,
+        cycled round-robin per chunk (``self.chunks``; the validation graph
+        is ``self.val_chunk``). Per chunk, on the host: the per-step JSONL
+        rows, the stability check on the chunk maxima of ``grad_norm``,
+        ``ds_error_max`` and ``signal_ratio_mean`` and the chunk mean of
+        ``loss`` (NaN if a step's loss is not finite), the eigenvalue
+        telemetry every ``eig_every_chunks``, the manifold scheduler and the
+        LR corrections (reaching the step through ``lr_scale_t``),
+        validation with a best checkpoint every ``val_every_chunks``, and a
+        checkpoint every ``config.checkpoint_every_steps``. Arguments and the
+        returned dict are the JAX trainer's.
+        """
+        from .chunk import TrainChunk, ValChunk
+        from .stability import make_eig_telemetry
+
+        assert self.state is not None, "call init_state first"
+        aug = aug if aug is not None else AugmentConfig()
+        batch_sizes = dict(batch_sizes or {})
+        pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.chunks = {o: TrainChunk(self, data, o, batch_sizes.get(o, batch_size), chunk_steps,
+                                     aug, pool=pool) for o in out_sizes}
+        self.val_chunk = None
+        if val_data is not None:
+            self.val_chunk = ValChunk(self, val_data, val_batch_size,
+                                      val_out_size or max(out_sizes),
+                                      int(val_data.images.shape[0]) // val_batch_size, pool=pool)
+        eig_fn = make_eig_telemetry(self.config.sk_iters)
+
+        n_chunks = total_steps // chunk_steps
+        t_start = time.time()
+        last_eig: Dict[str, float] = {}
+        for ci in range(n_chunks):
+            o = out_sizes[ci % len(out_sizes)]
+            self.lr_scale_t.fill_(self.state.lr_scale)
+            host = self.chunks[o].run()  # one pull per chunk
+            first_step = self.state.step + 1
+            self.state.step += chunk_steps
+            step_now = self.state.step
+
+            if self.config.metrics_log is not None:
+                for i in range(chunk_steps):
+                    self._log_step_metrics(first_step + i,
+                                           {k: float(v[i]) for k, v in host.items()})
+
+            check = {"loss": float(np.nanmean(host["loss"])),
+                     "grad_norm": float(np.nanmax(host["grad_norm"]))}
+            for k in ("ds_error_max", "signal_ratio_mean"):
+                if k in host:
+                    check[k] = float(np.nanmax(host[k]))
+            if not np.all(np.isfinite(host["loss"])):
+                check["loss"] = float("nan")
+            if eig_every_chunks and ci % eig_every_chunks == 0:
+                last_eig = _host(eig_fn(self.params()))
+                check.update(last_eig)
+            report = self.monitor.check_stability(check)
+            if self.manifold_sched is not None:
+                self.manifold_sched.step(check)
+                self._sync_lr_scale()
+            if not report["is_stable"]:
+                self._apply_stability_corrections(report)
+            elif self._stab_scale < 1.0:
+                self._stab_scale = min(self._stab_scale * 1.25, 1.0)
+                self._sync_lr_scale()
+
+            val_loss = None
+            if self.val_chunk is not None and (ci + 1) % val_every_chunks == 0:
+                val_loss = self.val_chunk.run()
+                self.history["val_loss"].append(val_loss)
+                if val_loss < self.best_val_loss:
+                    self.best_val_loss = val_loss
+                    self.save_checkpoint("best")
+            every = self.config.checkpoint_every_steps
+            if every and step_now // every > first_step // every:
+                self.save_checkpoint(f"step_{step_now}")
+            self.history["train_loss"].append(float(np.nanmean(host["loss"])))
+
+            if progress_fn is not None:
+                progress_fn({
+                    "chunk": ci, "step": step_now, "out_size": o, "loss": check["loss"],
+                    "grad_norm_max": check["grad_norm"],
+                    "ds_error_max": check.get("ds_error_max"), "val_loss": val_loss,
+                    "lr_scale": self.state.lr_scale,
+                    "steps_per_sec": step_now / max(time.time() - t_start, 1e-9),
+                    **{f"eig_{k}": v for k, v in last_eig.items()},
+                })
+        return {"history": self.history, "best_val_loss": self.best_val_loss,
+                "steps_per_sec": n_chunks * chunk_steps / max(time.time() - t_start, 1e-9)}
 
     # ------------------------------------------------------------------
     def eval_params(self, use_ema: bool = True) -> Optional[Dict[str, Tensor]]:

@@ -1,15 +1,20 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
     python3 scripts/torch_train_profile.py [--batch 8] [--image 416] [--iters 3] [--trace out.json]
+    python3 scripts/torch_train_profile.py --chunked [--batch 16] [--image 416] [--iters 10]
 
 Builds the full-width flagship ``HybridVisionSystem`` (telemetry on, the JAX
 dropout rates, bf16, 8 classes), trains it with ``ManifoldConstrainedTrainer``
 on the synthetic batches of ``hvs_tpu_torch.train`` and runs
 ``torch.profiler`` over ``--iters`` train steps and then ``--iters``
-validation batches, after a warm-up. Prints, for each, the JSON lines of
-``torch_serve_profile.py`` (wall and device ms, idle share, device ms by
-kernel category, top kernels) beside the card's name and power limit. Exits
-non-zero without a CUDA card.
+validation batches, after a warm-up. With ``--chunked`` the steps are
+instead replays of ``train_chunked``'s captured step (``TrainChunk``:
+sampling and augmentation on the card from at least 64 synthetic 640²
+images in card memory), then of its captured validation batch
+(``ValChunk``). Prints, for
+each, the JSON lines of ``torch_serve_profile.py`` (wall and device ms,
+idle share, device ms by kernel category, top kernels) beside the card's
+name and power limit. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ def main() -> None:
     ap.add_argument("--image", type=int, default=416)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a chrome trace of the steps here")
+    ap.add_argument("--chunked", action="store_true",
+                    help="profile replays of train_chunked's captured step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -49,6 +56,9 @@ def main() -> None:
     trainer = ManifoldConstrainedTrainer(HybridVisionSystem(num_classes=classes, monitor=True),
                                          TrainerConfig(num_classes=classes, backbone_lr_factor=0.1))
     trainer.init_state()
+    if args.chunked:
+        profile_chunked(trainer, args, card)
+        return
     batches = list(make_synthetic_loader(args.batch, args.image, warmup + args.iters, classes,
                                          64)())
     for b in batches[:warmup]:
@@ -78,6 +88,40 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
     summarize(prof, args.iters, wall_ms, card, {**head, "path": "validation"}, "batch")
+
+
+def profile_chunked(trainer, args, card: str) -> None:
+    """Replays of the captured train step and validation batch."""
+    from hvs_tpu_torch.data import put_device_data
+    from hvs_tpu_torch.train_device import synthetic_arrays
+    from hvs_tpu_torch.training.chunk import TrainChunk, ValChunk
+
+    n = max(64, args.batch * args.iters)  # validation reads each image once
+    data = put_device_data(*synthetic_arrays(n, 640, 16, trainer.config.num_classes, seed=0))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    head = {"batch": args.batch, "image": args.image}
+    pool = torch.cuda.graph_pool_handle()
+    chunk = TrainChunk(trainer, data, args.image, args.batch, args.iters, pool=pool)
+    val = ValChunk(trainer, data, args.batch, args.image, args.iters, pool=pool)
+    for graph_run in (chunk.replay, val.graph.replay):  # first replays, outside the profile
+        chunk.pos.zero_()
+        graph_run()
+    torch.cuda.synchronize()
+    for path, unit, replay in (("train_chunked_step", "step", chunk.replay),
+                               ("train_chunked_validation", "batch", val.graph.replay)):
+        chunk.pos.zero_()
+        val.start.zero_()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                replay()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
+        if args.trace and unit == "step":
+            prof.export_chrome_trace(args.trace)
+        summarize(prof, args.iters, wall_ms, card,
+                  {**head, "path": path, "capture_s": chunk.capture_s if unit == "step"
+                   else val.capture_s}, unit)
 
 
 if __name__ == "__main__":

@@ -497,3 +497,172 @@ def test_engine_counts_replays_and_kernel_a_counts_captures():
     assert mhc_mod.launches == launches
     assert sum(engine.replays.values()) == replays + 5
     assert engine.replays[1] >= 5
+
+
+# ---------------------------------------------------------------------------
+# The on-device training loop: one captured train step per resolution
+
+
+def _card_trainer(seed=0, **config):
+    """A small bf16 flagship-shaped model on the card (kernel C at its
+    fused sites of d = 32, 64 and 128, kernel B at five widths), trained
+    with warm-up 2, a projection every second step and an EMA."""
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+
+    model = HybridVisionSystem(num_classes=4, stage_blocks=(1, 1, 1, 1),
+                               stage_channels=(32, 64, 128, 256), vit_dim=64, vit_depth=1,
+                               vit_heads=4, fpn_channels=64, head_channels=64, feature_dim=64,
+                               sk_iters=5, monitor=True, seed=seed, device="cuda")
+    trainer = ManifoldConstrainedTrainer(
+        model, TrainerConfig(num_classes=4, warmup_steps=2, project_every=2, ema_decay=0.9,
+                             sk_iters=5, **config), seed=seed)
+    trainer.init_state()
+    return trainer
+
+
+def _card_data(seed=0, n=8, size=80, boxes=8):
+    from hvs_tpu_torch.data import put_device_data
+
+    r = np.random.default_rng(seed)
+    wh = r.uniform(0.1, 0.5, (n, boxes, 2))
+    return put_device_data(r.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+                           np.concatenate([r.uniform(wh / 2, 1 - wh / 2), wh], -1),
+                           r.integers(0, 4, (n, boxes)), (r.uniform(size=(n, boxes)) > 0.3),
+                           device="cuda")
+
+
+def _widths(trainer):
+    return len({leaf.shape[-1] for name, leaf in trainer.model.named_parameters()
+                if name.endswith("H_res_raw")})
+
+
+@pytest.mark.gpu
+def test_captured_train_step_replays_as_the_eager_step():
+    """From one state (parameters, optimizer state and count, EMA,
+    generator), a replay of the captured step and the same step run eagerly
+    draw the same batch and compute the same loss; the updates agree to the
+    fp32 train-parity limits (backward atomics may reorder sums). A
+    projection step (count 1 -> 2)."""
+    from hvs_tpu_torch.data import AugmentConfig
+    from hvs_tpu_torch.training.chunk import TrainChunk
+
+    _need_card()
+    trainer = _card_trainer()
+    chunk = TrainChunk(trainer, _card_data(), 64, 2, 3, AugmentConfig())
+    w = _widths(trainer)
+    assert chunk.graph is not None
+    assert chunk.launches == {"mhc_block": 0, "mhc_block_unfolded": 0,
+                              "sinkhorn_forward": 3 * w, "sinkhorn_backward": 2 * w}
+    assert int(trainer.tx.count) == 0  # the warm-up steps were undone
+    trainer.tx.count.fill_(1)
+    state = trainer.state_tensors()
+    start = [x.detach().clone() for x in state]
+    gen = trainer.generator.get_state()
+
+    def run(replay):
+        chunk.pos.zero_()
+        chunk.replay() if replay else chunk.step()
+        torch.cuda.synchronize()
+        out = dict(row=chunk.metrics[0].clone(), state=[x.detach().clone() for x in state],
+                   draws=[d.clone() for d in chunk.last_draws],
+                   images=chunk.last_batch["images"].clone())
+        with torch.no_grad():
+            for x, v in zip(state, start):
+                x.copy_(v)
+        trainer.generator.set_state(gen)
+        return out
+
+    g, e = run(True), run(False)
+    assert all(torch.equal(a, b) for a, b in zip(g["draws"], e["draws"]))
+    assert torch.equal(g["images"], e["images"])
+    row = dict(zip(chunk.keys, zip(g["row"].tolist(), e["row"].tolist())))
+    for k in ("loss", "detection_loss", "box_loss", "obj_loss", "cls_loss", "lr",
+              "ds_error_max", "signal_ratio_mean", "num_positives"):
+        assert row[k][0] == row[k][1], (k, row[k])
+    assert abs(row["grad_norm"][0] - row["grad_norm"][1]) <= 1e-3 * row["grad_norm"][1]
+    lr = trainer.schedule(1)
+    n_params = len(list(trainer.model.parameters()))
+    upd_g = torch.cat([(a - s).flatten() for a, s in zip(g["state"][:n_params], start)])
+    upd_e = torch.cat([(a - s).flatten() for a, s in zip(e["state"][:n_params], start)])
+    cos = float((upd_g * upd_e).sum() / (upd_g.norm() * upd_e.norm()))
+    assert cos > 0.999 and float((upd_g - upd_e).abs().max()) <= 2 * lr + 1e-6
+    assert int(g["state"][n_params]) == int(e["state"][n_params]) == 2  # the count
+
+
+@pytest.mark.gpu
+def test_two_replays_draw_new_batches_and_dropout():
+    """The trainer's generator is registered with the graph: each replay
+    advances it, so the indices, augmentations and dropout masks differ."""
+    from hvs_tpu_torch.data import AugmentConfig
+    from hvs_tpu_torch.training.chunk import TrainChunk
+
+    _need_card()
+    trainer = _card_trainer(seed=1)
+    chunk = TrainChunk(trainer, _card_data(seed=1, n=64), 64, 4, 2, AugmentConfig())
+    offset = trainer.generator.get_offset()
+    draws = []
+    chunk.pos.zero_()
+    for _ in range(2):
+        chunk.replay()
+        draws.append([d.clone() for d in chunk.last_draws])
+    torch.cuda.synchronize()
+    assert trainer.generator.get_offset() > offset
+    assert not torch.equal(draws[0][5], draws[1][5])  # zoom
+    assert not torch.equal(draws[0][0], draws[1][0])  # indices
+    rows = chunk.metrics.cpu()
+    assert rows[0, chunk.keys.index("loss")] != rows[1, chunk.keys.index("loss")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,count", [(32, 2), (64, 3), (128, 4), (256, 15), (512, 1), (640, 1)])
+def test_sinkhorn_cluster_launches_replay_in_a_graph_as_eager(n, count):
+    """Kernel B's cluster launches (cudaLaunchKernelEx) and the streamed
+    ones captured in a CUDA graph: a replay gives exactly the eager results."""
+    _need_card()
+    r = np.random.default_rng(n)
+    logits = torch.from_numpy(r.standard_normal((count, n, n)).astype(np.float32)).cuda()
+    dp = torch.from_numpy(r.standard_normal((count, n, n)).astype(np.float32)).cuda()
+    p, hist = sink_mod.sinkhorn_forward(logits, 20, keep_history=True)
+    grad = sink_mod.sinkhorn_backward(logits, p, dp, hist, 20)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sink_mod.sinkhorn_forward(logits, 20, keep_history=True)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        gp, ghist = sink_mod.sinkhorn_forward(logits, 20, keep_history=True)
+        ggrad = sink_mod.sinkhorn_backward(logits, gp, dp, ghist, 20)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(gp, p) and torch.equal(ghist, hist) and torch.equal(ggrad, grad)
+
+
+@pytest.mark.gpu
+def test_train_chunked_on_the_card():
+    """Two sizes, two chunks of 3 steps each, validation after the last:
+    one pull per chunk (the replays run under sync debug mode "error"), the
+    step count on the device, finite metrics, a row of lr per step equal to
+    the schedule, and kernel C at every fused site of the validation graph."""
+    from hvs_tpu_torch.models.layers import ManifoldHyperConnection
+
+    _need_card()
+    trainer = _card_trainer(seed=2)
+    data = _card_data(seed=2, n=16)
+    result = trainer.train_chunked(data, total_steps=12, out_sizes=(64, 96),
+                                   batch_sizes={64: 4, 96: 2}, chunk_steps=3, val_data=data,
+                                   val_batch_size=4, val_every_chunks=4, eig_every_chunks=2)
+    assert trainer.state.step == 12 and int(trainer.tx.count) == 12
+    assert {o: (c.pulls, c.replays) for o, c in trainer.chunks.items()} == {64: (2, 6),
+                                                                            96: (2, 6)}
+    assert trainer.val_chunk.pulls == 1 and trainer.val_chunk.replays == 4
+    fused = sum(1 for m in trainer.model.modules()
+                if isinstance(m, ManifoldHyperConnection) and m.fused)
+    assert fused >= 3
+    assert trainer.val_chunk.launches["mhc_block_unfolded"] == fused
+    assert trainer.val_chunk.launches["sinkhorn_forward"] == _widths(trainer)
+    assert np.isfinite(result["best_val_loss"])
+    assert np.isfinite(result["history"]["train_loss"]).all()
+    for chunk in trainer.chunks.values():
+        assert all(np.isfinite(t["device_ms"]) and t["device_ms"] > 0 for t in chunk.timings)
