@@ -15,12 +15,14 @@ Phases, each of which fails the run with a non-zero exit:
      cluster split (384) and a width of the streamed kernels (640), with each
      launch's cluster size, then the 25-matrix mix of one train step through
      the grouped call (one launch per width); C (unfolded mHC block) at the 18 sites
-     of the validation forward at 416², batch 8, and a ragged count; A and C
+     of the validation forwards (416² batch 8, 640² batch 4 and 320² batch
+     8) and a ragged count; A and C
      with each launch's row tile, threads and grid, and their time over the
      18 sites beside the time recorded before their redesign;
   3. serve: the full-width flagship ``ProductionHybridVision`` (seeded random
      weights, bf16) served by ``Detector`` at 640², batch 16 and batch 1; the
-     launch counters are zeroed just before and read just after;
+     launch counters are zeroed just before the load (B once per matrix)
+     and again before the forwards, and read just after;
   4. parity: the same weights with a well-conditioned H_res, one 320² image,
      the port on the card (kernels) against the port on the CPU (plain
      versions);
@@ -52,11 +54,28 @@ Phases, each of which fails the run with a non-zero exit:
      launches per step; ms and device ms per step, capture s, peak memory
      per resolution, and one chunk at the ``train`` phase's configuration;
   8. train_parity: one train step, dropout off, the full-width model at 320²,
-     batch 2: the card (kernels) against the CPU (plain versions).
+     batch 2: the card (kernels) against the CPU (plain versions);
+  9. multitask: ``python -m hvs_tpu_torch.train_multitask``'s run at its
+     defaults (the flagship with the segmentation and depth heads, 8
+     classes, 320², batch 8) on 800 synthetic dense images: its set-up
+     (data on the card, the captured step and evaluation), 2 chunks of 10
+     captured steps and one captured validation pass over 100 images; ms
+     and device ms per step, capture s, peak memory, the parameter count
+     against the JAX model's; the launches per captured step (B 15 forward,
+     10 backward) and per validation batch (B 5, C 18); a replay against
+     the eager step from one state; the dense labels reaching the loss at
+     the heads' stride; one multi-task step CUDA against CPU in fp32;
+ 10. lightweight: ``LightweightHybridVision`` with the serving flags served
+     by ``Detector`` at 640², batch 16 and batch 1 (frames/s, ms/frame, 6
+     kernel-A launches per forward at d = 128, B once per matrix at load),
+     CUDA against CPU at 320²; kernel A at its 6 sites of both batches, and
+     kernel B forward and backward at the bottleneck widths 24, 48, 96 and
+     192 and over its 13 matrices in one grouped call, against their plain
+     versions.
 The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
-entry point (3-8) and fails unless they are pinned after it; the plain
+entry point (3-10) and fails unless they are pinned after it; the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -99,6 +118,24 @@ SK_ITERS = 20
 # head towers and the feature head at 256.
 SINKHORN_MIX = [32] * 2 + [64] * 3 + [128] * 4 + [256] * 15 + [512]
 KERNEL_SITES = 18  # mHC sites of the flagship that the fused blocks serve
+# The multitask phase: ``python -m hvs_tpu_torch.train_multitask``'s defaults
+# (the flagship with both dense heads, 8 classes, 320², batch 8, 16 boxes,
+# 100 validation images) on 800 synthetic dense images, 2 chunks of 10
+# captured steps, then one captured validation pass (12 batches).
+MULTITASK_ARGS = ["--synthetic", "800", "--steps", "20", "--chunk-steps", "10"]
+MULTITASK_IMAGE, MULTITASK_BATCH = 320, 8
+MULTITASK_CHUNKS = 2
+MULTITASK_CHECK_COUNT = 99  # the replay check's step: a projection step (every 100)
+# The JAX model's parameter count for that configuration (jax.eval_shape of
+# its init for task "multi_task"; tests/test_torch_multitask.py holds the
+# port's tree, name by name and shape by shape, against it).
+MULTITASK_PARAMS = 19_964_711
+# LightweightHybridVision: kernel A serves its 3 FPN levels and 3 head
+# towers (d = 128); its other mHC matrices are the bottlenecks at 24, 48 x2,
+# 96 x2 and 192, the 128 FPN and head ones and the 256 feature head.
+LIGHT_SITES = 6
+LIGHT_WIDTHS = (24, 48, 96, 192)
+LIGHT_MIX = [24] + [48] * 2 + [96] * 2 + [128] * 6 + [192] + [256]
 # Kernels A and C over their 18 sites before the tensor-core redesign, as
 # recorded in PERF.md's kernel table (ms, NVIDIA H100 80GB HBM3, 700 W); a
 # constant, not measured in this run.
@@ -359,8 +396,10 @@ def print_total(kernel: str, per_shape, sites, card: str) -> None:
                           "card": card}), flush=True)
 
 
-def kernel_summary(per_shape, launches: int):
-    """Kernel A over the 18 launches of one batch-16 forward, from phase 2."""
+def kernel_summary(per_shape, launches: int, lightweight: int):
+    """Kernel A over the 18 launches of one batch-16 forward, from phase 2;
+    ``lightweight``: its launches serving ``LightweightHybridVision``; the
+    error is the largest at any shape checked."""
     sites = mhc_sites(SERVE_BATCH)
     t_ops = sum(8.0 * n * d * d / PEAK_BF16_FLOPS * 1e3 for n, d in sites)
     t_bytes = sum((4.0 * n * d + 8.0 * d * d + 24.0 * d) / PEAK_BYTES * 1e3 for n, d in sites)
@@ -370,6 +409,7 @@ def kernel_summary(per_shape, launches: int):
         "source": "hvs_tpu_torch/csrc/mhc_block.cu",
         "replaces": "hvs_tpu/ops/pallas/mhc_pallas.py:208",
         "launches": launches,
+        "launches_lightweight": lightweight,
         "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
         "ms": sum(per_shape[s]["ms"] for s in sites),
         "plain_ms": sum(per_shape[s]["plain_ms"] for s in sites),
@@ -384,17 +424,28 @@ def kernel_summary(per_shape, launches: int):
 # Serve path
 
 
-def phase_serve(card: str) -> int:
-    """The flagship served at 640², batch 16 and batch 1. Returns the kernel
-    launches counted over this phase's forwards (18 per forward)."""
+def phase_serve(card: str, build=None, sites: int = KERNEL_SITES, name: str = "serve") -> int:
+    """A model served by ``Detector`` at 640², batch 16 and batch 1: the
+    flagship ``ProductionHybridVision``, or what ``build()`` returns with
+    ``sites`` kernel-A sites. Counters are zeroed before the load (kernel B,
+    one launch per mHC matrix) and again before the forwards. Returns kernel
+    A's launches over this phase's forwards (``sites`` per forward)."""
     from hvs_tpu_torch.inference import Detector
     from hvs_tpu_torch.models import ProductionHybridVision
+    from hvs_tpu_torch.models.layers import ManifoldHyperConnection
 
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     t0 = time.perf_counter()
-    det = Detector(ProductionHybridVision(seed=0))
+    det = Detector(build() if build is not None else ProductionHybridVision(seed=0))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    load_launches = kernel_counts()
+    mhc = [m for m in det.model.modules() if isinstance(m, ManifoldHyperConnection)]
+    if load_launches["sinkhorn_forward"] != len(mhc) or sum(m.fused for m in mhc) != sites:
+        fail(f"{name}: {load_launches['sinkhorn_forward']} kernel B launches at load for "
+             f"{len(mhc)} mHC matrices; {sum(m.fused for m in mhc)} kernel A sites, "
+             f"expected {sites}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch16 = torch.rand((SERVE_BATCH, IMAGE, IMAGE, 3), generator=gen, device="cuda")
     batch1 = batch16[:1].contiguous()
@@ -409,10 +460,10 @@ def phase_serve(card: str) -> int:
         b = images.shape[0]
         if (tuple(boxes.shape), tuple(scores.shape), tuple(classes.shape)) != \
                 ((b, 100, 4), (b, 100), (b, 100)):
-            fail(f"serve output shapes {boxes.shape}, {scores.shape}, {classes.shape}")
+            fail(f"{name} output shapes {boxes.shape}, {scores.shape}, {classes.shape}")
         if classes.dtype != torch.int32 or not (torch.isfinite(boxes).all()
                                                 and torch.isfinite(scores).all()):
-            fail("serve outputs are not finite or classes are not int32")
+            fail(f"{name} outputs are not finite or classes are not int32")
     t0 = time.perf_counter()
     for _ in range(iters16):
         det(batch16)
@@ -425,27 +476,31 @@ def phase_serve(card: str) -> int:
     frame_ms = (time.perf_counter() - t0) / iters1 * 1e3
     forwards += iters16 + iters1
     launches = mhc_mod.launches
-    if launches != KERNEL_SITES * forwards:
-        fail(f"mhc_block launched {launches} times over {forwards} forwards, expected "
-             f"{KERNEL_SITES} each")
-    print(json.dumps({"phase": "serve", "image": IMAGE, "fps_batch16": fps,
+    if launches != sites * forwards:
+        fail(f"{name}: mhc_block launched {launches} times over {forwards} forwards, expected "
+             f"{sites} each")
+    print(json.dumps({"phase": name, "image": IMAGE, "fps_batch16": fps,
                       "batch1_frame_ms": frame_ms, "forwards": forwards,
-                      "mhc_block_launches": launches, "load_s": load_s,
+                      "mhc_block_launches": launches,
+                      "mhc_block_site_widths": sorted(m.dim for m in mhc if m.fused),
+                      "sinkhorn_launches_at_load": load_launches["sinkhorn_forward"],
+                      "load_s": load_s, "params": sum(p.numel() for p in det.model.parameters()),
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "card": card}), flush=True)
     return launches
 
 
-def phase_parity(card: str) -> None:
+def phase_parity(card: str, build=None, name: str = "parity") -> None:
     """Port on the card (kernels) against the port on the CPU (plain
-    versions), same weights, one 320² image, bf16 on both."""
+    versions), same weights, one 320² image, bf16 on both: the flagship
+    ``ProductionHybridVision``, or what ``build(seed)`` returns."""
     import copy
 
     from hvs_tpu_torch.inference import Detector
     from hvs_tpu_torch.models import ProductionHybridVision
     from hvs_tpu_torch.models.layers import ManifoldHyperConnection
 
-    model = ProductionHybridVision(seed=1)
+    model = (build or ProductionHybridVision)(seed=1)
     r = np.random.default_rng(1)
     with torch.no_grad():
         for m in model.modules():
@@ -473,14 +528,15 @@ def phase_parity(card: str) -> None:
     score_corr = float(np.corrcoef(sg, sc)[0, 1])
     score_diff = float(np.max(np.abs(sg - sc)))
     finite = bool(np.isfinite(a).all() and np.isfinite(sg).all())
-    print(json.dumps({"phase": "parity", "image": 320, "raw_corr": corr,
+    print(json.dumps({"phase": name, "image": 320, "raw_corr": corr,
                       "raw_mean_abs_err": mean_abs, "raw_max_abs_err": float(np.max(np.abs(a - b))),
                       "raw_abs_mean": float(np.mean(np.abs(raw_c.numpy()))),
                       "class_scores_corr": score_corr, "class_scores_max_abs_err": score_diff,
                       "class_scores_max": float(sc.max()), "card": card}), flush=True)
     if not (finite and corr > E2E_MIN_CORR and mean_abs < E2E_MAX_MEAN_ABS
             and score_diff < E2E_SCORE_ATOL):
-        fail(f"CUDA and CPU serve outputs disagree: raw corr {corr} (need > {E2E_MIN_CORR}), "
+        fail(f"{name}: CUDA and CPU serve outputs disagree: raw corr {corr} "
+             f"(need > {E2E_MIN_CORR}), "
              f"mean |diff| {mean_abs} (need < {E2E_MAX_MEAN_ABS}); class_scores max |diff| "
              f"{score_diff} (need < {E2E_SCORE_ATOL})")
 
@@ -779,60 +835,66 @@ def phase_sinkhorn(card: str, sm_clock_hz: float):
     above 256 (384) and one width of the streamed kernels (640), with each
     launch's cluster size; then the 25 matrices of one step through the
     grouped call, one launch per width, as the train step launches them."""
-    rows = {}
-    for n in sorted(set(SINKHORN_MIX) | {77, 384, 640}):
-        logits = sinkhorn_logits(n, seed=n)
-        dp = sinkhorn_logits(n, seed=n + 1)
-        p, hist = sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True)
-        grad = sink_mod.sinkhorn_backward(logits, p, dp, hist, SK_ITERS)
-        torch.cuda.synchronize()
-        x = logits.clone().requires_grad_()
-        p_ref = sink_mod.sinkhorn_log_plain(x, SK_ITERS)
-        (grad_ref,) = torch.autograd.grad(p_ref, x, dp, retain_graph=True)
-        p_err = float((p - p_ref.detach()).abs().max())
-        row_err = float((p.sum(dim=-1) - 1.0).abs().max())
-        g_scale = float(grad_ref.abs().max())
-        g_err = float((grad - grad_ref).abs().max())
-        finite = bool(torch.isfinite(p).all() and torch.isfinite(grad).all())
-        bounds = sinkhorn_bounds_ms([n], sm_clock_hz)
-        plans = {part: sink_mod.launch_plan(n, backward=part == "backward")
-                 for part in ("forward", "backward")}
-        fwd_ms = time_ms(lambda: sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True))
-        bwd_ms = time_ms(lambda: sink_mod.sinkhorn_backward(logits, p, dp, hist, SK_ITERS))
-        with torch.no_grad():
-            plain_fwd_ms = time_ms(lambda: sink_mod.sinkhorn_log_plain(logits, SK_ITERS))
-        plain_bwd_ms = time_ms_eager(
-            lambda: torch.autograd.grad(p_ref, x, dp, retain_graph=True))
-        row = {"phase": "kernel", "kernel": "sinkhorn", "n": n, "iters": SK_ITERS,
-               "forward_cluster": plans["forward"]["cluster"],
-               "backward_cluster": plans["backward"]["cluster"],
-               "forward_max_active_clusters": plans["forward"]["max_active_clusters"],
-               "backward_max_active_clusters": plans["backward"]["max_active_clusters"],
-               "p_max_abs_err": p_err, "row_sum_err": row_err, "grad_max_abs_err": g_err,
-               "grad_max_abs": g_scale, "forward_ms": fwd_ms, "forward_plain_ms": plain_fwd_ms,
-               "forward_bound_ms": bounds["forward"][0], "forward_bound_by": bounds["forward"][1],
-               "backward_ms": bwd_ms, "backward_plain_ms": plain_bwd_ms,
-               "backward_bound_ms": bounds["backward"][0],
-               "backward_bound_by": bounds["backward"][1], "library_ms": None, "card": card}
-        print(json.dumps(row), flush=True)
-        if not (finite and p_err <= SINK_P_ATOL and row_err <= SINK_ROW_ATOL
-                and g_err <= SINK_GRAD_RTOL * g_scale):
-            fail(f"sinkhorn n={n} disagrees with its plain version: P max |diff| {p_err} "
-                 f"(need <= {SINK_P_ATOL}), row sum error {row_err} (need <= {SINK_ROW_ATOL}), "
-                 f"gradient max |diff| {g_err} (need <= {SINK_GRAD_RTOL} x {g_scale})")
-        rows[n] = row
+    rows = {n: sinkhorn_check(n, card, sm_clock_hz)
+            for n in sorted(set(SINKHORN_MIX) | {77, 384, 640})}
     return rows, sinkhorn_mix(card, sm_clock_hz)
 
 
-def sinkhorn_mix(card: str, sm_clock_hz: float) -> dict:
-    """The 25 matrices of one step through ``sinkhorn_log_many`` with
-    autograd, as the model forward and the regulariser call it: one forward
-    and one backward launch per width, each matrix held against its plain
-    version. Then the five launches of each direction timed together on the
-    stacked inputs, beside the plain version on the same stacks."""
-    widths = sorted(set(SINKHORN_MIX))
-    logits = [sinkhorn_logits(n, seed=1000 + i) for i, n in enumerate(SINKHORN_MIX)]
-    weights = [sinkhorn_logits(n, seed=2000 + i) for i, n in enumerate(SINKHORN_MIX)]
+def sinkhorn_check(n: int, card: str, sm_clock_hz: float) -> dict:
+    """Kernel B forward and backward on one [n, n] matrix against its plain
+    version, with times and bounds."""
+    logits = sinkhorn_logits(n, seed=n)
+    dp = sinkhorn_logits(n, seed=n + 1)
+    p, hist = sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True)
+    grad = sink_mod.sinkhorn_backward(logits, p, dp, hist, SK_ITERS)
+    torch.cuda.synchronize()
+    x = logits.clone().requires_grad_()
+    p_ref = sink_mod.sinkhorn_log_plain(x, SK_ITERS)
+    (grad_ref,) = torch.autograd.grad(p_ref, x, dp, retain_graph=True)
+    p_err = float((p - p_ref.detach()).abs().max())
+    row_err = float((p.sum(dim=-1) - 1.0).abs().max())
+    g_scale = float(grad_ref.abs().max())
+    g_err = float((grad - grad_ref).abs().max())
+    finite = bool(torch.isfinite(p).all() and torch.isfinite(grad).all())
+    bounds = sinkhorn_bounds_ms([n], sm_clock_hz)
+    plans = {part: sink_mod.launch_plan(n, backward=part == "backward")
+             for part in ("forward", "backward")}
+    fwd_ms = time_ms(lambda: sink_mod.sinkhorn_forward(logits, SK_ITERS, keep_history=True))
+    bwd_ms = time_ms(lambda: sink_mod.sinkhorn_backward(logits, p, dp, hist, SK_ITERS))
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: sink_mod.sinkhorn_log_plain(logits, SK_ITERS))
+    plain_bwd_ms = time_ms_eager(
+        lambda: torch.autograd.grad(p_ref, x, dp, retain_graph=True))
+    row = {"phase": "kernel", "kernel": "sinkhorn", "n": n, "iters": SK_ITERS,
+           "forward_cluster": plans["forward"]["cluster"],
+           "backward_cluster": plans["backward"]["cluster"],
+           "forward_max_active_clusters": plans["forward"]["max_active_clusters"],
+           "backward_max_active_clusters": plans["backward"]["max_active_clusters"],
+           "p_max_abs_err": p_err, "row_sum_err": row_err, "grad_max_abs_err": g_err,
+           "grad_max_abs": g_scale, "forward_ms": fwd_ms, "forward_plain_ms": plain_fwd_ms,
+           "forward_bound_ms": bounds["forward"][0], "forward_bound_by": bounds["forward"][1],
+           "backward_ms": bwd_ms, "backward_plain_ms": plain_bwd_ms,
+           "backward_bound_ms": bounds["backward"][0],
+           "backward_bound_by": bounds["backward"][1], "library_ms": None, "card": card}
+    print(json.dumps(row), flush=True)
+    if not (finite and p_err <= SINK_P_ATOL and row_err <= SINK_ROW_ATOL
+            and g_err <= SINK_GRAD_RTOL * g_scale):
+        fail(f"sinkhorn n={n} disagrees with its plain version: P max |diff| {p_err} "
+             f"(need <= {SINK_P_ATOL}), row sum error {row_err} (need <= {SINK_ROW_ATOL}), "
+             f"gradient max |diff| {g_err} (need <= {SINK_GRAD_RTOL} x {g_scale})")
+    return row
+
+
+def sinkhorn_mix(card: str, sm_clock_hz: float, mix=SINKHORN_MIX) -> dict:
+    """The matrices of one step (``mix``: their widths; the flagship's 25 by
+    default) through ``sinkhorn_log_many`` with autograd, as the model
+    forward and the regulariser call it: one forward and one backward launch
+    per width, each matrix held against its plain version. Then the launches
+    of each direction timed together on the stacked inputs, beside the plain
+    version on the same stacks."""
+    widths = sorted(set(mix))
+    logits = [sinkhorn_logits(n, seed=1000 + i) for i, n in enumerate(mix)]
+    weights = [sinkhorn_logits(n, seed=2000 + i) for i, n in enumerate(mix)]
     xs = [x.clone().requires_grad_() for x in logits]
     before = (sink_mod.launches_forward, sink_mod.launches_backward)
     ps = sink_mod.sinkhorn_log_many(xs, SK_ITERS)
@@ -854,12 +916,12 @@ def sinkhorn_mix(card: str, sm_clock_hz: float) -> dict:
         g_worst = max(g_worst, g_err)
         g_abs_worst = max(g_abs_worst, g_abs)
         if not (p_err <= SINK_P_ATOL and g_err <= SINK_GRAD_RTOL):
-            fail(f"sinkhorn mix matrix {i} (n={SINKHORN_MIX[i]}): P max |diff| {p_err}, "
+            fail(f"sinkhorn mix matrix {i} (n={mix[i]}): P max |diff| {p_err}, "
                  f"relative gradient error {g_err}")
 
     # The stacks one train step launches, one per width.
-    stacks = [torch.stack([x for x, m in zip(logits, SINKHORN_MIX) if m == n]) for n in widths]
-    dps = [torch.stack([w for w, m in zip(weights, SINKHORN_MIX) if m == n]) for n in widths]
+    stacks = [torch.stack([x for x, m in zip(logits, mix) if m == n]) for n in widths]
+    dps = [torch.stack([w for w, m in zip(weights, mix) if m == n]) for n in widths]
     fwd = [sink_mod.sinkhorn_forward(x, SK_ITERS, keep_history=True) for x in stacks]
     fwd_ms = time_ms(lambda: [sink_mod.sinkhorn_forward(x, SK_ITERS, keep_history=True)
                               for x in stacks])
@@ -872,11 +934,11 @@ def sinkhorn_mix(card: str, sm_clock_hz: float) -> dict:
     p_refs = [sink_mod.sinkhorn_log_plain(r, SK_ITERS) for r in refs]
     plain_bwd_ms = time_ms_eager(lambda: torch.autograd.grad(p_refs, refs, dps,
                                                              retain_graph=True))
-    bounds = sinkhorn_bounds_ms(SINKHORN_MIX, sm_clock_hz)
+    bounds = sinkhorn_bounds_ms(mix, sm_clock_hz)
     clusters = {part: {n: sink_mod.launch_plan(n, backward=part == "backward",
-                                               batch=SINKHORN_MIX.count(n))["cluster"]
+                                               batch=mix.count(n))["cluster"]
                        for n in widths} for part in ("forward", "backward")}
-    row = {"phase": "kernel", "kernel": "sinkhorn", "mix": len(SINKHORN_MIX),
+    row = {"phase": "kernel", "kernel": "sinkhorn", "mix": len(mix), "widths": widths,
            "launches_per_direction": len(widths), "forward_clusters": clusters["forward"],
            "backward_clusters": clusters["backward"], "forward_ms": fwd_ms,
            "forward_plain_ms": plain_fwd_ms, "forward_bound_ms": bounds["forward"][0],
@@ -888,12 +950,14 @@ def sinkhorn_mix(card: str, sm_clock_hz: float) -> dict:
     return row
 
 
-def sinkhorn_summary(rows, mix: dict, launches: dict, chunked: dict):
+def sinkhorn_summary(rows, mixes, launches: dict, chunked: dict, multitask: dict):
     """Kernel B forward and backward over the 25 matrices of one step as the
-    train step launches them (one launch per width, timed in this phase),
-    with the largest error of any check of this phase; ``launches`` counts
-    the eager phases' launches, ``chunked`` the replays' (per captured step
-    x replays) of ``train_chunked``."""
+    train step launches them (one launch per width, the first of ``mixes``,
+    timed in this phase), with the largest error of any check (every row
+    and mix); ``launches`` counts the eager phases' launches, ``chunked``
+    and ``multitask`` the replays' (per captured graph x replays) of
+    ``train_chunked`` and the multi-task run."""
+    mix = mixes[0]
     out = []
     for part, name in (("forward", "sinkhorn_forward"), ("backward", "sinkhorn_backward")):
         err_key = "p_max_abs_err" if part == "forward" else "grad_max_abs_err"
@@ -904,7 +968,8 @@ def sinkhorn_summary(rows, mix: dict, launches: dict, chunked: dict):
             "replaces": "hvs_tpu/ops/pallas/sinkhorn_pallas.py:62",
             "launches": launches[name],
             "launches_train_chunked": chunked[name],
-            "max_abs_err": max([mix[err_key]] + [r[err_key] for r in rows.values()]),
+            "launches_multitask": multitask[name],
+            "max_abs_err": max([m[err_key] for m in mixes] + [r[err_key] for r in rows.values()]),
             "ms": mix[f"{part}_ms"],
             "plain_ms": mix[f"{part}_plain_ms"],
             "bound_ms": mix[f"{part}_bound_ms"],
@@ -930,12 +995,14 @@ def unfolded_bound_ms(n: int, d: int):
 def phase_unfolded(card: str, shapes=None):
     """Kernel C against its plain version at the 18 sites of the validation
     forwards (416², batch 8 in ``train``; 640², batch 4 in
-    ``train_chunked``) and at a ragged count (or at ``shapes``). Inputs
+    ``train_chunked``; 320², batch 8 in ``multitask``) and at a ragged count
+    (or at ``shapes``). Inputs
     are kernel A's well-conditioned ones with a near-identity
     H_pre = sigmoid(6·I - 3 + noise)."""
     if shapes is None:
         shapes = sorted(set(mhc_sites(TRAIN_BATCH, TRAIN_IMAGE))
                         | set(mhc_sites(CHUNK_VAL_BATCH, max(CHUNK_BATCHES)))
+                        | set(mhc_sites(MULTITASK_BATCH, MULTITASK_IMAGE))
                         | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
     per_shape = {}
     for n, d in shapes:
@@ -971,9 +1038,10 @@ def phase_unfolded(card: str, shapes=None):
     return per_shape
 
 
-def unfolded_summary(per_shape, launches: int, chunked: int):
+def unfolded_summary(per_shape, launches: int, chunked: int, multitask: int):
     """Kernel C over the 18 launches of one validation forward (416², batch
-    8); ``chunked``: its launches in ``train_chunked``'s validation replays."""
+    8); ``chunked`` and ``multitask``: its launches in the validation replays
+    of ``train_chunked`` and of the multi-task run."""
     sites = mhc_sites(TRAIN_BATCH, TRAIN_IMAGE)
     t_ops = sum(10.0 * n * d * d / PEAK_BF16_FLOPS * 1e3 for n, d in sites)
     t_bytes = sum((4.0 * n * d + 10.0 * d * d + 24.0 * d) / PEAK_BYTES * 1e3 for n, d in sites)
@@ -984,6 +1052,7 @@ def unfolded_summary(per_shape, launches: int, chunked: int):
         "replaces": "hvs_tpu/ops/pallas/mhc_pallas.py:80",
         "launches": launches,
         "launches_train_chunked": chunked,
+        "launches_multitask": multitask,
         "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
         "ms": sum(per_shape[s]["ms"] for s in sites),
         "plain_ms": sum(per_shape[s]["plain_ms"] for s in sites),
@@ -1235,18 +1304,20 @@ def check_sync_debug_mode() -> None:
     fail("torch.cuda.set_sync_debug_mode('error') did not raise on a sync")
 
 
-def captured_step_checks(trainer, chunk, data, eig_fn, card: str) -> dict:
-    """From one state (parameters, optimizer state with the count set so the
-    step projects, EMA, generator, lr_scale 1): a replay of the captured
-    step against the same step run eagerly, which draws the same batch
-    (check 1); the replay's batch against ``apply_augment`` on the CPU with
-    the replay's draws (check 2: pixel values within 1e-4, boxes within
-    1e-5, mask and labels exact); every constrained matrix after the
-    replayed projection step (check 3)."""
-    from hvs_tpu_torch.constants import IMAGENET_STD
-    from hvs_tpu_torch.data import DeviceData, apply_augment
+def _draws_tuple(draws) -> tuple:
+    """A step's draws (``AugmentDraws``, or the multi-task step's indices) as
+    a tuple of tensors."""
+    return (draws,) if isinstance(draws, torch.Tensor) else tuple(draws)
 
-    trainer.tx.count.fill_(CHUNK_PROJECT_EVERY - 1)
+
+def replay_against_eager(trainer, chunk, count: int, probe=None):
+    """From one state (parameters, optimizer state with its count set to
+    ``count``, EMA, generator, lr_scale 1): a replay of ``chunk``'s captured
+    step against the same step run eagerly, which draws the same batch.
+    ``probe(trainer)`` runs after the replay, before the state is put back.
+    Returns (the comparison, the replay's run, the eager run); a run holds
+    its metrics row, parameters, draws and batch."""
+    trainer.tx.count.fill_(count)
     trainer.lr_scale_t.fill_(1.0)
     state = trainer.state_tensors()
     n_params = len(list(trainer.model.parameters()))
@@ -1259,10 +1330,10 @@ def captured_step_checks(trainer, chunk, data, eig_fn, card: str) -> dict:
         torch.cuda.synchronize()
         out = {"row": chunk.metrics[0].clone(),
                "params": [x.detach().clone() for x in state[:n_params]],
-               "draws": type(chunk.last_draws)(*(d.clone() for d in chunk.last_draws)),
+               "draws": tuple(d.clone() for d in _draws_tuple(chunk.last_draws)),
                "batch": {k: v.clone() for k, v in chunk.last_batch.items()}}
-        if replay:
-            out["eig"] = {k: float(v) for k, v in eig_fn(trainer.params()).items()}
+        if replay and probe is not None:
+            out["probe"] = probe(trainer)
         with torch.no_grad():
             for x, v in zip(state, start):
                 x.copy_(v)
@@ -1275,20 +1346,47 @@ def captured_step_checks(trainer, chunk, data, eig_fn, card: str) -> dict:
     rows = {k: (float(g["row"][i]), float(e["row"][i])) for i, k in enumerate(keys)}
     upd_g = torch.cat([(a - s).flatten() for a, s in zip(g["params"], start)])
     upd_e = torch.cat([(a - s).flatten() for a, s in zip(e["params"], start)])
-    cos = float((upd_g * upd_e).sum() / (upd_g.norm() * upd_e.norm() + 1e-30))
-    max_dp = float((upd_g - upd_e).abs().max())
-    lr = trainer.schedule(CHUNK_PROJECT_EVERY - 1)
-    same_draws = all(torch.equal(a, b) for a, b in zip(g["draws"], e["draws"]))
-    same_batch = all(torch.equal(g["batch"][k], e["batch"][k]) for k in g["batch"])
-    forward_keys = [k for k in keys if k != "grad_norm"]
-    forward_equal = all(rows[k][0] == rows[k][1] for k in forward_keys)
-    grad_rel = abs(rows["grad_norm"][0] - rows["grad_norm"][1]) / rows["grad_norm"][1]
+    lr = trainer.schedule(count)
+    cmp = {"projection_count": count,
+           "same_draws": all(torch.equal(a, b) for a, b in zip(g["draws"], e["draws"])),
+           "same_batch": all(torch.equal(g["batch"][k], e["batch"][k]) for k in g["batch"]),
+           "forward_metrics_equal": all(rows[k][0] == rows[k][1] for k in keys
+                                        if k != "grad_norm"),
+           "grad_norm_rel_diff": abs(rows["grad_norm"][0] - rows["grad_norm"][1])
+           / rows["grad_norm"][1],
+           "update_cos": float((upd_g * upd_e).sum() / (upd_g.norm() * upd_e.norm() + 1e-30)),
+           "param_max_abs_diff": float((upd_g - upd_e).abs().max()),
+           "param_limit": 2 * lr + 1e-6, "loss_graph": rows["loss"][0],
+           "loss_eager": rows["loss"][1]}
+    tol = TRAIN_PARITY["float32"]
+    if not (cmp["same_draws"] and cmp["same_batch"] and cmp["forward_metrics_equal"]
+            and cmp["grad_norm_rel_diff"] <= tol["grad_norm_rtol"]
+            and cmp["update_cos"] > tol["mhc_update_min_cos"]
+            and cmp["param_max_abs_diff"] <= cmp["param_limit"]):
+        fail(f"a replay of the captured step disagrees with the eager step: {cmp}; "
+             f"metrics {rows}")
+    return cmp, g, e
+
+
+def captured_step_checks(trainer, chunk, data, eig_fn, card: str) -> dict:
+    """From one state, with the count set so the step projects: a replay of
+    the captured step against the same step run eagerly (check 1,
+    ``replay_against_eager``); the replay's batch against ``apply_augment``
+    on the CPU with the replay's draws (check 2: pixel values within 1e-4,
+    boxes within 1e-5, mask and labels exact); every constrained matrix
+    after the replayed projection step (check 3)."""
+    from hvs_tpu_torch.constants import IMAGENET_STD
+    from hvs_tpu_torch.data import AugmentDraws, DeviceData, apply_augment
+
+    cmp, g, _ = replay_against_eager(
+        trainer, chunk, CHUNK_PROJECT_EVERY - 1,
+        probe=lambda t: {k: float(v) for k, v in eig_fn(t.params()).items()})
 
     # Check 2: the sampler on the card against apply_augment on the CPU.
-    d = g["draws"]
+    d = AugmentDraws(*g["draws"])
     idx = d.idx
     cpu_data = DeviceData(*(t.index_select(0, idx).cpu() for t in data))
-    cpu_draws = type(d)(torch.arange(len(idx)), *(t.cpu() for t in d[1:]))
+    cpu_draws = AugmentDraws(torch.arange(len(idx)), *(t.cpu() for t in d[1:]))
     want = apply_augment(cpu_data, cpu_draws, chunk.out_size, chunk.aug)
     # In pixel values ([0, 1], before the ImageNet normalization divides by
     # std ~0.225): each output pixel is two fp32 products over 640 terms,
@@ -1299,27 +1397,18 @@ def captured_step_checks(trainer, chunk, data, eig_fn, card: str) -> dict:
     mask_equal = bool(torch.equal(g["batch"]["box_mask"].cpu(), want["box_mask"])
                       and torch.equal(g["batch"]["labels"].cpu(), want["labels"]))
 
+    eig = g["probe"]
     row = {"phase": "train_chunked_checks", "image": chunk.out_size, "batch": chunk.batch_size,
-           "projection_count": CHUNK_PROJECT_EVERY - 1, "same_draws": same_draws,
-           "same_batch": same_batch, "forward_metrics_equal": forward_equal,
-           "grad_norm_rel_diff": grad_rel, "update_cos": cos, "param_max_abs_diff": max_dp,
-           "param_limit": 2 * lr + 1e-6, "loss_graph": rows["loss"][0],
-           "loss_eager": rows["loss"][1], "sampler_pixel_max_abs_err": img_err,
-           "sampler_box_max_abs_err": box_err, "sampler_mask_labels_equal": mask_equal,
-           "ds_error_max_proj_after_projection": g["eig"]["ds_error_max_proj"],
-           "max_eigenvalue_after_projection": g["eig"]["max_eigenvalue"], "card": card}
+           **cmp, "sampler_pixel_max_abs_err": img_err, "sampler_box_max_abs_err": box_err,
+           "sampler_mask_labels_equal": mask_equal,
+           "ds_error_max_proj_after_projection": eig["ds_error_max_proj"],
+           "max_eigenvalue_after_projection": eig["max_eigenvalue"], "card": card}
     print(json.dumps(row), flush=True)
-    tol = TRAIN_PARITY["float32"]
-    if not (same_draws and same_batch and forward_equal
-            and grad_rel <= tol["grad_norm_rtol"] and cos > tol["mhc_update_min_cos"]
-            and max_dp <= 2 * lr + 1e-6):
-        fail(f"train_chunked: a replay of the captured step disagrees with the eager step: "
-             f"{row}; metrics {rows}")
     if not (img_err <= 1e-4 and box_err <= 1e-5 and mask_equal):
         fail(f"train_chunked: the card's sampler disagrees with apply_augment on the CPU: {row}")
-    if not g["eig"]["ds_error_max_proj"] <= 1e-5:
+    if not eig["ds_error_max_proj"] <= 1e-5:
         fail(f"train_chunked: after the projection step the DS error is "
-             f"{g['eig']['ds_error_max_proj']} (need <= 1e-5)")
+             f"{eig['ds_error_max_proj']} (need <= 1e-5)")
     return {"checks": "passed"}
 
 
@@ -1378,17 +1467,23 @@ def train_parity_within_limits(row: dict) -> bool:
                 and row["param_max_abs_diff"] <= row["param_limit"])
 
 
-def train_step_pair(dtype: torch.dtype) -> dict:
+def train_step_pair(dtype: torch.dtype, task: str = "detection") -> dict:
+    """One train step on the card against the CPU from the same weights and
+    batch; for ``task="multi_task"`` the flagship with both dense heads on a
+    batch of ``train_multitask``'s synthetic dense images."""
     import copy
 
     from hvs_tpu_torch.models import HybridVisionSystem
     from hvs_tpu_torch.models.layers import Dropout, ManifoldHyperConnection
     from hvs_tpu_torch.train import make_synthetic_loader
+    from hvs_tpu_torch.train_multitask import synthetic_dense_arrays
     from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig, train_step
     from hvs_tpu_torch.training.optimizer import partition_label
     from hvs_tpu_torch.training.trainer import batch_to
 
-    model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=1, dtype=dtype)
+    dense = task == "multi_task"
+    model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=1, dtype=dtype,
+                               use_segmentation=dense, use_depth=dense, task=task)
     r = np.random.default_rng(2)
     with torch.no_grad():
         for m in model.modules():
@@ -1402,7 +1497,13 @@ def train_step_pair(dtype: torch.dtype) -> dict:
     start = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
     # No warmup, so the step moves every parameter (lr(0) = 1e-3).
     config = TrainerConfig(num_classes=TRAIN_CLASSES, warmup_steps=0, backbone_lr_factor=0.1)
-    batch = next(make_synthetic_loader(2, 320, 1, TRAIN_CLASSES, TRAIN_BOXES, seed=3)())
+    if dense:
+        images, boxes, labels, mask, seg, depth = synthetic_dense_arrays(2, 320, CHUNK_BOXES,
+                                                                         TRAIN_CLASSES, seed=3)
+        batch = {"images": images, "boxes": boxes, "labels": labels, "box_mask": mask,
+                 "seg_labels": seg.astype(np.int64), "depth": depth}
+    else:
+        batch = next(make_synthetic_loader(2, 320, 1, TRAIN_CLASSES, TRAIN_BOXES, seed=3)())
     results = {}
     for name, m, dev in (("cuda", model, torch.device("cuda")),
                          ("cpu", cpu_model, torch.device("cpu"))):
@@ -1413,7 +1514,8 @@ def train_step_pair(dtype: torch.dtype) -> dict:
         params = trainer.params()
         lr = trainer.schedule
         t0 = time.perf_counter()
-        metrics, grads = train_step(m, trainer.tx, config, trainer.state, batch_to(batch, dev))
+        metrics, grads = train_step(m, trainer.tx, config, trainer.state, batch_to(batch, dev),
+                                    task)
         results[name] = dict(
             loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
             h_res={k: g.float().cpu() for k, g in grads.items() if k.endswith("H_res_raw")},
@@ -1434,7 +1536,8 @@ def train_step_pair(dtype: torch.dtype) -> dict:
     max_dp = max(float((g["params"][k] - c["params"][k]).abs().max()) for k in start)
     finite = bool(np.isfinite([g["loss"], c["loss"], g["grad_norm"], c["grad_norm"]]).all()
                   and all(torch.isfinite(v).all() for v in g["params"].values()))
-    return {"phase": "train_parity", "dtype": str(dtype).split(".")[-1], "image": 320,
+    return {"phase": "train_parity", "task": task, "dtype": str(dtype).split(".")[-1],
+            "image": 320,
             "batch": 2, "loss_cuda": g["loss"], "loss_cpu": c["loss"],
             "grad_norm_cuda": g["grad_norm"], "grad_norm_cpu": c["grad_norm"],
             "h_res_grads": len(hres_cos), "h_res_grad_cos_min": min(hres_cos.values()),
@@ -1442,6 +1545,157 @@ def train_step_pair(dtype: torch.dtype) -> dict:
             "mhc_update_cos": cos(upd["cuda"], upd["cpu"]), "param_max_abs_diff": max_dp,
             "param_limit": 2 * lr(0) + 1e-6, "finite": finite, "step_s_cuda": g["seconds"],
             "step_s_cpu": c["seconds"]}
+
+
+# ---------------------------------------------------------------------------
+# The multi-task model and the lightweight variant
+
+
+def phase_multitask(card: str) -> dict:
+    """The multi-task training run of ``python -m hvs_tpu_torch.train_multitask``
+    at full width: its set-up (``prepare``: data, model, trainer, the captured
+    step and evaluation), 2 chunks of 10 captured steps and one captured
+    validation pass, counters zeroed just before the set-up. Per captured
+    step kernel B launches 15 forward (model, regulariser, projection; 5
+    widths each) and 10 backward; per validation batch B 5 and C 18. Then a
+    replay against the eager step, the dense labels at the heads' stride, and
+    one step on the card against the CPU in fp32. Returns the launches of the
+    path (each captured graph's count times its replays)."""
+    import gc
+
+    from hvs_tpu_torch.train_multitask import parse_args, prepare
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    run = prepare(parse_args(MULTITASK_ARGS))
+    setup_s = time.perf_counter() - t0
+    trainer, chunk, evaluator = run.trainer, run.chunk, run.evaluator
+    if (chunk.out_size, chunk.batch_size) != (MULTITASK_IMAGE, MULTITASK_BATCH):
+        fail(f"multitask: steps at {chunk.out_size}² batch {chunk.batch_size}, the kernel "
+             f"phases checked C at {MULTITASK_IMAGE}² batch {MULTITASK_BATCH}")
+    hosts = [chunk.run() for _ in range(MULTITASK_CHUNKS)]
+    val, iou = evaluator.run()
+    torch.cuda.synchronize()
+    host_counts = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: chunk.launches[k] * chunk.replays + evaluator.launches[k] * evaluator.replays
+                for k in host_counts}
+    wall = [t["wall_ms"] / chunk.chunk_steps for t in chunk.timings]
+    row = {"phase": "multitask", "image": chunk.out_size, "batch": chunk.batch_size,
+           "classes": trainer.config.num_classes, "params": run.params,
+           "chunks": len(chunk.timings), "chunk_steps": chunk.chunk_steps, "ms_per_step": wall,
+           "steps_per_s": [1e3 / w for w in wall],
+           "device_ms_per_step": [t["device_ms"] / chunk.chunk_steps for t in chunk.timings],
+           "capture_s": chunk.capture_s, "setup_s": setup_s,
+           "peak_gb_after_capture": chunk.peak_gb, "peak_mem_gb": peak_gb,
+           "val_batches": evaluator.n_batches, "val_capture_s": evaluator.capture_s,
+           "val_ms_per_batch": evaluator.timings[-1]["wall_ms"] / evaluator.n_batches,
+           "val": val, "seg_iou": [float(x) for x in iou],
+           "loss_first": float(hosts[0]["loss"][0]), "loss_last": float(hosts[-1]["loss"][-1]),
+           "launches_per_step": chunk.launches, "launches_per_val_batch": evaluator.launches,
+           "launches_host": host_counts, "launches_replayed": launches, "card": card}
+    print(json.dumps(row), flush=True)
+
+    if run.params != MULTITASK_PARAMS:
+        fail(f"multitask: {run.params} parameters, the JAX model has {MULTITASK_PARAMS}")
+    n_widths = len(set(SINKHORN_MIX))
+    want_step = {"mhc_block": 0, "mhc_block_unfolded": 0, "sinkhorn_forward": 3 * n_widths,
+                 "sinkhorn_backward": 2 * n_widths}
+    want_val = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES,
+                "sinkhorn_forward": n_widths, "sinkhorn_backward": 0}
+    steps = MULTITASK_CHUNKS * chunk.chunk_steps
+    if (chunk.launches, chunk.replays, chunk.pulls) != (want_step, steps, MULTITASK_CHUNKS):
+        fail(f"multitask: per captured step {chunk.launches} (expected {want_step}), "
+             f"{chunk.replays} replays and {chunk.pulls} pulls (expected {steps} and "
+             f"{MULTITASK_CHUNKS})")
+    if (evaluator.launches, evaluator.replays, evaluator.pulls) != (
+            want_val, evaluator.n_batches, 1):
+        fail(f"multitask validation: per batch {evaluator.launches} (expected {want_val}), "
+             f"{evaluator.replays} replays, {evaluator.pulls} pulls")
+    if int(trainer.tx.count) != steps:
+        fail(f"multitask: optimizer count {int(trainer.tx.count)}, expected {steps}")
+    values = [v for h in hosts for v in h.values()] + [list(val.values()), iou]
+    if not all(np.isfinite(v).all() for v in values):
+        fail(f"multitask: non-finite losses or metrics {row}")
+
+    cmp, _, eager = replay_against_eager(trainer, chunk, MULTITASK_CHECK_COUNT)
+    stride = dense_labels_at_head_stride(trainer, eager["batch"])
+    print(json.dumps({"phase": "multitask_checks", **cmp, **stride, "card": card}), flush=True)
+    del trainer, chunk, evaluator, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pair = train_step_pair(torch.float32, task="multi_task")
+    pair["card"] = card
+    print(json.dumps(pair), flush=True)
+    if not train_parity_within_limits(pair):
+        fail(f"multitask step on the card disagrees with the CPU: {pair}; limits "
+             f"{TRAIN_PARITY['float32']}, parameters within {pair['param_limit']}")
+    return launches
+
+
+def dense_labels_at_head_stride(trainer, batch) -> dict:
+    """The segmentation labels and depth of a train batch reach
+    ``multi_task_loss`` at the heads' stride: an eval forward's heads come
+    out at half the input's size, and the loss of the full-size labels equals
+    that of the labels strided by 2 beforehand, and not that of labels
+    strided from an offset of one pixel."""
+    from hvs_tpu_torch.training import multi_task_loss
+    from hvs_tpu_torch.training.trainer import _targets
+
+    images, nc = batch["images"], trainer.config.num_classes
+    with torch.no_grad():
+        trainer.model.eval()
+        out = trainer.model(images, task="multi_task")
+        targets = _targets(trainer.config, images, batch)
+
+        def losses(offset: int, fy: int = 1) -> tuple:
+            dense = {k: batch[k][:, offset::fy, offset::fy] for k in ("seg_labels", "depth")}
+            _, m = multi_task_loss(out, {**batch, **dense, "targets": targets}, nc)
+            return float(m["segmentation_loss"]), float(m["depth_loss"])
+
+        seg_hw, depth_hw = tuple(out["segmentation"].shape[1:3]), tuple(out["depth"].shape[1:3])
+        fy = images.shape[1] // seg_hw[0]
+        full, strided, shifted = losses(0), losses(0, fy), losses(1, fy)
+    row = {"head_stride": fy, "seg_grid": seg_hw, "depth_grid": depth_hw,
+           "seg_depth_loss": full, "seg_depth_loss_prestrided": strided,
+           "seg_depth_loss_offset_by_one": shifted}
+    if not (fy == 2 and depth_hw == seg_hw and seg_hw[0] * 2 == images.shape[1]
+            and full == strided and all(a != b for a, b in zip(full, shifted))):
+        fail(f"multitask: the dense labels do not reach the loss at the heads' stride: {row}")
+    return row
+
+
+def lightweight_sites(batch: int, image: int = IMAGE):
+    """(tokens, d) of the 6 kernel-A launches of one ``LightweightHybridVision``
+    forward: the FPN levels and the head towers at strides 8, 16, 32, d = 128."""
+    return [(batch * (image // s) ** 2, 128) for s in (8, 16, 32)] * 2
+
+
+def phase_lightweight(card: str, sm_clock_hz: float) -> dict:
+    """``LightweightHybridVision`` with the serving flags: served by
+    ``Detector`` at 640², batch 16 and batch 1 (6 kernel-A launches per
+    forward, all at d = 128; kernel B once per matrix at load), then held
+    CUDA against CPU at 320²; kernel A at its 6 sites of both batches and
+    kernel B, forward and backward, at the bottleneck widths 24, 48, 96 and
+    192 and over the model's 13 matrices in one grouped call, against their
+    plain versions. Returns the rows of the kernel checks and kernel A's
+    launches over the served forwards."""
+    from hvs_tpu_torch.models import LightweightHybridVision
+
+    def build(seed: int = 0):
+        return LightweightHybridVision(precomputed_constraints=True, dropout_rate=0.0,
+                                       seed=seed)
+
+    launches = phase_serve(card, build, LIGHT_SITES, "lightweight_serve")
+    phase_parity(card, build, "lightweight_parity")
+    shapes = sorted(set(lightweight_sites(SERVE_BATCH) + lightweight_sites(1)))
+    a_rows = phase_kernels(card, shapes)
+    b_rows = {n: sinkhorn_check(n, card, sm_clock_hz) for n in LIGHT_WIDTHS}
+    b_mix = sinkhorn_mix(card, sm_clock_hz, LIGHT_MIX)
+    return {"mhc_block": launches, "a_rows": a_rows, "b_rows": b_rows, "b_mix": b_mix}
 
 
 def main() -> None:
@@ -1473,13 +1727,17 @@ def main() -> None:
     train_launches = entry_point_phase(phase_train, defaults, card)
     chunked_launches = entry_point_phase(phase_train_chunked, defaults, card)
     entry_point_phase(phase_train_parity, defaults, card)
+    multitask_launches = entry_point_phase(phase_multitask, defaults, card)
+    light = entry_point_phase(phase_lightweight, defaults, card, sm_clock_hz)
 
     print(card)
     print(json.dumps({"kernels": [
-        kernel_summary(per_shape, serve_launches),
-        *sinkhorn_summary(sink_rows, sink_mix, train_launches, chunked_launches),
+        kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"]),
+        *sinkhorn_summary({**sink_rows, **light["b_rows"]}, [sink_mix, light["b_mix"]],
+                          train_launches, chunked_launches, multitask_launches),
         unfolded_summary(unfolded_rows, train_launches["mhc_block_unfolded"],
-                         chunked_launches["mhc_block_unfolded"])]}))
+                         chunked_launches["mhc_block_unfolded"],
+                         multitask_launches["mhc_block_unfolded"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

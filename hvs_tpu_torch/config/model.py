@@ -3,10 +3,11 @@
 Counterpart of ``hvs_tpu/config/model.py`` with the same fields and
 defaults. ``ModelConfig.build_model`` builds the port's
 ``HybridVisionSystem`` / ``ProductionHybridVision`` from the fields the JAX
-method passes. ``mhc.use_pallas`` is kept for file compatibility and has no
+method passes (``vit.enabled``, ``use_segmentation`` and ``use_depth``
+included). ``mhc.use_pallas`` is kept for file compatibility and has no
 effect: on the card every eligible mHC site runs the Hopper kernel, on the
-CPU its plain version. Parts of the model the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item that adds them.
+CPU its plain version. Parts of the model the port does not have yet (RAG,
+int8) raise ``NotImplementedError`` naming the ROADMAP item that adds them.
 """
 
 from __future__ import annotations
@@ -193,24 +194,20 @@ class ModelConfig(BaseConfig):
         }
 
     def build_model(self, production: bool = False, monitor: bool = False,
-                    device: DeviceLike = None, seed: int = 0):
+                    device: DeviceLike = None, seed: int = 0, task: str = "detection"):
         """The port's model from this config, on ``device`` (default: the
         config's ``device``), with a seeded random init.
 
         ``production`` builds ``ProductionHybridVision`` (telemetry off,
         dropout 0, constraints computed at load); ``monitor`` turns on the
-        per-layer stability telemetry of a training model."""
+        per-layer stability telemetry of a training model. ``task`` is the
+        task whose heads get parameters, as the flax model's ``init`` task
+        decides it (``"multi_task"`` builds every head the flags enable)."""
         from ..models import HybridVisionSystem, ProductionHybridVision
 
         missing = []
-        if not self.vit.enabled:
-            missing.append("vit.enabled=False (the use_vit flag, ROADMAP queue 1, item 9)")
         if self.rag.enabled:
             missing.append("rag.enabled (ROADMAP queue 1, item 9)")
-        if self.use_segmentation:
-            missing.append("use_segmentation (ROADMAP queue 1, item 9)")
-        if self.use_depth:
-            missing.append("use_depth (ROADMAP queue 1, item 9)")
         if self.quantization.enabled:
             missing.append("quantization.enabled (int8 serving, ROADMAP queue 1, item 8)")
         if missing:
@@ -219,6 +216,10 @@ class ModelConfig(BaseConfig):
         return cls(
             monitor=False if production else monitor,
             num_classes=self.detection.num_classes,
+            use_vit=self.vit.enabled,
+            use_segmentation=self.use_segmentation,
+            use_depth=self.use_depth,
+            task=task,
             sk_iters=self.mhc.sinkhorn_iterations,
             base_channels=self.backbone.base_channels,
             stage_blocks=tuple(self.backbone.stage_blocks),

@@ -4,7 +4,9 @@ The port's modules carry the flax module and parameter names (including the
 flax auto-names ``GroupNorm_N``, ``Dense_N``, ``LayerNorm_0``, and
 ``stage{i}_block{j}``), so a flax leaf at path ``a/b/kernel`` is the
 parameter ``a.b.kernel``. One layout differs: convolution kernels are HWIO in
-flax and OIHW here. Dense kernels stay [in, out], applied as ``x @ W``.
+flax and OIHW here. Transposed-convolution kernels (flax auto-name
+``ConvTranspose_N``) stay HWIO, as do Dense kernels ([in, out], applied as
+``x @ W``).
 
 The tree is given as nested dicts of numpy arrays; a caller holding JAX
 arrays converts them first (``jax.device_get``). This module imports no JAX.
@@ -49,7 +51,9 @@ def nest(flat: Dict[str, Any]) -> Tree:
 
 
 def _is_conv_kernel(name: str, ndim: int) -> bool:
-    return name.rsplit(".", 1)[-1] == "kernel" and ndim == 4
+    *owner, leaf = name.split(".")
+    return (leaf == "kernel" and ndim == 4
+            and not (owner and owner[-1].startswith("ConvTranspose")))
 
 
 def to_port_layout(name: str, array: np.ndarray) -> np.ndarray:

@@ -17,6 +17,10 @@ tests can feed JAX's own draws to the port. ``warp_images`` computes
 batched products with per-sample weight matrices, built as
 ``jax/_src/image/scale.py::compute_weight_mat`` builds them.
 
+``DenseData`` adds the segmentation and depth labels of the multi-task
+model's data; its batches (``dense_batch``) are gathered rows, not
+augmented, as the JAX multi-task script draws them.
+
 ``load_coco_arrays`` (decoding a COCO split with cv2) waits for ROADMAP
 queue 1 item 4.
 """
@@ -43,6 +47,18 @@ class DeviceData(NamedTuple):
     boxes: Tensor   # [N, M, 4] float32 normalized cxcywh
     labels: Tensor  # [N, M] int32
     mask: Tensor    # [N, M] float32 (1 = real box)
+
+
+class DenseData(NamedTuple):
+    """A split with the dense labels of the segmentation and depth heads,
+    resident on one device (the multi-task model's training data)."""
+
+    images: Tensor  # [N, S, S, 3] uint8
+    boxes: Tensor   # [N, M, 4] float32 normalized cxcywh
+    labels: Tensor  # [N, M] int32
+    mask: Tensor    # [N, M] float32 (1 = real box)
+    seg: Tensor     # [N, S, S] uint8 class id + 1 per pixel (0 = background)
+    depth: Tensor   # [N, S, S] float32 metres
 
 
 @dataclass(frozen=True)
@@ -96,6 +112,29 @@ def put_device_data(images: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
                       put(mask, np.float32))
 
 
+def put_dense_data(images: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
+                   mask: np.ndarray, seg: np.ndarray, depth: np.ndarray,
+                   device: DeviceLike = None) -> DenseData:
+    """Upload a split with dense labels to ``device`` (the CUDA card unless
+    ``device="cpu"``)."""
+    base = put_device_data(images, boxes, labels, mask, device)
+    dev = base.images.device
+    return DenseData(*base, torch.from_numpy(np.ascontiguousarray(seg, np.uint8)).to(dev),
+                     torch.from_numpy(np.ascontiguousarray(depth, np.float32)).to(dev))
+
+
+def dense_batch(data: DenseData, idx: Tensor) -> Dict[str, Tensor]:
+    """The rows ``idx`` of ``data`` as a multi-task batch, no augmentation:
+    normalized images, the boxes, and the dense labels (``seg_labels``
+    int64, ``depth``) at the images' size."""
+    imgs = data.images.index_select(0, idx).float() / 255.0
+    return {"images": normalize(imgs), "boxes": data.boxes.index_select(0, idx),
+            "labels": data.labels.index_select(0, idx),
+            "box_mask": data.mask.index_select(0, idx),
+            "seg_labels": data.seg.index_select(0, idx).long(),
+            "depth": data.depth.index_select(0, idx)}
+
+
 def normalize(imgs: Tensor) -> Tensor:
     """(imgs - ImageNet mean) / std over the channel axis."""
     mean = device_constant(("imagenet_mean",), imgs.device, lambda: IMAGENET_MEAN)
@@ -103,7 +142,7 @@ def normalize(imgs: Tensor) -> Tensor:
     return (imgs - mean) / std
 
 
-def _weight_mat(in_size: int, out_size: int, scale: Tensor, translation: Tensor) -> Tensor:
+def resize_weights(in_size: int, out_size: int, scale: Tensor, translation: Tensor) -> Tensor:
     """[B, out, in] linear-interpolation weights with antialiasing, one
     matrix per sample (JAX's ``compute_weight_mat``, transposed)."""
     inv_scale = 1.0 / scale[:, None]
@@ -130,8 +169,8 @@ def warp_images(imgs: Tensor, scale: Tensor, tx: Tensor, ty: Tensor, out_size: i
     letterbox ``fill`` through an analytic coverage box."""
     b, s, _, c = imgs.shape
     o = out_size
-    wy = _weight_mat(s, o, scale, ty)  # [B, O, S]
-    wx = _weight_mat(s, o, scale, tx)
+    wy = resize_weights(s, o, scale, ty)  # [B, O, S]
+    wx = resize_weights(s, o, scale, tx)
     rows = torch.bmm(wy, imgs.reshape(b, s, s * c)).reshape(b, o, s, c)
     cols = torch.bmm(wx, rows.transpose(1, 2).reshape(b, s, o * c))  # [B, O(x), O(y)*C]
     out = cols.reshape(b, o, o, c).transpose(1, 2)

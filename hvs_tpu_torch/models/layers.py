@@ -1,5 +1,5 @@
-"""Core layers: mHC (serve and training branches), GroupNorm, SqueezeExcite,
-attention, dropout.
+"""Core layers: mHC (serve and training branches), Dense, Conv,
+ConvTranspose, the norms, SqueezeExcite, attention, dropout.
 
 Counterpart of ``hvs_tpu/models/layers.py``. Public layouts follow the JAX
 package: feature maps are NHWC, dense kernels are [d_in, d_out] applied as
@@ -135,6 +135,37 @@ class Conv(nn.Module):
             padding = (0, 0)
         bias = None if self.bias is None else self.bias.to(self.dtype)
         y = F.conv2d(xc, self.kernel.to(self.dtype), bias, self.strides, padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(features, (4, 4), strides=(2, 2))`` with SAME
+    padding on NHWC maps: the dense heads' upsampling (output 2H x 2W), the
+    only transposed convolution of the model.
+
+    The kernel is kept in flax's layout, HWIO (``convert.py`` moves it as
+    is). Flax does not transpose the kernel (``transpose_kernel=False``): it
+    dilates the input by the stride, pads it (2, 2) and correlates with the
+    kernel as given. ``F.conv_transpose2d`` is the gradient of a correlation,
+    so it takes the kernel flipped in space, as [in, out, kh, kw], with
+    padding 1.
+    """
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(4, 4, in_features, features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, g: Generator) -> None:
+        kh, kw, i, _ = self.kernel.shape
+        lecun_normal_(self.kernel, kh * kw * i, g)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel.to(self.dtype).flip((0, 1)).permute(2, 3, 0, 1)
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2), w, self.bias.to(self.dtype),
+                               stride=2, padding=1)
         return y.permute(0, 2, 3, 1)
 
 

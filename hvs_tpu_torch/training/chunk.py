@@ -91,6 +91,8 @@ class TrainChunk:
     memory pool the graphs of one loop share (they never replay at once).
     """
 
+    task = "detection"  # the forward's task, which picks the loss (``trainer.task_loss``)
+
     def __init__(self, trainer: "ManifoldConstrainedTrainer", data: DeviceData, out_size: int,
                  batch_size: int, chunk_steps: int, aug: AugmentConfig = AugmentConfig(),
                  pool=None):
@@ -113,20 +115,27 @@ class TrainChunk:
         if self.device.type == "cuda":
             self._capture(pool)
 
-    def step(self, draws: Optional[AugmentDraws] = None) -> None:
-        """One train step, run eagerly: ``draws`` (default: drawn from the
-        trainer's generator), augment, ``step_on_device``, and its metrics
-        at row ``pos`` of ``metrics``; ``pos`` advances. Nothing waits on the
-        host."""
+    def draw(self):
+        """The random numbers of one batch, from the trainer's generator."""
+        return draw_augment(self.trainer.generator, self.batch_size, self.data.images.shape[0],
+                            self.aug, self.device)
+
+    def batch_of(self, draws) -> Dict[str, Tensor]:
+        """The batch that ``draws`` pick and augment."""
+        return apply_augment(self.data, draws, self.out_size, self.aug)
+
+    def step(self, draws=None) -> None:
+        """One train step, run eagerly: ``draws`` (default: ``draw()``), its
+        batch, ``step_on_device``, and its metrics at row ``pos`` of
+        ``metrics``; ``pos`` advances. Nothing waits on the host."""
         from .trainer import step_on_device
 
         t = self.trainer
         if draws is None:
-            draws = draw_augment(t.generator, self.batch_size, self.data.images.shape[0],
-                                 self.aug, self.device)
-        batch = apply_augment(self.data, draws, self.out_size, self.aug)
+            draws = self.draw()
+        batch = self.batch_of(draws)
         metrics, _ = step_on_device(t.model, t.tx, t.config, batch, t.lr_scale_t,
-                                    t.state.ema_params)
+                                    t.state.ema_params, task=self.task)
         if self.metrics is None:
             self.keys = list(metrics)
             self.metrics = torch.zeros(self.chunk_steps, len(self.keys), dtype=torch.float32,
@@ -204,7 +213,9 @@ class ValChunk:
     On the card one batch is captured (the start row is a device counter)
     and replayed ``n_batches`` times."""
 
-    def __init__(self, trainer: "ManifoldConstrainedTrainer", data: DeviceData, batch_size: int,
+    n_totals = 1  # values each batch adds to ``total``
+
+    def __init__(self, trainer: "ManifoldConstrainedTrainer", data, batch_size: int,
                  out_size: int, n_batches: int, pool=None):
         if n_batches < 1:
             raise ValueError(f"validation needs at least one batch of {batch_size} images, "
@@ -214,7 +225,7 @@ class ValChunk:
             data, batch_size, out_size, n_batches
         self.device = trainer.device
         self.start = torch.zeros((), dtype=torch.long, device=self.device)
-        self.total = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.total = torch.zeros(self.n_totals, dtype=torch.float32, device=self.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
         self.capture_s = 0.0
@@ -241,8 +252,12 @@ class ValChunk:
         self.start.zero_()
         self.batch()
 
-    def run(self) -> float:
-        """The mean validation loss over the split's batches."""
+    def summarize(self, totals: np.ndarray):
+        """The result from ``total`` summed over the split: the mean loss."""
+        return float(totals[0]) / self.n_batches
+
+    def run(self):
+        """Every batch of the split, then one pull: ``summarize``'s result."""
         self.start.zero_()
         self.total.zero_()
         t0 = time.perf_counter()
@@ -252,7 +267,7 @@ class ValChunk:
             else:
                 self.graph.replay()
                 self.replays += 1
-        loss = float(self.total) / self.n_batches
+        result = self.summarize(self.total.cpu().numpy())
         self.pulls += 1
         self.timings.append({"wall_ms": (time.perf_counter() - t0) * 1e3})
-        return loss
+        return result

@@ -1,18 +1,19 @@
-"""Detection losses: YOLO target assignment, CIoU/focal/BCE, and the manifold
-regulariser.
+"""Losses: YOLO target assignment, CIoU/focal/BCE, the manifold regulariser
+and the multi-task objective.
 
 Counterpart of ``hvs_tpu/training/losses.py`` (``build_targets``,
 ``focal_bce``, ``bce_with_smoothing``, ``mhc_yolo_loss``,
 ``_spectral_norm_bound``, ``iter_h_res_leaves``,
-``manifold_regularization_loss``). Parameters are a dict of the model's
-named parameters (dotted paths, as ``model.named_parameters()`` gives).
-``multi_task_loss`` is not ported yet.
+``manifold_regularization_loss``, ``multi_task_loss``). Parameters are a
+dict of the model's named parameters (dotted paths, as
+``model.named_parameters()`` gives). Every loss has fixed shapes and reads
+nothing back to the host, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, NamedTuple, Sequence, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -230,3 +231,77 @@ def manifold_regularization_loss(params: Dict[str, Tensor], ds_weight: float = 1
     metrics = {"manifold_ds": ds_total / count, "manifold_spectral": spec_total / count,
                "manifold_smooth": smooth_total / count}
     return loss, metrics
+
+
+def at_head_stride(dense: Tensor, h: int, w: int) -> Tensor:
+    """Nearest downsampling of [B, H', W'] labels to a head's [h, w] grid by
+    striding (every fy-th row and column, fy = H' // h), as JAX does."""
+    if dense.shape[1] == h:
+        return dense
+    fy = dense.shape[1] // h
+    return dense[:, ::fy, ::fy][:, :h, :w]
+
+
+def multi_task_loss(outputs: Dict[str, object], batch: Dict[str, object], num_classes: int,
+                    task_weights: Optional[Dict[str, float]] = None
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Weighted multi-task objective over whichever heads ran and have labels
+    in ``batch``, with the JAX function's terms and metric names:
+
+    * detection (weight 1): ``mhc_yolo_loss`` of ``outputs["detection"]``
+      against ``batch["targets"]`` (``build_targets``);
+    * classification (0.5): cross-entropy against ``batch["class_labels"]``;
+    * segmentation (0.5): labels ``batch["seg_labels"]`` (class id + 1, 0 the
+      background) strided to the head's grid; class-balanced cross-entropy
+      (each pixel weighted by size / (k · count) of its class in the batch,
+      clipped to [0.05, 20], as a weighted mean) plus 0.5 × the soft Dice
+      loss over the classes present;
+    * depth (0.5): L1 between log(pred + 1e-3) and log(gt + 1e-3),
+      ``batch["depth"]`` strided the same way.
+    """
+    tw = {"detection": 1.0, "classification": 0.5, "segmentation": 0.5}
+    if task_weights:
+        tw.update(task_weights)
+    total: Tensor = 0.0
+    metrics: Dict[str, Tensor] = {}
+    if "detection" in outputs and "targets" in batch:
+        det_loss, det_m = mhc_yolo_loss(outputs["detection"]["raw"], batch["targets"],
+                                        num_classes)
+        total = total + tw["detection"] * det_loss
+        metrics.update(det_m)
+        metrics["detection_loss"] = det_loss
+    if "classification" in outputs and "class_labels" in batch:
+        logits = outputs["classification"].float()
+        cls = F.cross_entropy(logits, batch["class_labels"].long())
+        total = total + tw["classification"] * cls
+        metrics["classification_loss"] = cls
+    if "segmentation" in outputs and "seg_labels" in batch:
+        logits = outputs["segmentation"].float()
+        _, h, w, k = logits.shape
+        labels = at_head_stride(batch["seg_labels"], h, w).long()
+        log_p = torch.log_softmax(logits, dim=-1)
+        ce_map = -log_p.gather(-1, labels[..., None])[..., 0]
+        onehot = F.one_hot(labels, k).float()
+        counts = onehot.sum(dim=(0, 1, 2))
+        weights = torch.where(counts > 0, labels.numel() / (k * torch.clamp(counts, min=1.0)),
+                              torch.zeros_like(counts))
+        pix_w = torch.clamp(weights, 0.05, 20.0)[labels]
+        seg = (ce_map * pix_w).sum() / torch.clamp(pix_w.sum(), min=1.0)
+        p = log_p.exp()
+        inter = (p * onehot).sum(dim=(0, 1, 2))
+        denom = (p + onehot).sum(dim=(0, 1, 2))
+        present = (counts > 0).float()
+        dice = 1.0 - (present * (2.0 * inter + 1.0) / (denom + 1.0)).sum() / torch.clamp(
+            present.sum(), min=1.0)
+        seg = seg + 0.5 * dice
+        total = total + tw["segmentation"] * seg
+        metrics["segmentation_loss"] = seg
+        metrics["segmentation_dice_loss"] = dice
+    if "depth" in outputs and "depth" in batch:
+        pred = outputs["depth"].float()[..., 0]
+        gt = at_head_stride(batch["depth"].float(), pred.shape[1], pred.shape[2])
+        dep = (torch.log(pred + 1e-3) - torch.log(gt + 1e-3)).abs().mean()
+        total = total + tw.get("depth", 0.5) * dep
+        metrics["depth_loss"] = dep
+    metrics["total_loss"] = total
+    return total, metrics

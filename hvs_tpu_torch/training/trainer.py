@@ -5,9 +5,10 @@ Counterpart of ``hvs_tpu/training/trainer.py`` (``TrainerConfig``,
 ``make_eval_step``, ``ManifoldConstrainedTrainer`` with ``train_chunked``;
 the bodies of ``make_train_chunk`` and ``make_val_chunk`` are in
 ``chunk.py``). One train step: the model forward in train mode (dropout,
-mHC telemetry), the YOLO loss plus ``manifold_reg_alpha`` times the
-manifold regulariser, autograd, the manifold-aware optimizer, the update
-scaled by ``lr_scale``, and the optional parameter EMA; nothing in it reads
+mHC telemetry), the YOLO loss (``multi_task_loss`` for the multi-task
+model) plus ``manifold_reg_alpha`` times the manifold regulariser,
+autograd, the manifold-aware optimizer, the update scaled by ``lr_scale``,
+and the optional parameter EMA; nothing in it reads
 a value back to the host, so it can be captured in a CUDA graph. Validation
 runs the model in eval mode without autograd, where the eligible mHC sites
 launch the unfolded block. The host loops keep the JAX trainer's stability
@@ -34,7 +35,8 @@ from torch import nn
 from ..data.device_pipeline import AugmentConfig, DeviceData, normalize
 from ..device import DeviceLike, pin_matmul_precision, resolve_device
 from ..models.layers import set_dropout_generator
-from .losses import build_targets, manifold_regularization_loss, mhc_yolo_loss
+from .losses import build_targets, manifold_regularization_loss, mhc_yolo_loss, \
+    multi_task_loss
 from .optimizer import ManifoldAwareOptimizer, global_norm
 from .schedule import (ManifoldAwareScheduler, PlateauSchedulerWithReset,
                        cosine_annealing_with_warmup)
@@ -110,25 +112,38 @@ def _targets(config: TrainerConfig, images: Tensor, batch: Dict[str, Tensor]):
                          config.num_classes)
 
 
+def task_loss(config: TrainerConfig, task: str, outputs: Dict[str, Any],
+              batch: Dict[str, Tensor], targets) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The loss a step of ``task`` minimises before the regulariser, with its
+    metrics: the YOLO loss for ``"detection"`` (``detection_loss``), and
+    ``multi_task_loss`` over the heads that ran for ``"multi_task"`` (its
+    dense labels are ``batch["seg_labels"]`` and ``batch["depth"]``)."""
+    if task == "multi_task":
+        return multi_task_loss(outputs, {**batch, "targets": targets}, config.num_classes)
+    loss, metrics = mhc_yolo_loss(outputs["detection"]["raw"], targets, config.num_classes,
+                                  cls_mode=config.cls_mode, cls_pos_weight=config.cls_pos_weight)
+    return loss, {**metrics, "detection_loss": loss}
+
+
 def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
                    batch: Dict[str, Tensor], lr_scale: Union[float, Tensor] = 1.0,
-                   ema_params: Optional[Dict[str, Tensor]] = None
+                   ema_params: Optional[Dict[str, Tensor]] = None, task: str = "detection"
                    ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The device work of one optimizer step on ``batch``: updates the
     model's parameters, ``tx`` (its count included) and ``ema_params`` in
     place and changes nothing on the host, so a CUDA graph can capture it.
-    Returns (metrics as 0-dim tensors, the gradients by parameter name); the
-    metrics include ``lr``, the schedule's rate at this step."""
+    ``task`` ("detection" or "multi_task") is the forward's task and picks
+    the loss (``task_loss``). Returns (metrics as 0-dim tensors, the
+    gradients by parameter name); the metrics include ``lr``, the schedule's
+    rate at this step."""
     model.train()
     images = prepare_images(batch["images"])
     targets = _targets(config, images, batch)
     params = dict(model.named_parameters())
-    outputs = model(images)
-    det_loss, det_metrics = mhc_yolo_loss(outputs["detection"]["raw"], targets,
-                                          config.num_classes, cls_mode=config.cls_mode,
-                                          cls_pos_weight=config.cls_pos_weight)
+    outputs = model(images, task=task)
+    main_loss, main_metrics = task_loss(config, task, outputs, batch, targets)
     reg_loss, reg_metrics = manifold_regularization_loss(params, sk_iters=config.sk_iters)
-    loss = det_loss + config.manifold_reg_alpha * reg_loss
+    loss = main_loss + config.manifold_reg_alpha * reg_loss
     # Parameters the loss does not reach (the feature head) get zeros, as in JAX.
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
                                                  materialize_grads=True)))
@@ -147,8 +162,7 @@ def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: Trainer
             torch._foreach_add_(ema, [params[n].to(e.dtype) for n, e in zip(names, ema)],
                                 alpha=1.0 - d)
 
-    metrics = {**det_metrics, **reg_metrics, "detection_loss": det_loss,
-               "loss": loss, "grad_norm": grad_norm, "lr": lr}
+    metrics = {**main_metrics, **reg_metrics, "loss": loss, "grad_norm": grad_norm, "lr": lr}
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
     stability = outputs.get("stability", {})
     if stability:
@@ -159,14 +173,15 @@ def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: Trainer
 
 
 def train_step(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
-               state: TrainState, batch: Dict[str, Tensor]
+               state: TrainState, batch: Dict[str, Tensor], task: str = "detection"
                ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    """One optimizer step on ``batch`` (tensors on the model's device).
+    """One optimizer step on ``batch`` (tensors on the model's device) for
+    ``task`` (as ``step_on_device``).
 
     Updates the model's parameters, ``tx`` and ``state`` in place; returns
     (metrics as 0-dim tensors, the gradients by parameter name).
     """
-    out = step_on_device(model, tx, config, batch, state.lr_scale, state.ema_params)
+    out = step_on_device(model, tx, config, batch, state.lr_scale, state.ema_params, task)
     state.step += 1
     return out
 

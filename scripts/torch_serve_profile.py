@@ -1,8 +1,10 @@
 """Where the time of the port's 640² serve path goes, on one CUDA card.
 
     python3 scripts/torch_serve_profile.py [--batch 16] [--iters 3] [--trace out.json]
+        [--model flagship|lightweight]
 
-Builds the full-width flagship (seeded random weights, bf16), serves it with
+Builds the full-width flagship, or ``LightweightHybridVision`` with the
+serving flags (seeded random weights, bf16), serves it with
 ``hvs_tpu_torch.inference.Detector``, and runs ``torch.profiler`` over
 ``--iters`` forwards after a warm-up. Prints JSON lines: wall time per
 forward, summed device time per forward, the device's idle share, device time
@@ -51,17 +53,19 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
+    ap.add_argument("--model", default="flagship", choices=["flagship", "lightweight"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         raise SystemExit(1)
 
     from hvs_tpu_torch.inference import Detector
-    from hvs_tpu_torch.models import ProductionHybridVision
+    from hvs_tpu_torch.models import LightweightHybridVision, ProductionHybridVision
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
-    det = Detector(ProductionHybridVision(seed=0))
+    det = Detector(ProductionHybridVision(seed=0) if args.model == "flagship" else
+                   LightweightHybridVision(precomputed_constraints=True, dropout_rate=0.0, seed=0))
     gen = torch.Generator(device="cuda").manual_seed(0)
     images = torch.rand((args.batch, IMAGE, IMAGE, 3), generator=gen, device="cuda")
     for _ in range(3):
@@ -78,8 +82,8 @@ def main() -> None:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    summarize(prof, args.iters, wall_ms, card, {"batch": args.batch, "image": IMAGE},
-              "forward")
+    summarize(prof, args.iters, wall_ms, card,
+              {"model": args.model, "batch": args.batch, "image": IMAGE}, "forward")
 
 
 def summarize(prof, iters: int, wall_ms: float, card: str, head: dict, unit: str) -> None:

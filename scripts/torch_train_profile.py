@@ -2,6 +2,7 @@
 
     python3 scripts/torch_train_profile.py [--batch 8] [--image 416] [--iters 3] [--trace out.json]
     python3 scripts/torch_train_profile.py --chunked [--batch 16] [--image 416] [--iters 10]
+    python3 scripts/torch_train_profile.py --multitask [--batch 8] [--image 320] [--iters 10]
 
 Builds the full-width flagship ``HybridVisionSystem`` (telemetry on, the JAX
 dropout rates, bf16, 8 classes), trains it with ``ManifoldConstrainedTrainer``
@@ -11,7 +12,10 @@ validation batches, after a warm-up. With ``--chunked`` the steps are
 instead replays of ``train_chunked``'s captured step (``TrainChunk``:
 sampling and augmentation on the card from at least 64 synthetic 640²
 images in card memory), then of its captured validation batch
-(``ValChunk``). Prints, for
+(``ValChunk``). With ``--multitask`` they are replays of the multi-task
+run's captured step and evaluation batch (``python -m
+hvs_tpu_torch.train_multitask``'s set-up: the flagship with both dense
+heads, 8 classes, synthetic dense images in card memory). Prints, for
 each, the JSON lines of ``torch_serve_profile.py`` (wall and device ms,
 idle share, device ms by kernel category, top kernels) beside the card's
 name and power limit. Exits non-zero without a CUDA card.
@@ -40,18 +44,29 @@ def main() -> None:
     ap.add_argument("--trace", default=None, help="write a chrome trace of the steps here")
     ap.add_argument("--chunked", action="store_true",
                     help="profile replays of train_chunked's captured step")
+    ap.add_argument("--multitask", action="store_true",
+                    help="profile replays of the multi-task run's captured step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         raise SystemExit(1)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    if args.multitask:
+        from hvs_tpu_torch.train_multitask import parse_args, prepare
+
+        n = max(64, args.batch * args.iters)
+        run = prepare(parse_args(["--synthetic", str(n), "--num-val", str(n),
+                                  "--size", str(args.image), "--batch-size", str(args.batch),
+                                  "--chunk-steps", str(args.iters)]))
+        profile_graphs(run.chunk, run.evaluator, args, card, "multitask")
+        return
 
     from hvs_tpu_torch.models import HybridVisionSystem
     from hvs_tpu_torch.train import make_synthetic_loader
     from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig, eval_step
     from hvs_tpu_torch.training.trainer import batch_to
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          check=True, capture_output=True, text=True).stdout.strip()
     classes, warmup = 8, 3
     trainer = ManifoldConstrainedTrainer(HybridVisionSystem(num_classes=classes, monitor=True),
                                          TrainerConfig(num_classes=classes, backbone_lr_factor=0.1))
@@ -98,17 +113,23 @@ def profile_chunked(trainer, args, card: str) -> None:
 
     n = max(64, args.batch * args.iters)  # validation reads each image once
     data = put_device_data(*synthetic_arrays(n, 640, 16, trainer.config.num_classes, seed=0))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    head = {"batch": args.batch, "image": args.image}
     pool = torch.cuda.graph_pool_handle()
     chunk = TrainChunk(trainer, data, args.image, args.batch, args.iters, pool=pool)
     val = ValChunk(trainer, data, args.batch, args.image, args.iters, pool=pool)
+    profile_graphs(chunk, val, args, card, "train_chunked")
+
+
+def profile_graphs(chunk, val, args, card: str, name: str) -> None:
+    """``args.iters`` replays of ``chunk``'s captured step, then of ``val``'s
+    captured batch, each under the profiler after one replay outside it."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    head = {"batch": args.batch, "image": args.image}
     for graph_run in (chunk.replay, val.graph.replay):  # first replays, outside the profile
         chunk.pos.zero_()
         graph_run()
     torch.cuda.synchronize()
-    for path, unit, replay in (("train_chunked_step", "step", chunk.replay),
-                               ("train_chunked_validation", "batch", val.graph.replay)):
+    for path, unit, replay in ((f"{name}_step", "step", chunk.replay),
+                               (f"{name}_validation", "batch", val.graph.replay)):
         chunk.pos.zero_()
         val.start.zero_()
         with torch.profiler.profile(activities=acts) as prof:

@@ -380,6 +380,9 @@ def test_soft_and_matrix_nms_raise(method):
         NMSFilter(method)
 
 
+# use_segmentation, use_depth and vit.enabled=False were ported with the
+# multi-task model: their cases now check that the config builds them (the
+# ids keep the ROADMAP item they were ported under); RAG and int8 still raise.
 @pytest.mark.parametrize("field,item", [
     ("quantization", "item 8"), ("rag", "item 9"), ("use_segmentation", "item 9"),
     ("use_depth", "item 9"), ("vit", "item 9")])
@@ -393,6 +396,14 @@ def test_parts_not_ported_raise(field, item):
         cfg.vit.enabled = False
     else:
         setattr(cfg, field, True)
+    if field in ("use_segmentation", "use_depth", "vit"):
+        model = cfg.build_model(production=True, task="multi_task")
+        built = {"use_segmentation": model.segmentation_head, "use_depth": model.depth_head,
+                 "vit": model.vit_encoder}
+        assert {k: v is not None for k, v in built.items()} == {
+            "use_segmentation": field == "use_segmentation", "use_depth": field == "use_depth",
+            "vit": field != "vit"}
+        return
     with pytest.raises(NotImplementedError, match=item):
         cfg.build_model(production=True)
     if field == "quantization":

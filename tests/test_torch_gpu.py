@@ -666,3 +666,106 @@ def test_train_chunked_on_the_card():
     assert np.isfinite(result["history"]["train_loss"]).all()
     for chunk in trainer.chunks.values():
         assert all(np.isfinite(t["device_ms"]) and t["device_ms"] > 0 for t in chunk.timings)
+
+
+# ---------------------------------------------------------------------------
+# The multi-task model and the lightweight variant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [24, 48, 96, 192])
+def test_sinkhorn_kernel_at_the_lightweight_widths_matches_plain_version(n):
+    """The lightweight model's bottleneck widths (24 and 48 leave warps
+    partly idle in the column exchanges), three matrices in one launch."""
+    _need_card()
+    logits = _sinkhorn_logits((3, n, n), seed=n + 7)
+    weight = _sinkhorn_logits((3, n, n), seed=n + 8)
+    before = (sink_mod.launches_forward, sink_mod.launches_backward)
+    _check_against_plain(logits, weight)
+    assert (sink_mod.launches_forward, sink_mod.launches_backward) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_captured_multi_task_step_replays_as_the_eager_step():
+    """The multi-task step (uniform indices, both dense heads,
+    ``multi_task_loss``) captured by ``MultiTaskChunk``: from one state a
+    replay and the eager step draw the same rows and compute the same loss,
+    and the updates agree to the fp32 train-parity limits; the validation
+    graph runs kernel C at every fused site."""
+    from hvs_tpu_torch.data import put_dense_data
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.models.layers import ManifoldHyperConnection
+    from hvs_tpu_torch.train_multitask import synthetic_dense_arrays
+    from hvs_tpu_torch.training import (ManifoldConstrainedTrainer, MultiTaskChunk,
+                                        MultiTaskEval, TrainerConfig)
+
+    _need_card()
+    model = HybridVisionSystem(num_classes=4, stage_blocks=(1, 1, 1, 1),
+                               stage_channels=(32, 64, 128, 256), vit_dim=64, vit_depth=1,
+                               vit_heads=4, fpn_channels=64, head_channels=64, feature_dim=64,
+                               sk_iters=5, use_segmentation=True, use_depth=True,
+                               task="multi_task", device="cuda")
+    trainer = ManifoldConstrainedTrainer(
+        model, TrainerConfig(num_classes=4, warmup_steps=2, project_every=2, sk_iters=5))
+    trainer.init_state()
+    data = put_dense_data(*synthetic_dense_arrays(8, 64, 6, 4, seed=0), device="cuda")
+    chunk = MultiTaskChunk(trainer, data, 2, 3)
+    w = _widths(trainer)
+    assert chunk.graph is not None and int(trainer.tx.count) == 0
+    assert chunk.launches == {"mhc_block": 0, "mhc_block_unfolded": 0,
+                              "sinkhorn_forward": 3 * w, "sinkhorn_backward": 2 * w}
+    trainer.tx.count.fill_(1)
+    state = trainer.state_tensors()
+    start = [x.detach().clone() for x in state]
+    gen = trainer.generator.get_state()
+
+    def run(replay):
+        chunk.pos.zero_()
+        chunk.replay() if replay else chunk.step()
+        torch.cuda.synchronize()
+        out = dict(row=chunk.metrics[0].clone(), state=[x.detach().clone() for x in state],
+                   idx=chunk.last_draws.clone())
+        with torch.no_grad():
+            for x, v in zip(state, start):
+                x.copy_(v)
+        trainer.generator.set_state(gen)
+        return out
+
+    g, e = run(True), run(False)
+    assert torch.equal(g["idx"], e["idx"])
+    row = dict(zip(chunk.keys, zip(g["row"].tolist(), e["row"].tolist())))
+    for k in ("loss", "detection_loss", "segmentation_loss", "segmentation_dice_loss",
+              "depth_loss", "total_loss", "lr"):
+        assert row[k][0] == row[k][1], (k, row[k])
+    assert abs(row["grad_norm"][0] - row["grad_norm"][1]) <= 1e-3 * row["grad_norm"][1]
+    n_params = len(list(trainer.model.parameters()))
+    upd_g = torch.cat([(a - s).flatten() for a, s in zip(g["state"][:n_params], start)])
+    upd_e = torch.cat([(a - s).flatten() for a, s in zip(e["state"][:n_params], start)])
+    cos = float((upd_g * upd_e).sum() / (upd_g.norm() * upd_e.norm()))
+    assert cos > 0.999 and float((upd_g - upd_e).abs().max()) <= 2 * trainer.schedule(1) + 1e-6
+
+    evaluator = MultiTaskEval(trainer, data, 4)
+    means, iou = evaluator.run()
+    fused = sum(1 for m in model.modules() if isinstance(m, ManifoldHyperConnection) and m.fused)
+    assert fused >= 3
+    assert evaluator.launches == {"mhc_block": 0, "mhc_block_unfolded": fused,
+                                  "sinkhorn_forward": w, "sinkhorn_backward": 0}
+    assert evaluator.replays == 2 and evaluator.pulls == 1
+    assert np.isfinite(list(means.values())).all() and np.isfinite(iou).all()
+
+
+@pytest.mark.gpu
+def test_lightweight_detector_launches_kernel_a_at_its_six_sites():
+    from hvs_tpu_torch.inference import Detector
+    from hvs_tpu_torch.models import LightweightHybridVision
+
+    _need_card()
+    det = Detector(LightweightHybridVision(precomputed_constraints=True, dropout_rate=0.0,
+                                           num_classes=4))
+    before = mhc_mod.launches
+    boxes, scores, classes = det(torch.rand(2, 128, 128, 3, device="cuda"))
+    torch.cuda.synchronize()
+    assert mhc_mod.launches == before + 6
+    assert boxes.shape == (2, 100, 4) and classes.dtype == torch.int32
+    assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
