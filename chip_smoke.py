@@ -37,12 +37,27 @@ Phases, each of which fails the run with a non-zero exit:
      after the swap the new weights', as a second engine built on them
      gives it); the
      stability report (kernel B on the card); A's launches as replays x 18;
-  6. train: the full-width ``HybridVisionSystem`` (telemetry on, the JAX
+  6. deployment: the deployment layer over the flagship at 640² (seeded
+     weights, bf16; an engine with buckets (1, 4) and 720x1280 raw frames):
+     8 single detects through ``deployment/service.py`` with the
+     micro-batcher running, a batch of 4, and the ``ping``, ``get_status``
+     and ``update_config`` commands (the graphs rebuilt, a probe frame
+     reading the new threshold); the same over a live localhost REST server
+     and gRPC server; every response against the engine's own result for
+     its frame; ``ModelExporter``: ``torch.export`` of the serve function,
+     the saved ``.pt2`` loaded and called (kernel A's counter rises by 18
+     per call), consistent with the serve function at rtol 1e-3 / atol 1e-4,
+     its ms per call against the engine's b1 replay; the gated repository
+     (a version of seed-1 weights that passes the gates, one that fails
+     them; the swap, refused for the failing one, against a fresh engine on
+     the seed-1 weights); the health checks (device memory from
+     ``torch.cuda.mem_get_info``);
+  7. train: the full-width ``HybridVisionSystem`` (telemetry on, the JAX
      dropout rates, bf16) trained by ``ManifoldConstrainedTrainer.train`` on
      the synthetic batches of ``hvs_tpu_torch.train`` (416², batch 8, 8
      classes, 64 boxes) for a few steps with a projection inside, then
      validated over 2 batches; counters zeroed just before, read just after;
-  7. train_chunked: the on-device loop (``train_chunked``) with
+  8. train_chunked: the on-device loop (``train_chunked``) with
      ``train_device``'s defaults: the flagship at 80 classes, 512 seeded
      640² images (16 boxes each) in card memory, one captured train step
      per resolution (416² batch 16, 640² batch 8) replayed for 2 chunks of
@@ -53,9 +68,9 @@ Phases, each of which fails the run with a non-zero exit:
      replays under sync debug mode "error" with one pull per chunk, and the
      launches per step; ms and device ms per step, capture s, peak memory
      per resolution, and one chunk at the ``train`` phase's configuration;
-  8. train_parity: one train step, dropout off, the full-width model at 320²,
+  9. train_parity: one train step, dropout off, the full-width model at 320²,
      batch 2: the card (kernels) against the CPU (plain versions);
-  9. multitask: ``python -m hvs_tpu_torch.train_multitask``'s run at its
+ 10. multitask: ``python -m hvs_tpu_torch.train_multitask``'s run at its
      defaults (the flagship with the segmentation and depth heads, 8
      classes, 320², batch 8) on 800 synthetic dense images: its set-up
      (data on the card, the captured step and evaluation), 2 chunks of 10
@@ -65,7 +80,7 @@ Phases, each of which fails the run with a non-zero exit:
      10 backward) and per validation batch (B 5, C 18); a replay against
      the eager step from one state; the dense labels reaching the loss at
      the heads' stride; one multi-task step CUDA against CPU in fp32;
- 10. lightweight: ``LightweightHybridVision`` with the serving flags served
+ 11. lightweight: ``LightweightHybridVision`` with the serving flags served
      by ``Detector`` at 640², batch 16 and batch 1 (frames/s, ms/frame, 6
      kernel-A launches per forward at d = 128, B once per matrix at load),
      CUDA against CPU at 320²; kernel A at its 6 sites of both batches, and
@@ -75,7 +90,7 @@ Phases, each of which fails the run with a non-zero exit:
 The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
-entry point (3-10) and fails unless they are pinned after it; the plain
+entry point (3-11) and fails unless they are pinned after it; the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -396,10 +411,11 @@ def print_total(kernel: str, per_shape, sites, card: str) -> None:
                           "card": card}), flush=True)
 
 
-def kernel_summary(per_shape, launches: int, lightweight: int):
+def kernel_summary(per_shape, launches: int, lightweight: int, exported: int):
     """Kernel A over the 18 launches of one batch-16 forward, from phase 2;
-    ``lightweight``: its launches serving ``LightweightHybridVision``; the
-    error is the largest at any shape checked."""
+    ``lightweight``: its launches serving ``LightweightHybridVision``;
+    ``exported``: its launches from the calls of the loaded ``.pt2`` program;
+    the error is the largest at any shape checked."""
     sites = mhc_sites(SERVE_BATCH)
     t_ops = sum(8.0 * n * d * d / PEAK_BF16_FLOPS * 1e3 for n, d in sites)
     t_bytes = sum((4.0 * n * d + 8.0 * d * d + 24.0 * d) / PEAK_BYTES * 1e3 for n, d in sites)
@@ -410,6 +426,7 @@ def kernel_summary(per_shape, launches: int, lightweight: int):
         "replaces": "hvs_tpu/ops/pallas/mhc_pallas.py:208",
         "launches": launches,
         "launches_lightweight": lightweight,
+        "launches_exported_program": exported,
         "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
         "ms": sum(per_shape[s]["ms"] for s in sites),
         "plain_ms": sum(per_shape[s]["plain_ms"] for s in sites),
@@ -798,6 +815,418 @@ def phase_engine(card: str) -> None:
                       "graph_replays": {str(k): v for k, v in engine.replays.items()},
                       "replays": replays, "mhc_block_launches": replays * KERNEL_SITES,
                       "sinkhorn_launches_per_load": b_per_load, "card": card}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Deployment layer
+
+DEPLOY_BUCKETS = (1, 4)
+DEPLOY_RAW_HW = (720, 1280)
+DEPLOY_SINGLES = 8
+DEPLOY_BATCH = 4
+# The exported program against the serve function (JAX's consistency limits,
+# hvs_tpu/deployment/model_server.py:139-163).
+EXPORT_RTOL, EXPORT_ATOL = 1e-3, 1e-4
+GATE_PASS = {"map_50": 0.9, "latency_ms": 8.0, "precision": 0.95, "recall": 0.9,
+             "ds_error": 1e-4, "max_eigenvalue": 0.99}
+GATE_FAIL = dict(GATE_PASS, map_50=0.4)
+
+
+def same_detections(a, b, box_atol: float = 1e-3, score_atol: float = 1e-5) -> bool:
+    """Two ``Detections`` (or response-shaped tuples) agree: same count and
+    classes, boxes and scores within the limits (default: the engine phase's
+    hot-swap check, for two runs of one graph)."""
+    return (len(a) == len(b) and np.array_equal(a.classes, b.classes)
+            and np.allclose(a.boxes, b.boxes, atol=box_atol)
+            and np.allclose(a.scores, b.scores, atol=score_atol))
+
+
+class _Response:
+    """A REST or gRPC response's detections, shaped like ``Detections``."""
+
+    def __init__(self, boxes, scores, classes, image_size):
+        self.boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+        self.scores = np.asarray(scores, np.float32)
+        self.classes = np.asarray(classes, np.int64)
+        self.image_size = tuple(image_size)
+
+    def __len__(self) -> int:
+        return len(self.scores)
+
+    @classmethod
+    def rest(cls, body: dict) -> "_Response":
+        d = body["detections"]
+        return cls([x["box"] for x in d], [x["score"] for x in d], [x["class_id"] for x in d],
+                   body["image_size"])
+
+    @classmethod
+    def grpc(cls, resp) -> "_Response":
+        d = resp.detections
+        return cls([[x.x1, x.y1, x.x2, x.y2] for x in d], [x.score for x in d],
+                   [x.class_id for x in d], (resp.image_height, resp.image_width))
+
+
+def cross_bucket(a, b, threshold: float) -> dict:
+    """Matches the detections of ``a`` and ``b`` greedily by class and IoU
+    (>= 0.5): the largest score difference of a match, and the unmatched
+    detections with their distance to ``threshold``."""
+    def iou(p, q):
+        w = max(0.0, min(p[2], q[2]) - max(p[0], q[0]))
+        h = max(0.0, min(p[3], q[3]) - max(p[1], q[1]))
+        inter = w * h
+        union = (p[2] - p[0]) * (p[3] - p[1]) + (q[2] - q[0]) * (q[3] - q[1]) - inter
+        return inter / union if union > 0 else 0.0
+
+    free = list(range(len(b)))
+    diffs, unmatched = [], []
+    for i in range(len(a)):
+        best, best_iou = None, 0.5
+        for j in free:
+            if a.classes[i] == b.classes[j] and iou(a.boxes[i], b.boxes[j]) >= best_iou:
+                best, best_iou = j, iou(a.boxes[i], b.boxes[j])
+        if best is None:
+            unmatched.append(float(a.scores[i]))
+        else:
+            free.remove(best)
+            diffs.append(abs(float(a.scores[i]) - float(b.scores[best])))
+    unmatched += [float(b.scores[j]) for j in free]
+    return {"matched": len(diffs), "max_score_diff": max(diffs, default=0.0),
+            "unmatched": len(unmatched),
+            "unmatched_max_from_threshold": max((abs(u - threshold) for u in unmatched),
+                                                default=0.0)}
+
+
+def _serve_rest(server):
+    """Run an aiohttp app on 127.0.0.1 (a free port) on a background loop;
+    returns (base url, stop)."""
+    import asyncio
+    import threading
+
+    from aiohttp import web
+
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(server.app)
+    ready: list = []
+
+    def run() -> None:
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(runner.setup())
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            loop.run_until_complete(site.start())
+            ready.append(site._server.sockets[0].getsockname()[1])
+        except Exception as e:  # reported by the caller
+            ready.append(e)
+            return
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    for _ in range(6000):
+        if ready:
+            break
+        time.sleep(0.05)
+    if not ready or isinstance(ready[0], Exception):
+        fail(f"deployment: the REST server did not start: {ready}")
+
+    def stop() -> None:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10)
+        server.shutdown()
+
+    return f"http://127.0.0.1:{ready[0]}", stop
+
+
+def _post(url: str, payload: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        if resp.status != 200:
+            fail(f"deployment: {url} answered {resp.status}")
+        return json.loads(resp.read())
+
+
+def phase_deployment(card: str) -> dict:
+    """The deployment layer over the flagship at 640² (seeded conditioned
+    weights, bf16), an engine with buckets (1, 4) and 720x1280 raw frames:
+    requests through ``deployment/service.py`` (single detects through the
+    micro-batcher, a batch, the commands with a graph rebuild), the same
+    over a live localhost REST server and gRPC server, each response against
+    ``engine.infer`` of its frame; ``ModelExporter`` export, load and
+    consistency, with kernel A's launches per call of the loaded program;
+    the gated repository (a passing and a failing version, the swap, the
+    swapped engine against a fresh one); the health checks."""
+    import base64
+    import os
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+    from hvs_tpu_torch.deployment import (HealthChecker, ModelExporter, ModelServerManager,
+                                          RegistryGate, RobotGRPCServer, RobotVisionClient,
+                                          ServingModelConfig, VisionAPIServer)
+    from hvs_tpu_torch.deployment import service
+    from hvs_tpu_torch.inference import InferenceEngine
+    from hvs_tpu_torch.inference.preprocessing import decode_jpeg
+
+    cfg = InferenceConfig()
+    cfg.preprocessing.image_size = IMAGE
+    cfg.performance.batch_buckets = DEPLOY_BUCKETS
+    cfg.performance.warmup_raw_shapes = (DEPLOY_RAW_HW,)
+    t0 = time.perf_counter()
+    engine = InferenceEngine(ModelConfig(), cfg, variables={"params": conditioned_params(0)})
+    engine.warmup(cfg.performance.warmup_raw_shapes)
+    setup_s = time.perf_counter() - t0
+    r = np.random.default_rng(0)
+    frames = list(r.integers(0, 256, (DEPLOY_SINGLES, *DEPLOY_RAW_HW, 3), dtype=np.uint8))
+    direct = [engine.infer(f) for f in frames]
+    if sum(len(d) for d in direct) == 0:
+        fail("deployment: no detections on the frames; the comparisons are vacuous")
+
+    # 1. Requests through the framework-free core.
+    engine.start_batcher()
+    service_ms, mismatched = [], []
+    for i, frame in enumerate(frames):
+        t1 = time.perf_counter()
+        det = service.detect_sync(engine, frame)
+        body = service.response_dict(det, str(i))
+        service_ms.append((time.perf_counter() - t1) * 1e3)
+        if not same_detections(_Response.rest(body), direct[i]) \
+                or body["image_size"] != list(DEPLOY_RAW_HW):
+            mismatched.append(f"single {i}")
+    engine.stop_batcher()
+    batch = frames[:DEPLOY_BATCH]
+    t1 = time.perf_counter()
+    bodies = service.batch_responses(engine, batch, [DEPLOY_RAW_HW] * DEPLOY_BATCH)
+    batch_ms = (time.perf_counter() - t1) * 1e3
+    as_batch = engine.infer_batch(batch)
+    default_threshold = cfg.postprocessing.score_threshold
+    batch_vs_single = []
+    for i, body in enumerate(bodies):
+        got = _Response.rest(body)
+        if not same_detections(got, as_batch[i]):
+            mismatched.append(f"batch {i} against infer_batch")
+        # Printed, not held: bucket 4's graph is another computation than
+        # bucket 1's (other cuDNN algorithms, other bf16 roundings), and with
+        # these weights most scores saturate near 1, so the candidates that
+        # reach the NMS differ between the two.
+        batch_vs_single.append(cross_bucket(got, direct[i], default_threshold))
+    core = service.DetectionService(engine)
+    ping = core.command("ping", {})
+    status = core.command("get_status", {})
+    probe = frames[0]
+    before = engine.infer(probe)
+    # The new threshold: the probe's middle score (a value the card holds
+    # exactly), so that about half of its detections must go.
+    threshold = float(np.sort(before.scores)[len(before) // 2])
+    update = core.command("update_config", {"score_threshold": repr(threshold)})
+    rebuilt = engine.replays == {}
+    t1 = time.perf_counter()
+    after = engine.infer(probe)  # recaptures the bucket-1 raw graph
+    recapture_s = time.perf_counter() - t1
+    keep = before.scores >= threshold
+    expected = _Response(before.boxes[keep], before.scores[keep], before.classes[keep],
+                         before.image_size)
+    threshold_ok = (rebuilt and same_detections(after, expected) and int((~keep).sum()) > 0
+                    and (len(after) == 0 or float(after.scores.min()) >= threshold))
+    core.command("update_config", {"score_threshold": repr(default_threshold)})
+    engine.warmup(cfg.performance.warmup_raw_shapes)
+    row = {"phase": "deployment_requests", "singles": DEPLOY_SINGLES, "batch": DEPLOY_BATCH,
+           "detections": sum(len(d) for d in direct),
+           "service_ms_p50": float(np.percentile(service_ms, 50)),
+           "service_ms_max": float(np.max(service_ms)), "batch_ms": batch_ms,
+           "batch_vs_single": batch_vs_single,
+           "ping": ping["message"], "get_status_keys": len(status["data"]),
+           "update_config": update["message"], "new_threshold": threshold,
+           "graphs_dropped": rebuilt, "recapture_s": recapture_s,
+           "probe_before": len(before), "probe_after": len(after),
+           "threshold_applied": threshold_ok, "mismatched": mismatched,
+           "engine_setup_s": setup_s, "card": card}
+    print(json.dumps(row), flush=True)
+    if mismatched or not threshold_ok or ping["message"] != "pong" or not status["success"]:
+        fail(f"deployment requests: {row}")
+
+    # The same requests over a live REST server and a live gRPC server.
+    blobs = [cv2.imencode(".jpg", f)[1].tobytes() for f in frames]
+    decoded = [decode_jpeg(b, IMAGE) for b in blobs]
+    want = [engine.infer(d) for d in decoded]
+    mismatched = []
+    engine.start_batcher()
+    url, stop_rest = _serve_rest(VisionAPIServer(engine))
+    rest_ms = []
+    try:
+        for i, blob in enumerate(blobs):
+            t1 = time.perf_counter()
+            body = _post(url + "/detect", {"image_base64": base64.b64encode(blob).decode()})
+            rest_ms.append((time.perf_counter() - t1) * 1e3)
+            if not same_detections(_Response.rest(body), want[i]) \
+                    or body["image_size"] != list(DEPLOY_RAW_HW):
+                mismatched.append(f"rest {i}")
+        body = _post(url + "/detect/batch", {"images_base64": [
+            base64.b64encode(b).decode() for b in blobs[:DEPLOY_BATCH]]})
+        as_batch = engine.infer_batch(decoded[:DEPLOY_BATCH])
+        for i, res in enumerate(body["results"]):
+            if not same_detections(_Response.rest(res), as_batch[i]):
+                mismatched.append(f"rest batch {i}")
+        import urllib.request
+
+        with urllib.request.urlopen(url + "/health", timeout=60) as resp:
+            health = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+            metrics_ok = b"hvs_requests_total" in resp.read()
+    finally:
+        stop_rest()
+        engine.stop_batcher()
+    grpc_server = RobotGRPCServer(engine, host="127.0.0.1", port=0)
+    client = RobotVisionClient(f"127.0.0.1:{grpc_server.start()}")
+    grpc_ms = []
+    try:
+        for i, blob in enumerate(blobs):
+            t1 = time.perf_counter()
+            resp = client.detect(blob, request_id=str(i))
+            grpc_ms.append((time.perf_counter() - t1) * 1e3)
+            if resp.error or resp.request_id != str(i) \
+                    or not same_detections(_Response.grpc(resp), want[i]):
+                mismatched.append(f"grpc {i}")
+        streamed = list(client.detect_batch(iter(blobs[:DEPLOY_BATCH])))
+        for i, resp in enumerate(streamed):
+            if not same_detections(_Response.grpc(resp), want[i]):
+                mismatched.append(f"grpc stream {i}")
+        grpc_ping = client.command("ping").message
+        grpc_status = client.command("get_status")
+    finally:
+        client.close()
+        grpc_server.stop()
+    row = {"phase": "deployment_servers", "rest_ms_p50": float(np.percentile(rest_ms, 50)),
+           "rest_ms_max": float(np.max(rest_ms)), "grpc_ms_p50": float(np.percentile(grpc_ms, 50)),
+           "grpc_ms_max": float(np.max(grpc_ms)), "rest_health": health["status"],
+           "metrics": metrics_ok, "grpc_ping": grpc_ping,
+           "grpc_requests_served": grpc_status.data.get("requests_served"),
+           "mismatched": mismatched, "card": card}
+    print(json.dumps(row), flush=True)
+    if mismatched or health["status"] != "healthy" or not metrics_ok or grpc_ping != "pong" \
+            or len(streamed) != DEPLOY_BATCH:
+        fail(f"deployment servers: {row}")
+
+    # 2. Export, load, consistency; kernel A's launches per call of the program.
+    workdir = tempfile.mkdtemp(prefix="hvs_deploy_")
+    try:
+        exporter = ModelExporter(engine.model, IMAGE)
+        path = os.path.join(workdir, "model.pt2")
+        t1 = time.perf_counter()
+        exporter.export_program(path, batch=1)
+        export_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        program = exporter.load_program(path)
+        load_s = time.perf_counter() - t1
+        x = exporter.example_input(1)
+        calls = 3
+        zero_counts()
+        with torch.no_grad():
+            for _ in range(calls):
+                program(x)
+        torch.cuda.synchronize()
+        program_launches = mhc_mod.launches
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            for _ in range(10):
+                program(x)
+            torch.cuda.synchronize()
+        program_ms = (time.perf_counter() - t1) / 10 * 1e3
+        entry = engine._serve_fn(1)
+        with engine._serve_lock, torch.cuda.stream(engine._stream):
+            entry.run(engine._stream)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(10):
+                entry.run(engine._stream)
+            torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t1) / 10 * 1e3
+        report = exporter.consistency_check(path, rtol=EXPORT_RTOL, batch=1)
+        with torch.no_grad():
+            boxes, scores, classes = program(x)
+        row = {"phase": "deployment_export", "export_s": export_s, "load_s": load_s,
+               "pt2_mb": os.path.getsize(path) / 2**20, "program_ms_b1": program_ms,
+               "engine_b1_replay_ms": replay_ms, "calls": calls,
+               "mhc_block_launches": program_launches,
+               "mhc_block_nodes": sum("hvs.mhc_block" in str(n.target)
+                                      for n in program.graph.nodes),
+               "valid_detections": int((scores >= 0).sum()), **report,
+               "rtol": EXPORT_RTOL, "atol": EXPORT_ATOL, "card": card}
+        print(json.dumps(row), flush=True)
+        if program_launches != KERNEL_SITES * calls or not report["consistent"] \
+                or tuple(boxes.shape) != (1, 100, 4) or classes.dtype != torch.int32:
+            fail(f"deployment export: {row}")
+        del program
+
+        # 3. The gated repository: version 1 (seed-1 weights) passes the gate,
+        # version 2 fails it; the swap against a fresh engine on the seed-1
+        # weights (its own raw graph at bucket 1).
+        ref_cfg = InferenceConfig()
+        ref_cfg.preprocessing.image_size = IMAGE
+        ref_cfg.performance.batch_buckets = (1,)
+        ref_engine = InferenceEngine(ModelConfig(), ref_cfg,
+                                     variables={"params": conditioned_params(1)})
+        ref_engine.register_raw_shape(DEPLOY_RAW_HW, buckets=(1,))
+        root = os.path.join(workdir, "repository")
+        publisher = ModelServerManager(ref_engine, ServingModelConfig(image_size=IMAGE),
+                                       RegistryGate())
+        v1 = publisher.build_repository(root, 1, metrics=GATE_PASS)
+        v2 = publisher.build_repository(root, 2, metrics=GATE_FAIL)
+        ref_probe = ref_engine.infer(probe)
+        del ref_engine, publisher
+        manager = ModelServerManager(engine, ServingModelConfig(image_size=IMAGE), RegistryGate())
+        old_probe = engine.infer(probe)
+        zero_counts()
+        t1 = time.perf_counter()
+        loaded = manager.load_from_repository(root)
+        torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t1
+        b_launches = sink_mod.launches_forward
+        try:
+            manager.load_from_repository(root, version=2)
+            refused = False
+        except RuntimeError:
+            refused = True
+        new_probe = engine.infer(probe)
+        row = {"phase": "deployment_repository", "v1_admitted": v1["admitted"],
+               "v2_admitted": v2["admitted"], "v2_failures": v2["failures"],
+               "loaded": loaded, "v2_refused": refused, "load_and_swap_s": swap_s,
+               "sinkhorn_launches_per_reload": b_launches,
+               "swapped_equals_fresh_engine": same_detections(new_probe, ref_probe),
+               "old_new_differ": not same_detections(old_probe, ref_probe), "card": card}
+        print(json.dumps(row), flush=True)
+        if not (v1["admitted"] and not v2["admitted"] and loaded == 1 and refused
+                and row["swapped_equals_fresh_engine"] and row["old_new_differ"]
+                and b_launches == len(SINKHORN_MIX)):
+            fail(f"deployment repository: {row}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 4. Health, over a fresh metrics window of steady-state requests (the
+    # captures and recaptures above are not serving latency).
+    engine.metrics.reset()
+    for frame in frames:
+        engine.infer(frame)
+    checker = HealthChecker(engine)
+    health = checker.run_checks()
+    free, total = torch.cuda.mem_get_info(engine.device)
+    device = next(c for c in checker.checkers[0].check() if c.name == "device")
+    checks = {c["name"]: c["status"] for c in health["checks"]}
+    row = {"phase": "deployment_health", "rollup": health["status"], "checks": health["checks"],
+           "memory_fraction": device.data.get("memory_fraction"),
+           "mem_get_info_fraction": 1.0 - free / total, "card": card}
+    print(json.dumps(row), flush=True)
+    if any(checks.get(n) != "healthy" for n in ("model_loaded", "device", "latency")) \
+            or not math.isclose(device.data.get("memory_fraction", -1.0), 1.0 - free / total,
+                                abs_tol=1e-3):
+        fail(f"deployment health: {row}")
+    return {"mhc_block_exported": program_launches, "sinkhorn_per_reload": b_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1724,6 +2153,7 @@ def main() -> None:
     serve_launches = entry_point_phase(phase_serve, defaults, card)
     entry_point_phase(phase_parity, defaults, card)
     entry_point_phase(phase_engine, defaults, card)
+    deployment = entry_point_phase(phase_deployment, defaults, card)
     train_launches = entry_point_phase(phase_train, defaults, card)
     chunked_launches = entry_point_phase(phase_train_chunked, defaults, card)
     entry_point_phase(phase_train_parity, defaults, card)
@@ -1732,7 +2162,8 @@ def main() -> None:
 
     print(card)
     print(json.dumps({"kernels": [
-        kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"]),
+        kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"],
+                       deployment["mhc_block_exported"]),
         *sinkhorn_summary({**sink_rows, **light["b_rows"]}, [sink_mix, light["b_mix"]],
                           train_launches, chunked_launches, multitask_launches),
         unfolded_summary(unfolded_rows, train_launches["mhc_block_unfolded"],

@@ -371,9 +371,13 @@ class InferenceEngine:
 
     def rebuild_serve_fns(self) -> None:
         """Drop every captured graph after a config change whose values are
-        baked into them (thresholds, NMS settings); the next call recaptures."""
+        baked into them (thresholds, NMS settings); the next call recaptures.
+        The recaptures go into a new memory pool: once the last graph of a
+        pool is gone, torch does not let a capture reuse it."""
         with self._serve_lock:
             self._serve_fns = {}
+            if self._pool is not None:
+                self._pool = torch.cuda.graph_pool_handle()
 
     # ------------------------------------------------------------------
     def _make_serve(self, src_hw: Optional[Tuple[int, int]]):

@@ -4,7 +4,7 @@ Counterpart of the serve program that ``bench.py`` measures: the flagship
 forward with the mHC constraints computed once at load, on-device decode,
 class-aware fixed-shape NMS, and fixed-K boxes, scores and classes. The
 bucketed engine with its letterbox is ``inference/engine.py``; the network
-servers are not ported yet.
+servers and the exported program are ``deployment/``.
 """
 
 from __future__ import annotations

@@ -377,8 +377,10 @@ class ManifoldHyperConnection(nn.Module):
             )
         dt = self.dtype
         if self.fused:
+            # contiguous(): a no-op on the tensors an eager forward makes; under
+            # torch.export the traced strides can differ from them.
             out = mhc_block(
-                x_in.reshape(-1, self.dim), self.w1_folded, self.mlp_in_bias,
+                x_in.reshape(-1, self.dim).contiguous(), self.w1_folded, self.mlp_in_bias,
                 self.mlp_out_kernel.to(dt), self.mlp_out_bias, self.h_post, self.h_res,
                 self.norm_pre_scale, self.norm_pre_bias,
                 self.norm_post_scale, self.norm_post_bias,

@@ -103,14 +103,17 @@ UNFOLDED_OPERANDS = ("h_pre", "w1") + SERVE_OPERANDS[1:]
 _VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
 
 
-def _check(x, names, args) -> None:
+def _check(x, names, args, addresses: bool = True) -> None:
+    """The kernel's contract on x and its operands: dtypes, shapes, devices,
+    contiguity, and (with ``addresses``; a fake tensor has none) 16-byte
+    alignment of x and the matrices."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"mhc_block kernel takes bf16 x, got {x.dtype}")
     if x.dim() != 2 or x.shape[1] not in SUPPORTED_WIDTHS:
         raise ValueError(
             f"mhc_block kernel takes x [N, d] with d in {SUPPORTED_WIDTHS}, got {tuple(x.shape)}"
         )
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    if not x.is_contiguous() or (addresses and x.data_ptr() % 16):
         raise ValueError("mhc_block kernel takes a contiguous, 16-byte aligned x")
     d = x.shape[1]
     for name, t in zip(names, args):
@@ -122,7 +125,7 @@ def _check(x, names, args) -> None:
                     f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
                 )
         elif t.device != x.device or t.dtype != torch.bfloat16 or t.shape != (d, d) \
-                or not t.is_contiguous() or t.data_ptr() % 16:
+                or not t.is_contiguous() or (addresses and t.data_ptr() % 16):
             raise ValueError(
                 f"mhc_block kernel takes {name} as a contiguous [{d}, {d}] bf16 tensor on "
                 f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
@@ -167,23 +170,53 @@ def _launch(entry: str, x: torch.Tensor, names, args,
     return out
 
 
-def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,
-              ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
-    """Fused serve-path mHC block on ``x`` [N, d].
+# Serve mode as the operator ``hvs::mhc_block``, so that PyTorch knows it:
+# ``torch.export`` traces through its fake version and records the operator
+# in the program, and a loaded program launches the kernel through its CUDA
+# version. The CPU version is the plain one. Registered through
+# ``torch.library.Library`` rather than ``custom_op``, whose Python wrapper
+# cost ~20 us more host time per call on an H100 host
+# (scripts/torch_mhc_op_overhead.py).
+_LIB = torch.library.Library("hvs", "DEF")
+_LIB.define("mhc_block(Tensor x, Tensor w1_folded, Tensor b1, Tensor w2, Tensor b2, "
+            "Tensor h_post, Tensor h_res, Tensor ln1_scale, Tensor ln1_bias, "
+            "Tensor ln2_scale, Tensor ln2_bias) -> Tensor")
 
-    A CPU ``x`` takes the plain version. A CUDA ``x`` must be bf16 and
-    contiguous, the matrices [d, d] bf16 and the vectors [d] fp32 on the same
-    device; the kernel is launched on the current stream, or this raises.
-    """
-    if x.device.type == "cpu":
-        return mhc_block_plain(x, w1_folded, b1, w2, b2, h_post, h_res,
-                               ln1_scale, ln1_bias, ln2_scale, ln2_bias)
+
+def _mhc_block_cuda(x, w1_folded, b1, w2, b2, h_post, h_res,
+                    ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
     out = _launch("hvs_mhc_block", x, SERVE_OPERANDS,
                   (w1_folded, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias, ln2_scale,
                    ln2_bias))
     global launches
     launches += 1
     return out
+
+
+def _mhc_block_fake(x, w1_folded, b1, w2, b2, h_post, h_res,
+                    ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
+    _check(x, SERVE_OPERANDS, (w1_folded, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias,
+                               ln2_scale, ln2_bias), addresses=False)
+    return torch.empty_like(x)
+
+
+_LIB.impl("mhc_block", _mhc_block_cuda, "CUDA")
+_LIB.impl("mhc_block", mhc_block_plain, "CPU")
+torch.library.register_fake("hvs::mhc_block", _mhc_block_fake, lib=_LIB)
+mhc_block_op = torch.ops.hvs.mhc_block.default
+
+
+def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,
+              ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
+    """Fused serve-path mHC block on ``x`` [N, d], through ``hvs::mhc_block``.
+
+    A CPU ``x`` takes the plain version. A CUDA ``x`` must be bf16 and
+    contiguous, the matrices [d, d] bf16 and the vectors [d] fp32 on the same
+    device; the kernel is launched on the current stream, or this raises.
+    ``launches`` counts each launch, from here or from an exported program.
+    """
+    return mhc_block_op(x, w1_folded, b1, w2, b2, h_post, h_res,
+                        ln1_scale, ln1_bias, ln2_scale, ln2_bias)
 
 
 def mhc_block_unfolded(x, h_pre, w1, b1, w2, b2, h_post, h_res,

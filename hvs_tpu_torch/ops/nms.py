@@ -55,15 +55,17 @@ def _greedy_fixed_point(suppress: torch.Tensor, valid: torch.Tensor) -> torch.Te
     on 0/1 values, exact in fp16 up to 2048 candidates (fp32 on the CPU).
     Eagerly the loop stops at the fixed point (typically a few sweeps; each
     check waits on the device). Inside a CUDA graph capture nothing may wait
-    on the host, so all M sweeps are captured: sweeps past the fixed point
-    change nothing, and M bounds the depth of any suppression chain.
+    on the host, and ``torch.export`` cannot trace a check of the data, so
+    both run all M sweeps: sweeps past the fixed point change nothing, and M
+    bounds the depth of any suppression chain.
     """
     m = valid.shape[-1]
     dtype = torch.float16 if valid.is_cuda and m <= 2048 else torch.float32
     supp = suppress.to(dtype).reshape(-1, m, m)
     valid_f = valid.to(dtype).reshape(-1, 1, m)
     keep = valid_f
-    if valid.is_cuda and torch.cuda.is_current_stream_capturing():
+    if torch.compiler.is_exporting() or (valid.is_cuda
+                                         and torch.cuda.is_current_stream_capturing()):
         for _ in range(m):
             keep = torch.baddbmm(valid_f, keep, supp, alpha=-1).clamp_(min=0)
     else:

@@ -769,3 +769,81 @@ def test_lightweight_detector_launches_kernel_a_at_its_six_sites():
     assert mhc_mod.launches == before + 6
     assert boxes.shape == (2, 100, 4) and classes.dtype == torch.int32
     assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
+
+
+# ---------------------------------------------------------------------------
+# Kernel A as the operator hvs::mhc_block: captured in a graph, exported
+
+
+@pytest.mark.gpu
+def test_mhc_block_operator_captures_in_a_graph():
+    """The operator is capturable: a replay gives the eager launch's bits,
+    and the counter counts the launch at capture, not at replay."""
+    _need_card()
+    x, args = _cuda_inputs(5000, 128, seed=3)
+    eager = mhc_mod.mhc_block(x, *args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mhc_mod.mhc_block(x, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = mhc_mod.launches
+    with torch.cuda.graph(graph):
+        out = torch.ops.hvs.mhc_block(x, *args)
+    assert mhc_mod.launches == before + 1
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert mhc_mod.launches == before + 1
+    assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_exported_program_launches_kernel_a_at_every_site(tmp_path):
+    """``ModelExporter`` on the card: the saved program records one
+    ``hvs::mhc_block`` per fused site, each call of the loaded program
+    launches the kernel at every site, and its outputs equal the serve
+    function's."""
+    from hvs_tpu_torch.deployment.model_server import ModelExporter
+
+    _need_card()
+    engine = _tiny_card_engine()
+    exporter = ModelExporter(engine.model, image_size=64)
+    path = exporter.export_program(str(tmp_path / "model.pt2"), batch=2)
+    program = exporter.load_program(path)
+    nodes = sum("hvs.mhc_block" in str(n.target) for n in program.graph.nodes)
+    assert nodes == engine.kernel_sites >= 4
+    x = exporter.example_input(2)
+    before = mhc_mod.launches
+    with torch.no_grad():
+        got = program(x)
+        program(x)
+        torch.cuda.synchronize()
+        assert mhc_mod.launches == before + 2 * engine.kernel_sites
+        want = exporter._serve_fn()(x)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert exporter.consistency_check(path, batch=2)["consistent"]
+
+
+@pytest.mark.gpu
+def test_engine_recaptures_after_rebuild_serve_fns():
+    """A config change drops every graph (``rebuild_serve_fns``); the next
+    call captures anew, in a new memory pool, and reads the new threshold."""
+    _need_card()
+    engine = _tiny_card_engine()
+    engine.warmup()
+    frame = _frames(6, 1, 64, 64)[0]
+    before = engine.infer(frame)
+    threshold = float(np.sort(before.scores)[len(before) // 2])
+    engine.config.postprocessing.score_threshold = threshold
+    engine.rebuild_serve_fns()
+    assert engine.replays == {}
+    after = engine.infer(frame)
+    assert engine.replays == {1: 1}
+    keep = before.scores >= threshold
+    assert 0 < len(after) == int(keep.sum()) < len(before)
+    np.testing.assert_array_equal(after.classes, before.classes[keep])
+    np.testing.assert_allclose(after.scores, before.scores[keep], atol=1e-6)
+    engine.warmup()

@@ -127,7 +127,8 @@ _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|hvs_tpu)(\.
 def test_port_imports_no_jax():
     """Importing every module of the port, its subpackages included (and
     chip_smoke.py), leaves jax, flax, optax, orbax and hvs_tpu out of
-    sys.modules; no source line imports them."""
+    sys.modules; no source line of them, or of the port's card scripts
+    (scripts/torch_*.py), imports them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import hvs_tpu_torch, chip_smoke\n"
@@ -142,6 +143,9 @@ def test_port_imports_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     sources = [os.path.join(REPO, "chip_smoke.py")]
+    sources += [os.path.join(REPO, "scripts", f) for f in os.listdir(os.path.join(REPO, "scripts"))
+                if f.startswith("torch_") and f.endswith(".py")]
+    assert len(sources) >= 7
     for root, _, files in os.walk(os.path.join(REPO, "hvs_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:
