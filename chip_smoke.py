@@ -86,11 +86,22 @@ Phases, each of which fails the run with a non-zero exit:
      CUDA against CPU at 320²; kernel A at its 6 sites of both batches, and
      kernel B forward and backward at the bottleneck widths 24, 48, 96 and
      192 and over its 13 matrices in one grouped call, against their plain
-     versions.
+     versions;
+ 12. data: the data and evaluation layer through its entry points: a shapes
+     dataset generated at 640² (8 classes) and a dense one at 320², each
+     split's JSON held against its files and an image regenerated alone;
+     both decoded (``load_coco_arrays``) and uploaded, the card's tensors
+     equal to the host arrays; ``train_device``, ``train`` (through
+     ``COCODataModule``: the host loader's batches/s beside the eager step)
+     and ``train_multitask`` trained from those files (B 15 + 10 per step,
+     C 18 per validation batch); ``evaluate`` of the val split with the
+     ``train_device`` checkpoint (A at 18 per replay, each image's
+     detections equal to ``engine.infer`` of its frame, the evaluator's
+     numbers equal to a recomputation, the ``--synthetic`` self-check at 1.0).
 The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
-entry point (3-11) and fails unless they are pinned after it; the plain
+entry point (3-12) and fails unless they are pinned after it; the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -99,6 +110,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -151,6 +163,16 @@ MULTITASK_PARAMS = 19_964_711
 LIGHT_SITES = 6
 LIGHT_WIDTHS = (24, 48, 96, 192)
 LIGHT_MIX = [24] + [48] * 2 + [96] * 2 + [128] * 6 + [192] + [256]
+# The data phase: the shapes benchmark at 640² (8 classes, seed 0) and its
+# dense form at 320², generated, decoded, uploaded, trained from (train_device
+# at 640² batch 8 for 2 chunks of 10; train for one epoch at 416² batch 8;
+# train_multitask at 320² batch 8 for 2 chunks of 10) and evaluated at 640².
+# Cut: 96 + 32 images at 640² and 32 + 16 at 320² (the reference's benchmark
+# has 4,000 + 500), 20 steps per trainer, for the script's time limit.
+DATA_IMAGE, DATA_CLASSES, DATA_BOXES, DATA_TRAIN, DATA_VAL = 640, 8, 16, 96, 32
+DATA_DENSE_IMAGE, DATA_DENSE_TRAIN, DATA_DENSE_VAL = 320, 32, 16
+DATA_CHUNKS, DATA_CHUNK_STEPS = 2, 10
+DATA_TRAIN_IMAGE, DATA_TRAIN_BATCH = 416, 8
 # Kernels A and C over their 18 sites before the tensor-core redesign, as
 # recorded in PERF.md's kernel table (ms, NVIDIA H100 80GB HBM3, 700 W); a
 # constant, not measured in this run.
@@ -2127,6 +2149,342 @@ def phase_lightweight(card: str, sm_clock_hz: float) -> dict:
     return {"mhc_block": launches, "a_rows": a_rows, "b_rows": b_rows, "b_mix": b_mix}
 
 
+# ---------------------------------------------------------------------------
+# The data and evaluation layer
+
+
+def shapes_split_checks(root: str, split: str, count: int, size: int, seed: int,
+                        dense: bool, regenerate: int) -> dict:
+    """The annotation JSON of a generated split against its files (every
+    image listed is on disk at its stated size, nothing else is, every box
+    lies in the frame with a category of the taxonomy), and image
+    ``regenerate`` made again alone from its own stream: the same boxes and
+    labels as the JSON and the same JPEG bytes (and mask and depth PNGs)."""
+    import cv2
+
+    from hvs_tpu_torch.data.shapes import generate_image
+
+    with open(f"{root}/annotations/instances_{split}.json") as f:
+        ann = json.load(f)
+    names = {im["file_name"] for im in ann["images"]}
+    ids = {im["id"] for im in ann["images"]}
+    on_disk = set(os.listdir(f"{root}/{split}"))
+    sized = all((im["width"], im["height"]) == (size, size) for im in ann["images"])
+    boxes_ok = all(a["image_id"] in ids and 1 <= a["category_id"] <= DATA_CLASSES
+                   and a["bbox"][0] >= 0 and a["bbox"][1] >= 0
+                   and a["bbox"][0] + a["bbox"][2] <= size
+                   and a["bbox"][1] + a["bbox"][3] <= size and a["area"] > 0
+                   for a in ann["annotations"])
+    first = cv2.imread(f"{root}/{split}/{sorted(names)[0]}")
+    stream_seed = seed if split == "train" else seed + 1_000_003
+    rng = np.random.default_rng(np.random.SeedSequence([stream_seed, regenerate]))
+    out = generate_image(rng, size=size, with_dense=dense, num_classes=DATA_CLASSES)
+    img, boxes, labels = out[:3]
+    info = ann["images"][regenerate]
+    mine = [a for a in ann["annotations"] if a["image_id"] == info["id"]]
+    clip = np.clip(np.stack([boxes[:, 0], boxes[:, 1], boxes[:, 0] + boxes[:, 2],
+                             boxes[:, 1] + boxes[:, 3]], 1).astype(np.float64), 0, size)
+    want_boxes = [[float(x1), float(y1), float(x2 - x1), float(y2 - y1)]
+                  for x1, y1, x2, y2 in clip]
+    jpeg = cv2.imencode(".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR),
+                        [cv2.IMWRITE_JPEG_QUALITY, 92])[1].tobytes()
+    with open(f"{root}/{split}/{info['file_name']}", "rb") as f:
+        same_jpeg = f.read() == jpeg
+    same_dense = True
+    if dense:
+        stem = info["file_name"].replace(".jpg", ".png")
+        seg = cv2.imread(f"{root}/masks/{split}/{stem}", cv2.IMREAD_UNCHANGED)
+        depth = cv2.imread(f"{root}/depth/{split}/{stem}", cv2.IMREAD_UNCHANGED)
+        same_dense = (np.array_equal(seg, out[3]) and np.array_equal(
+            depth, np.clip(out[4] * 1000.0, 0, 65535).astype(np.uint16)))
+    row = {"split": split, "images": len(ann["images"]), "boxes": len(ann["annotations"]),
+           "files_match_json": on_disk == names and len(names) == count,
+           "sizes_ok": sized and first is not None and first.shape == (size, size, 3),
+           "boxes_ok": boxes_ok, "regenerated": regenerate,
+           "regenerated_boxes_equal": [a["bbox"] for a in mine] == want_boxes,
+           "regenerated_labels_equal": [a["category_id"] for a in mine]
+           == [int(c) + 1 for c in labels],
+           "regenerated_jpeg_equal": same_jpeg, "regenerated_dense_equal": same_dense}
+    if not all(v for k, v in row.items() if k not in ("split", "images", "boxes",
+                                                      "regenerated")):
+        fail(f"data: the generated {split} split of {root} fails its checks: {row}")
+    return row
+
+
+def upload_checks(host, data) -> dict:
+    """Each tensor on the card equal to its host array, dtype included."""
+    same = [t.device.type == "cuda" and t.dtype == torch.from_numpy(a).dtype
+            and torch.equal(t.cpu(), torch.from_numpy(a)) for t, a in zip(data, host)]
+    if len(same) != len(host) or not all(same):
+        fail(f"data: uploaded tensors differ from the host arrays: {same}")
+    return {"tensors_equal_host": len(same)}
+
+
+def add_replayed(launches: dict, *graphs) -> None:
+    """Add each captured graph's launches times its replays to ``launches``."""
+    for g in graphs:
+        for k in launches:
+            launches[k] += g.launches.get(k, 0) * g.replays
+
+
+def phase_data(card: str) -> dict:
+    """The data and evaluation layer, through the entry points, at full width:
+      1. generate (``python -m hvs_tpu_torch.make_shapes_dataset``) a shapes
+         dataset at 640², 8 classes, seed 0, and a dense one at 320²; hold
+         each split's JSON against its files and one image regenerated alone;
+      2. decode both with ``load_coco_arrays`` and upload them
+         (``put_device_data``, ``put_dense_data``); hold the card's tensors
+         equal to the host arrays;
+      3. train from disk: ``train_device`` at 640² batch 8 for 2 chunks of 10
+         (B 15 + 10 per captured step, C 18 and B 5 per validation batch; its
+         checkpoint kept), ``train`` for one epoch at 416² batch 8 through
+         ``COCODataModule`` (the host loader's batches/s beside the eager
+         step), ``train_multitask`` for 2 chunks of 10 at 320²;
+      4. evaluate (``hvs_tpu_torch.evaluate``) the val split at 640² with the
+         ``train_device`` checkpoint: A at 18 per replay, each image's
+         detections bitwise equal to ``engine.infer`` of its frame, the
+         evaluator's numbers equal to a recomputation from them, and the
+         ``--synthetic`` self-check at 1.0.
+    Returns the launches of the path (counted launches of the eager run,
+    each captured graph's launches times its replays)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from hvs_tpu_torch import evaluate, make_shapes_dataset, train, train_device, \
+        train_multitask
+    from hvs_tpu_torch.config import TrainingConfig
+    from hvs_tpu_torch.data import (COCODataModule, generate_shapes_dataset, load_coco_arrays,
+                                    put_dense_data, put_device_data)
+    from hvs_tpu_torch.inference.engine import WARMUP_CALLS
+    from hvs_tpu_torch.utils import DetectionEvaluator
+
+    n_widths = len(set(SINKHORN_MIX))
+    want_step = {"mhc_block": 0, "mhc_block_unfolded": 0, "sinkhorn_forward": 3 * n_widths,
+                 "sinkhorn_backward": 2 * n_widths}
+    want_val = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES,
+                "sinkhorn_forward": n_widths, "sinkhorn_backward": 0}
+    launches = {k: 0 for k in want_step}
+    workdir = tempfile.mkdtemp(prefix="hvs_data_smoke_")
+    root, dense_root = f"{workdir}/shapes640", f"{workdir}/shapes320_dense"
+    try:
+        # 1. Generate.
+        gen = {}
+        for where, size, n_train, n_val, dense in (
+                (root, DATA_IMAGE, DATA_TRAIN, DATA_VAL, False),
+                (dense_root, DATA_DENSE_IMAGE, DATA_DENSE_TRAIN, DATA_DENSE_VAL, True)):
+            t0 = time.perf_counter()
+            if dense:  # what train_multitask generates when its data root is absent
+                generate_shapes_dataset(where, num_train=n_train, num_val=n_val, size=size,
+                                        seed=0, with_dense=True)
+            else:
+                make_shapes_dataset.main(["--root", where, "--train", str(n_train), "--val",
+                                          str(n_val), "--size", str(size), "--seed", "0"])
+            seconds = time.perf_counter() - t0
+            checks = [shapes_split_checks(where, split, n, size, 0, dense, n - 1)
+                      for split, n in (("train", n_train), ("val", n_val))]
+            gen[size] = {"images": n_train + n_val, "seconds": seconds,
+                         "s_per_image": seconds / (n_train + n_val), "dense": dense,
+                         "checks": checks}
+        print(json.dumps({"phase": "data_generate", **{str(k): v for k, v in gen.items()},
+                          "card": card}), flush=True)
+
+        # 2. Load: decode on the host, upload, hold the card's copy.
+        t0 = time.perf_counter()
+        host = load_coco_arrays(root, "train", max_boxes=DATA_BOXES)
+        dense_host = load_coco_arrays(dense_root, "train", max_boxes=DATA_BOXES, dense=True)
+        decode_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = put_device_data(*host)
+        dense = put_dense_data(*dense_host)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        nbytes = sum(a.nbytes for a in host) + sum(a.nbytes for a in dense_host)
+        row = {"phase": "data_load", "images": len(host[0]) + len(dense_host[0]),
+               "decode_s": decode_s, "upload_s": upload_s, "bytes": nbytes,
+               "upload_gb_per_s": nbytes / upload_s / 1e9,
+               **upload_checks(host, data), "dense": upload_checks(dense_host, dense),
+               "card": card}
+        print(json.dumps(row), flush=True)
+        del data, dense
+
+        # 3a. train_device from disk, one size, 2 chunks; its checkpoint kept.
+        run_dir = f"{workdir}/run"
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer, summary = train_device.run(train_device.parse_args([
+            "--data-root", root, "--num-classes", str(DATA_CLASSES), "--train-sizes",
+            str(DATA_IMAGE), "--max-boxes", str(DATA_BOXES), "--total-steps",
+            str(DATA_CHUNKS * DATA_CHUNK_STEPS), "--chunk-steps", str(DATA_CHUNK_STEPS),
+            "--val-every-chunks", str(DATA_CHUNKS), "--eig-every-chunks", str(DATA_CHUNKS),
+            "--run-dir", run_dir]))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        (size, chunk), = trainer.chunks.items()
+        val = trainer.val_chunk
+        with open(f"{run_dir}/steps.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        row = {"phase": "data_train_device", "image": size, "batch": chunk.batch_size,
+               "steps": summary["steps"], "wall_s": wall_s,
+               "ms_per_step": [t["wall_ms"] / DATA_CHUNK_STEPS for t in chunk.timings],
+               "capture_s": chunk.capture_s, "val_batches": val.n_batches,
+               "loss_first": log[0]["loss"], "loss_last": log[-1]["loss"],
+               "best_val_loss": summary["best_val_loss"], "launches_per_step": chunk.launches,
+               "replays": chunk.replays, "launches_per_val_batch": val.launches,
+               "val_replays": val.replays, "card": card}
+        print(json.dumps(row), flush=True)
+        steps = DATA_CHUNKS * DATA_CHUNK_STEPS
+        if (chunk.launches, chunk.replays, summary["steps"]) != (want_step, steps, steps) \
+                or (val.launches, val.replays) != (want_val, val.n_batches):
+            fail(f"data: train_device from disk launched {row}; expected {want_step} per "
+                 f"step over {steps} replays and {want_val} per validation batch")
+        values = [r[k] for r in log for k in ("loss", "grad_norm", "ds_error_max")]
+        if len(log) != steps or not np.isfinite(values + [summary["best_val_loss"]]).all():
+            fail(f"data: train_device from disk: non-finite or missing metrics {row}")
+        add_replayed(launches, chunk, val)
+        checkpoint = f"{run_dir}/checkpoints/final"
+        del trainer, chunk, val
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3b. train through COCODataModule, one epoch, eager steps.
+        cfg_path = f"{workdir}/training.yaml"
+        tcfg = TrainingConfig(batch_size=DATA_TRAIN_BATCH, epochs=1,
+                              checkpoint_dir=f"{workdir}/ckpt", log_dir=f"{workdir}/logs",
+                              metrics_log=f"{workdir}/train_steps.jsonl")
+        tcfg.dataset.root, tcfg.dataset.train_split, tcfg.dataset.val_split = root, "train", "val"
+        tcfg.dataset.image_size, tcfg.dataset.max_boxes = DATA_TRAIN_IMAGE, DATA_BOXES
+        tcfg.save(cfg_path)
+        ds = tcfg.dataset
+        dm = COCODataModule(root=root, image_size=ds.image_size, batch_size=tcfg.batch_size,
+                            max_boxes=ds.max_boxes, num_workers=ds.num_workers,
+                            train_split="train", val_split="val",
+                            augmentation_config=tcfg.augmentation)
+        dm.setup()
+        t0 = time.perf_counter()
+        n_loaded = sum(1 for _ in dm.train_dataloader())
+        loader_batches_per_s = n_loaded / (time.perf_counter() - t0)
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = train.main(["--config", cfg_path])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        with open(tcfg.metrics_log) as f:
+            log = [json.loads(line) for line in f]
+        step_ms = [(b["time"] - a["time"]) * 1e3 for a, b in zip(log, log[1:])]
+        n_steps, n_val = DATA_TRAIN // DATA_TRAIN_BATCH, DATA_VAL // DATA_TRAIN_BATCH
+        want = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES * n_val,
+                "sinkhorn_forward": (3 * n_steps + n_val) * n_widths,
+                "sinkhorn_backward": 2 * n_widths * n_steps}
+        row = {"phase": "data_train", "image": ds.image_size, "batch": tcfg.batch_size,
+               "steps": summary["steps"], "num_classes": summary["num_classes"],
+               "wall_s": wall_s, "loader_batches_per_s": loader_batches_per_s,
+               "loader_batches": n_loaded, "step_ms_median": float(np.median(step_ms)),
+               "steps_per_s": 1e3 / float(np.median(step_ms)),
+               "loader_sets_the_pace": loader_batches_per_s < 1e3 / float(np.median(step_ms)),
+               "train_loss": summary["train_loss"], "best_val_loss": summary["best_val_loss"],
+               "launches": counts, "card": card}
+        print(json.dumps(row), flush=True)
+        if (summary["steps"], summary["num_classes"], n_loaded) != (n_steps, DATA_CLASSES,
+                                                                     n_steps) \
+                or counts != want:
+            fail(f"data: train from disk: {row}; expected {n_steps} steps of "
+                 f"{DATA_CLASSES} classes and launches {want}")
+        if not np.isfinite(summary["train_loss"] + [summary["best_val_loss"]]
+                           + [r["loss"] for r in log]).all():
+            fail(f"data: train from disk: non-finite losses {row}")
+        for k in launches:
+            launches[k] += counts[k]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3c. train_multitask from the dense dataset on disk, 2 chunks.
+        zero_counts()
+        prepared, report = train_multitask.run(train_multitask.parse_args([
+            "--data-root", dense_root, "--size", str(DATA_DENSE_IMAGE), "--steps",
+            str(DATA_CHUNKS * DATA_CHUNK_STEPS), "--chunk-steps", str(DATA_CHUNK_STEPS),
+            "--output", f"{workdir}/multitask.json"]))
+        torch.cuda.synchronize()
+        chunk, ev = prepared.chunk, prepared.evaluator
+        row = {"phase": "data_multitask", "image": chunk.out_size, "batch": chunk.batch_size,
+               "train_images": report["train_images"],
+               "ms_per_step": [t["wall_ms"] / chunk.chunk_steps for t in chunk.timings],
+               "before": report["before"], "after": {k: v for k, v in report["after"].items()
+                                                     if np.isscalar(v)},
+               "launches_per_step": chunk.launches, "replays": chunk.replays,
+               "launches_per_val_batch": ev.launches, "val_replays": ev.replays, "card": card}
+        print(json.dumps(row), flush=True)
+        if (chunk.launches, chunk.replays) != (want_step, steps) or ev.launches != want_val \
+                or ev.replays != 2 * ev.n_batches or report["train_images"] != DATA_DENSE_TRAIN:
+            fail(f"data: train_multitask from disk: {row}; expected {want_step} per step over "
+                 f"{steps} replays and {want_val} per validation batch, twice")
+        if not all(np.isfinite(v) for side in ("before", "after") for v in row[side].values()):
+            fail(f"data: train_multitask from disk: non-finite metrics {row}")
+        add_replayed(launches, chunk, ev)
+        del prepared, chunk, ev
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. Evaluate the val split with the train_device checkpoint.
+        zero_counts()
+        result = evaluate.run(evaluate.parse_args([
+            "--data-root", root, "--split", "val", "--checkpoint", checkpoint, "--image-size",
+            str(DATA_IMAGE), "--output", f"{workdir}/evaluation.json"]))
+        counts = kernel_counts()
+        engine, dets, report = result.engine, result.detections, result.report
+        replays = sum(engine.replays.values())
+        captures = len(engine.replays)
+        # The same frames again on the warm graph (the run's first image
+        # paid for the capture): decode and infer per image.
+        t0 = time.perf_counter()
+        again = [engine.infer(cv2.imread(f"{root}/val/{im['file_name']}"))
+                 for im in result.dataset.images]
+        warm_s = time.perf_counter() - t0
+        same = [np.array_equal(a.boxes, d.boxes) and np.array_equal(a.scores, d.scores)
+                and np.array_equal(a.classes, d.classes) for a, d in zip(again, dets)]
+        recomputed = DetectionEvaluator(num_classes=DATA_CLASSES)
+        for i, d in enumerate(dets):
+            recomputed.add_image(d.boxes, d.scores, d.classes,
+                                 *evaluate.ground_truth(result.dataset, i))
+        acc = {k: v for k, v in recomputed.evaluate().items() if not isinstance(v, dict)}
+        synthetic = evaluate.main(["--synthetic"])
+        row = {"phase": "data_evaluate", "image": DATA_IMAGE, "images": len(dets),
+               "seconds": result.seconds, "images_per_s": len(dets) / result.seconds,
+               "ms_per_image": result.seconds / len(dets) * 1e3,
+               "warm_ms_per_image": warm_s / len(dets) * 1e3,
+               "warm_images_per_s": len(dets) / warm_s,
+               "engine_p50_ms": report["performance"].get("p50_latency_ms"),
+               "detections": int(sum(len(d) for d in dets)),
+               "mAP@0.5": report["accuracy"]["mAP@0.5"],
+               "mAP@[.5:.95]": report["accuracy"]["mAP@[.5:.95]"],
+               "note": "figures of a 20-step checkpoint, not an accuracy",
+               "replays": replays, "graphs": captures, "kernel_sites": engine.kernel_sites,
+               "mhc_block_host_launches": counts["mhc_block"],
+               "detections_equal_infer": sum(same), "evaluator_equal_recomputed":
+               acc == report["accuracy"], "synthetic_self_check": synthetic["mAP@0.5"],
+               "p95_latency_ms": report["performance"].get("p95_latency_ms"),
+               "stability": report["stability"], "card": card}
+        print(json.dumps(row), flush=True)
+        if engine.kernel_sites != KERNEL_SITES or replays != len(dets) or captures != 1 \
+                or counts["mhc_block"] != KERNEL_SITES * (WARMUP_CALLS + 1):
+            fail(f"data: evaluate launched {row}; expected one graph with "
+                 f"{KERNEL_SITES} kernel-A sites, one replay per image")
+        if len(dets) != DATA_VAL or sum(same) != len(dets) or acc != report["accuracy"] \
+                or synthetic["mAP@0.5"] != 1.0:
+            fail(f"data: evaluate: {row}")
+        launches["mhc_block"] += replays * KERNEL_SITES
+        del engine, result, again
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
@@ -2159,16 +2517,20 @@ def main() -> None:
     entry_point_phase(phase_train_parity, defaults, card)
     multitask_launches = entry_point_phase(phase_multitask, defaults, card)
     light = entry_point_phase(phase_lightweight, defaults, card, sm_clock_hz)
+    data = entry_point_phase(phase_data, defaults, card)
 
-    print(card)
-    print(json.dumps({"kernels": [
+    kernels = [
         kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"],
                        deployment["mhc_block_exported"]),
         *sinkhorn_summary({**sink_rows, **light["b_rows"]}, [sink_mix, light["b_mix"]],
                           train_launches, chunked_launches, multitask_launches),
         unfolded_summary(unfolded_rows, train_launches["mhc_block_unfolded"],
                          chunked_launches["mhc_block_unfolded"],
-                         multitask_launches["mhc_block_unfolded"])]}))
+                         multitask_launches["mhc_block_unfolded"])]
+    for k in kernels:
+        k["launches_data"] = data[k["name"]]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,5 +1,4 @@
-"""Typed config system (counterpart of ``hvs_tpu/config``; the training
-config is not ported yet)."""
+"""Typed config system (counterpart of ``hvs_tpu/config``)."""
 
 from .base import (
     BaseConfig,
@@ -29,6 +28,15 @@ from .model import (
     RAGConfig,
     ViTConfig,
 )
+from .training import (
+    AugmentationConfig,
+    DatasetConfig,
+    DistributedConfig,
+    LossConfig,
+    OptimizerConfig,
+    SchedulerConfig,
+    TrainingConfig,
+)
 
 __all__ = [
     "BaseConfig", "Precision", "DeviceType", "from_dict",
@@ -37,4 +45,6 @@ __all__ = [
     "DetectionHeadConfig", "RAGConfig", "QuantizationConfig", "ModelConfig",
     "PreprocessingConfig", "PostprocessingConfig", "VisualizationConfig",
     "APIConfig", "GRPCConfig", "PerformanceConfig", "InferenceConfig",
+    "DatasetConfig", "AugmentationConfig", "OptimizerConfig", "SchedulerConfig",
+    "LossConfig", "DistributedConfig", "TrainingConfig",
 ]

@@ -148,10 +148,11 @@ def merge_configs(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, A
 
 
 def load_config(path: str, config_type: Optional[str] = None):
-    """Load a base, model or inference config file, the type guessed from
-    the file name when not given. (Training configs are not ported yet.)"""
+    """Load a base, model, training or inference config file, the type
+    guessed from the file name when not given."""
     from .inference import InferenceConfig
     from .model import ModelConfig
+    from .training import TrainingConfig
 
     data = _read(path)
     if config_type is None:
@@ -164,18 +165,18 @@ def load_config(path: str, config_type: Optional[str] = None):
             config_type = "model"
         else:
             config_type = "base"
-    if config_type == "training":
-        raise NotImplementedError(
-            "training configs are not ported yet (ROADMAP queue 1, item 4)")
-    mapping = {"base": BaseConfig, "model": ModelConfig, "inference": InferenceConfig}
+    mapping = {"base": BaseConfig, "model": ModelConfig, "training": TrainingConfig,
+               "inference": InferenceConfig}
     return from_dict(mapping[config_type], data)
 
 
 def create_default_configs(directory: str) -> None:
-    """Write the default model and inference configs as YAML."""
+    """Write the default model, training and inference configs as YAML."""
     from .inference import InferenceConfig
     from .model import ModelConfig
+    from .training import TrainingConfig
 
     os.makedirs(directory, exist_ok=True)
     ModelConfig().save(os.path.join(directory, "model.yaml"))
+    TrainingConfig().save(os.path.join(directory, "training.yaml"))
     InferenceConfig().save(os.path.join(directory, "inference.yaml"))

@@ -21,12 +21,15 @@ batched products with per-sample weight matrices, built as
 model's data; its batches (``dense_batch``) are gathered rows, not
 augmented, as the JAX multi-task script draws them.
 
-``load_coco_arrays`` (decoding a COCO split with cv2) waits for ROADMAP
-queue 1 item 4.
+``load_coco_arrays`` decodes a COCO-format split of square frames (the
+shapes benchmark's) into the host arrays that ``put_device_data`` and
+``put_dense_data`` upload; cv2 is imported only there.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Union
 
@@ -93,10 +96,60 @@ class AugmentDraws(NamedTuple):
 
 def load_coco_arrays(root: str, split: str, max_boxes: int = 64, limit: Optional[int] = None,
                      dense: bool = False):
-    """Decoding a COCO split into stacked arrays is not ported yet."""
-    raise NotImplementedError(
-        "load_coco_arrays (decoding a COCO split with cv2) is not ported yet: "
-        "ROADMAP queue 1 item 4; use synthetic data (train_device --synthetic N)")
+    """Decode a COCO-format split of uniform square frames into stacked host
+    arrays, for ``put_device_data``: images [N, S, S, 3] uint8 RGB, boxes
+    [N, max_boxes, 4] normalized cxcywh, labels [N, max_boxes] int32 (the
+    file's 1-based category ids minus one), mask [N, max_boxes] float32.
+
+    ``dense=True`` also reads the class masks (``masks/<split>/*.png``,
+    uint8) and depth maps (``depth/<split>/*.png``, uint16 mm -> float32 m)
+    that ``data.shapes.generate_dataset(with_dense=True)`` writes, returned
+    after the mask (for ``put_dense_data``). The first ``limit`` images when
+    given; boxes beyond ``max_boxes`` are dropped."""
+    import cv2
+
+    ann_path = os.path.join(root, "annotations", f"instances_{split}.json")
+    with open(ann_path) as f:
+        ann = json.load(f)
+    images_meta = ann["images"][:limit] if limit else ann["images"]
+    by_image: Dict[int, list] = {m["id"]: [] for m in images_meta}
+    for a in ann["annotations"]:
+        if a["image_id"] in by_image:
+            by_image[a["image_id"]].append(a)
+
+    def read(path: str, flags: int = cv2.IMREAD_COLOR) -> np.ndarray:
+        img = cv2.imread(path, flags)
+        if img is None:
+            raise FileNotFoundError(f"missing or unreadable image: {path}")
+        return img
+
+    n = len(images_meta)
+    size = int(images_meta[0]["height"])
+    images = np.empty((n, size, size, 3), np.uint8)
+    boxes = np.zeros((n, max_boxes, 4), np.float32)
+    labels = np.zeros((n, max_boxes), np.int32)
+    mask = np.zeros((n, max_boxes), np.float32)
+    seg = np.empty((n, size, size), np.uint8) if dense else None
+    depth = np.empty((n, size, size), np.float32) if dense else None
+    for i, meta in enumerate(images_meta):
+        if meta["height"] != size or meta["width"] != size:
+            raise ValueError(f"{meta['file_name']}: {meta['width']}x{meta['height']}; the "
+                             f"device pipeline needs uniform square frames of {size}")
+        images[i] = cv2.cvtColor(read(os.path.join(root, split, meta["file_name"])),
+                                 cv2.COLOR_BGR2RGB)
+        if dense:
+            stem = meta["file_name"].replace(".jpg", ".png")
+            seg[i] = read(os.path.join(root, "masks", split, stem), cv2.IMREAD_UNCHANGED)
+            depth[i] = read(os.path.join(root, "depth", split, stem),
+                            cv2.IMREAD_UNCHANGED).astype(np.float32) / 1000.0
+        for j, a in enumerate(by_image[meta["id"]][:max_boxes]):
+            x, y, w, h = a["bbox"]
+            boxes[i, j] = ((x + w / 2) / size, (y + h / 2) / size, w / size, h / size)
+            labels[i, j] = a["category_id"] - 1  # COCO ids are 1-based
+            mask[i, j] = 1.0
+    if dense:
+        return images, boxes, labels, mask, seg, depth
+    return images, boxes, labels, mask
 
 
 def put_device_data(images: np.ndarray, boxes: np.ndarray, labels: np.ndarray,

@@ -4,13 +4,17 @@ and augmented on the device, one captured train step per resolution.
 Counterpart of ``scripts/train_device.py``, with its flags and defaults
 (sizes 416 and 640 cycled per chunk, batches 16 and 8, 80 classes, 16 boxes
 per image, EMA 0.999, 1000 warm-up steps, chunks of 100 steps), through
-``ManifoldConstrainedTrainer.train_chunked``. The COCO loader is not ported
-yet (ROADMAP queue 1 item 4): ``--synthetic N`` trains on N seeded uint8
+``ManifoldConstrainedTrainer.train_chunked``. The data is the ``train`` and
+``val`` splits of a COCO-format dataset of square frames under
+``--data-root`` (``load_coco_arrays``; the shapes benchmark of
+``python -m hvs_tpu_torch.make_shapes_dataset``), whose class count
+``--num-classes`` must match, or with ``--synthetic N`` N seeded uint8
 images with random boxes, made with numpy, and N // 4 (at least 4)
 validation images. Runs on the CUDA card unless ``--device cpu`` is given;
 ``--tiny`` takes the tiny smoke model and scales the sizes down (416 → 64,
 640 → 96) with batches of at most 2:
 
+    python -m hvs_tpu_torch.train_device --data-root data/shapes640 --num-classes 8
     python -m hvs_tpu_torch.train_device --synthetic 512 --total-steps 2000
     python -m hvs_tpu_torch.train_device --synthetic 8 --tiny --device cpu \\
         --total-steps 4 --chunk-steps 2
@@ -26,15 +30,18 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+if TYPE_CHECKING:
+    from .training import ManifoldConstrainedTrainer
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="On-device long training run (PyTorch/CUDA port)")
-    p.add_argument("--data-root", default=None,
-                   help="COCO-format dataset (not ported yet: ROADMAP queue 1 item 4)")
+    p.add_argument("--data-root", default="data/shapes640",
+                   help="COCO-format dataset of square frames (train and val splits)")
     p.add_argument("--synthetic", type=int, default=None, metavar="N",
                    help="train on N seeded synthetic images instead of --data-root")
     p.add_argument("--total-steps", type=int, default=50_000)
@@ -84,15 +91,14 @@ def tiny_size(size: int) -> int:
     return max(32, round(size * 0.15 / 32) * 32)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
-    args = parse_args(argv)
+def run(args: argparse.Namespace) -> Tuple["ManifoldConstrainedTrainer", Dict[str, object]]:
+    """The whole run of ``main``; returns the trainer (its captured steps
+    are ``trainer.chunks``, its validation graph ``trainer.val_chunk``) and
+    the summary that ``main`` prints."""
     if args.use_rag:
         raise NotImplementedError("--use-rag: the RAG blend is not ported yet "
                                   "(ROADMAP queue 1 item 9)")
-    if args.synthetic is None:
-        raise NotImplementedError("--data-root: loading a COCO split (load_coco_arrays) is not "
-                                  "ported yet (ROADMAP queue 1 item 4); use --synthetic N")
-    from .data import put_device_data
+    from .data import load_coco_arrays, put_device_data
     from .device import pin_matmul_precision, resolve_device
     from .models import HybridVisionSystem
     from .train import TINY
@@ -109,14 +115,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     image_size = max(sizes) if args.tiny else 640
 
     t0 = time.time()
-    n_val = max(args.synthetic // 4, 4)
-    train = synthetic_arrays(args.synthetic, image_size, args.max_boxes, args.num_classes,
-                             args.seed)
-    val = synthetic_arrays(n_val, image_size, args.max_boxes, args.num_classes, args.seed + 1)
+    if args.synthetic is None:
+        train = load_coco_arrays(args.data_root, "train", max_boxes=args.max_boxes)
+        val = load_coco_arrays(args.data_root, "val", max_boxes=args.max_boxes)
+        if int(train[2].max()) >= args.num_classes:
+            raise ValueError(f"{args.data_root} has labels up to {int(train[2].max())}; "
+                             f"--num-classes {args.num_classes} must cover them")
+    else:
+        n_val = max(args.synthetic // 4, 4)
+        train = synthetic_arrays(args.synthetic, image_size, args.max_boxes, args.num_classes,
+                                 args.seed)
+        val = synthetic_arrays(n_val, image_size, args.max_boxes, args.num_classes,
+                               args.seed + 1)
     data = put_device_data(*train, device=device)
     val_data = put_device_data(*val, device=device)
     print(f"dataset resident on {device} ({train[0].nbytes / 1e9:.2f} GB, "
-          f"{args.synthetic} train / {n_val} val images at {image_size}^2) "
+          f"{len(train[0])} train / {len(val[0])} val images at {train[0].shape[1]}^2) "
           f"in {time.time() - t0:.1f}s", flush=True)
 
     model = HybridVisionSystem(num_classes=args.num_classes, monitor=True, device=device,
@@ -158,7 +172,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                "best_val_loss": result["best_val_loss"],
                "wall_hours": (time.time() - t_run) / 3600}
     print(json.dumps(summary), flush=True)
-    return summary
+    return trainer, summary
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    return run(parse_args(argv))[1]
 
 
 if __name__ == "__main__":

@@ -8,12 +8,15 @@ for the tiny model): the flagship with ``use_segmentation`` and
 ``use_depth``, built for task "multi_task", trained by ``MultiTaskChunk``
 (one CUDA graph per chunk step, one metrics pull per chunk) with the
 optimizer of the script's ``make_optimizer(schedule)``, and evaluated
-before and after by ``MultiTaskEval``. The dense shapes dataset and the COCO
-loader are not ported yet (ROADMAP queue 1 item 4): ``--synthetic N`` trains
-on N seeded images and evaluates on ``--num-val`` more, with dense labels
-in the shapes generator's format. Runs on the CUDA card unless ``--device
-cpu`` is given:
+before and after by ``MultiTaskEval``. The data is the dense shapes dataset
+under ``--data-root`` (masks and depth maps beside the images; generated
+there with ``--num-train`` / ``--num-val`` images at ``--size`` and
+``--seed`` when it is absent, as the script does), read by
+``load_coco_arrays(dense=True)``; or with ``--synthetic N`` N seeded images
+and ``--num-val`` more, with dense labels in the shapes generator's
+format. Runs on the CUDA card unless ``--device cpu`` is given:
 
+    python -m hvs_tpu_torch.train_multitask --data-root data/shapes_mt --steps 2000
     python -m hvs_tpu_torch.train_multitask --synthetic 800 --steps 2000
     python -m hvs_tpu_torch.train_multitask --synthetic 8 --tiny --device cpu \\
         --steps 4 --chunk-steps 2
@@ -28,7 +31,7 @@ import argparse
 import json
 import os
 import time
-from typing import TYPE_CHECKING, Dict, NamedTuple, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,10 +44,12 @@ NUM_CLASSES = 8  # the shapes benchmark's classes
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Multi-task training run (PyTorch/CUDA port)")
-    p.add_argument("--data-root", default=None,
-                   help="dense shapes dataset (not ported yet: ROADMAP queue 1 item 4)")
+    p.add_argument("--data-root", default="data/shapes_mt",
+                   help="dense shapes dataset (generated there when absent)")
     p.add_argument("--synthetic", type=int, default=None, metavar="N",
                    help="train on N seeded synthetic dense images instead of --data-root")
+    p.add_argument("--num-train", type=int, default=800,
+                   help="train images when the dataset is generated")
     p.add_argument("--num-val", type=int, default=100)
     p.add_argument("--size", type=int, default=320)
     p.add_argument("--steps", type=int, default=2000)
@@ -117,29 +122,40 @@ class MultiTaskRun(NamedTuple):
 
 def prepare(args: argparse.Namespace) -> MultiTaskRun:
     """The run's set-up: the dense train and validation data resident on the
-    device, the model built for task "multi_task", the trainer with the
-    script's optimizer, the captured train step and the captured evaluation
-    (one memory pool for both graphs)."""
-    if args.synthetic is None:
-        raise NotImplementedError("--data-root: the dense shapes dataset and "
-                                  "load_coco_arrays(dense=True) are not ported yet (ROADMAP "
-                                  "queue 1 item 4); use --synthetic N")
+    device (the dataset generated first when absent), the model built for
+    task "multi_task", the trainer with the script's optimizer, the captured
+    train step and the captured evaluation (one memory pool for both
+    graphs)."""
     import torch
 
-    from .data import put_dense_data
+    from .data import load_coco_arrays, put_dense_data
     from .device import pin_matmul_precision, resolve_device
     from .training import ManifoldConstrainedTrainer, MultiTaskChunk, MultiTaskEval, \
         TrainerConfig
 
     device = resolve_device(args.device)
     pin_matmul_precision()
-    t0 = time.time()
-    train = put_dense_data(*synthetic_dense_arrays(args.synthetic, args.size, args.max_boxes,
-                                                   NUM_CLASSES, args.seed), device=device)
-    val = put_dense_data(*synthetic_dense_arrays(args.num_val, args.size, args.max_boxes,
-                                                 NUM_CLASSES, args.seed + 1), device=device)
-    print(f"dense data resident on {device}: {args.synthetic}+{args.num_val} images at "
-          f"{args.size}^2 in {time.time() - t0:.1f}s", flush=True)
+    if args.synthetic is None:
+        if not os.path.exists(os.path.join(args.data_root, "annotations",
+                                           "instances_train.json")):
+            from .data.shapes import generate_dataset
+
+            print("generating dense dataset...", flush=True)
+            generate_dataset(args.data_root, num_train=args.num_train, num_val=args.num_val,
+                             size=args.size, seed=args.seed, with_dense=True)
+        t0 = time.time()
+        train_arrays = load_coco_arrays(args.data_root, "train", args.max_boxes, dense=True)
+        val_arrays = load_coco_arrays(args.data_root, "val", args.max_boxes, dense=True)
+    else:
+        t0 = time.time()
+        train_arrays = synthetic_dense_arrays(args.synthetic, args.size, args.max_boxes,
+                                              NUM_CLASSES, args.seed)
+        val_arrays = synthetic_dense_arrays(args.num_val, args.size, args.max_boxes,
+                                            NUM_CLASSES, args.seed + 1)
+    train = put_dense_data(*train_arrays, device=device)
+    val = put_dense_data(*val_arrays, device=device)
+    print(f"dense data resident on {device}: {len(train_arrays[0])}+{len(val_arrays[0])} "
+          f"images at {train_arrays[0].shape[1]}^2 in {time.time() - t0:.1f}s", flush=True)
 
     model = model_config(args.tiny, device).build_model(monitor=False, device=device,
                                                         seed=args.seed, task="multi_task")
@@ -155,11 +171,13 @@ def prepare(args: argparse.Namespace) -> MultiTaskRun:
                         MultiTaskEval(trainer, val, args.batch_size, pool=pool), n_params)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+def run(args: argparse.Namespace) -> Tuple[MultiTaskRun, Dict[str, object]]:
+    """The whole run of ``main``; returns what ``prepare`` set up and the
+    report that ``main`` writes."""
     import torch
 
-    args = parse_args(argv)
-    trainer, chunk, evaluator, n_params = prepare(args)
+    prepared = prepare(args)
+    trainer, chunk, evaluator, n_params = prepared
     before, _ = evaluator.run()
     print("before:", before, flush=True)
     t_run = time.time()
@@ -177,22 +195,28 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     report = {
         "steps": args.steps,
         "image_size": args.size,
-        "train_images": args.synthetic,
+        "train_images": int(chunk.data.images.shape[0]),
         "params": n_params,
         "steps_per_sec": args.steps / (time.time() - t_run),
         "device": (torch.cuda.get_device_name(trainer.device)
                    if trainer.device.type == "cuda" else "cpu"),
         "before": before,
         "after": {**after, "seg_iou_per_class": [float(x) for x in iou_after]},
-        "note": "joint detection+segmentation+depth via multi_task_loss on seeded synthetic "
-                "dense data (--synthetic), the PyTorch/CUDA port",
+        "note": ("joint detection+segmentation+depth via multi_task_loss on "
+                 + ("seeded synthetic dense data (--synthetic)" if args.synthetic is not None
+                    else f"the dense shapes dataset {args.data_root}")
+                 + ", the PyTorch/CUDA port"),
     }
     if os.path.dirname(args.output):
         os.makedirs(os.path.dirname(args.output), exist_ok=True)
     with open(args.output, "w") as f:
         json.dump(report, f, indent=2)
     print(json.dumps(report["after"], indent=2), flush=True)
-    return report
+    return prepared, report
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    return run(parse_args(argv))[1]
 
 
 if __name__ == "__main__":

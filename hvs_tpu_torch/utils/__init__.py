@@ -1,5 +1,5 @@
-"""Utilities (counterpart of the parts of ``hvs_tpu/utils`` that serving needs)."""
+"""Utilities (counterpart of ``hvs_tpu/utils``' metrics)."""
 
-from .metrics import InferenceMetrics
+from .metrics import DetectionEvaluator, InferenceMetrics, StabilityMetrics
 
-__all__ = ["InferenceMetrics"]
+__all__ = ["DetectionEvaluator", "InferenceMetrics", "StabilityMetrics"]

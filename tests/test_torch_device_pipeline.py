@@ -135,8 +135,9 @@ def test_draw_augment_ranges_and_generator_order():
     assert all(torch.equal(a, b) for a, b in zip(draws, again))
 
 
-def test_put_device_data_dtypes_and_unported_loader():
+def test_put_device_data_dtypes_and_unported_loader(tmp_path):
     data = tdp.put_device_data(*_arrays(), device="cpu")
     assert [t.dtype for t in data] == [torch.uint8, torch.float32, torch.int32, torch.float32]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tdp.load_coco_arrays("data/shapes640", "train")
+    # load_coco_arrays is ported (tests/test_torch_data.py); an absent split raises
+    with pytest.raises(FileNotFoundError, match="instances_train.json"):
+        tdp.load_coco_arrays(str(tmp_path / "absent"), "train")

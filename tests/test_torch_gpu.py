@@ -847,3 +847,37 @@ def test_engine_recaptures_after_rebuild_serve_fns():
     np.testing.assert_array_equal(after.classes, before.classes[keep])
     np.testing.assert_allclose(after.scores, before.scores[keep], atol=1e-6)
     engine.warmup()
+
+
+@pytest.mark.gpu
+def test_load_coco_arrays_uploads_equal_the_host_arrays(tmp_path):
+    _need_card()
+    from hvs_tpu_torch.data import (generate_shapes_dataset, load_coco_arrays, put_dense_data,
+                                    put_device_data)
+
+    root = str(tmp_path / "shapes")
+    generate_shapes_dataset(root, num_train=4, num_val=2, size=96, seed=0, with_dense=True)
+    for split in ("train", "val"):
+        host = load_coco_arrays(root, split, max_boxes=16, dense=True)
+        for data in (put_device_data(*host[:4]), put_dense_data(*host)):
+            for t, a in zip(data, host):
+                assert t.device.type == "cuda" and t.dtype == torch.from_numpy(a).dtype
+                assert np.array_equal(t.cpu().numpy(), a)
+
+
+@pytest.mark.gpu
+def test_batch_augment_on_the_card_matches_the_cpu():
+    _need_card()
+    from hvs_tpu_torch.data import apply_batch_augment, batch_augment_device, draw_batch_augment
+
+    images = torch.rand(8, 64, 48, 3, generator=torch.Generator().manual_seed(0)) * 4 - 2
+    draws = draw_batch_augment(8, torch.Generator().manual_seed(1))
+    cpu, cpu_flip = apply_batch_augment(images, draws)
+    card, card_flip = apply_batch_augment(images.cuda(), draws)
+    assert card.device.type == "cuda" and torch.equal(card_flip.cpu(), cpu_flip)
+    # The same fp32 operations; only each image's mean is summed in another
+    # order on the card (values within [-3, 3]).
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-6, atol=1e-5)
+    # A generator on the card draws there.
+    out, flipped = batch_augment_device(images.cuda(), torch.Generator("cuda").manual_seed(2))
+    assert out.device.type == "cuda" and flipped.shape == (8,) and torch.isfinite(out).all()

@@ -475,8 +475,11 @@ def test_train_multitask_entry_point_on_cpu(tmp_path):
     assert len(report["after"]["seg_iou_per_class"]) == NC + 1
 
 
-def test_train_multitask_raises_for_what_is_not_ported():
+def test_train_multitask_raises_for_what_is_not_ported(tmp_path):
+    from hvs_tpu_torch.data import generate_shapes_dataset
     from hvs_tpu_torch.train_multitask import main
 
-    with pytest.raises(NotImplementedError, match="item 4"):
-        main(["--data-root", "data/shapes_mt", "--device", "cpu"])
+    # --data-root is read with its dense labels; a dataset without them raises
+    generate_shapes_dataset(str(tmp_path), num_train=1, num_val=1, size=64)
+    with pytest.raises(FileNotFoundError, match="masks"):
+        main(["--data-root", str(tmp_path), "--device", "cpu", "--tiny"])

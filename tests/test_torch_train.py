@@ -485,7 +485,7 @@ def test_metrics_log_has_a_row_per_step_and_closes(tiny_jax_run, tmp_path):
                                            "signal_ratio_mean")]).all()
 
 
-def test_training_entry_points_default_to_cuda():
+def test_training_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid")
     from hvs_tpu_torch.train import main
@@ -497,5 +497,6 @@ def test_training_entry_points_default_to_cuda():
         ManifoldConstrainedTrainer(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--synthetic", "--tiny", "--steps", "1", "--epochs", "1"])
-    with pytest.raises(SystemExit):
-        main(["--tiny", "--device", "cpu"])  # only synthetic data is ported
+    with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
+        # without --synthetic it reads the COCO dataset at --data-root
+        main(["--tiny", "--device", "cpu", "--data-root", str(tmp_path / "absent")])

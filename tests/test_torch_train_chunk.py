@@ -420,10 +420,11 @@ def test_train_device_entry_point_on_cpu(tmp_path):
         assert (tmp_path / "run" / name).exists(), name
 
 
-def test_train_device_raises_for_what_is_not_ported():
+def test_train_device_raises_for_what_is_not_ported(tmp_path):
     from hvs_tpu_torch.train_device import main
 
-    with pytest.raises(NotImplementedError, match="item 4"):
-        main(["--data-root", "data/shapes640", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="instances_train.json"):
+        # --data-root is read (load_coco_arrays); an absent dataset raises
+        main(["--data-root", str(tmp_path / "absent"), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 9"):
         main(["--synthetic", "8", "--use-rag", "--device", "cpu"])
