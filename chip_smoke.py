@@ -97,17 +97,25 @@ Phases, each of which fails the run with a non-zero exit:
      C 18 per validation batch); ``evaluate`` of the val split with the
      ``train_device`` checkpoint (A at 18 per replay, each image's
      detections equal to ``engine.infer`` of its frame, the evaluator's
-     numbers equal to a recomputation, the ``--synthetic`` self-check at 1.0).
+     numbers equal to a recomputation, the ``--synthetic`` self-check at 1.0);
+ 13. int8: int8 serving of the flagship at 640² (``phase_int8``): calibration
+     on 16 generated frames, an engine per variant (int8, int8_fpn, int8_mhc,
+     int8_vit, int8_all) at buckets 1 and 16 with kernel A at 18, 18, 7, 17
+     and 6 sites per replay, each replay bitwise its eager serve function,
+     device ms beside bf16's, raw head outputs against bf16's, ``_int_mm``'s
+     accumulators against the plain integer product at every product shape
+     of a b16 forward, and a ``reload`` of scales taking effect.
 The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
-entry point (3-12) and fails unless they are pinned after it; the plain
+entry point (3-13) and fails unless they are pinned after it; the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2485,6 +2493,297 @@ def phase_data(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# int8 serving
+
+INT8_CALIB_IMAGES, INT8_CALIB_BATCH = 16, 8
+INT8_BUCKETS = (1, SERVE_BATCH)
+# (quantize_fpn, quantize_mhc, quantize_vit) of each int8 variant, and kernel
+# A's sites per replay: the FPN and head-tower mHC layers stay bf16 under
+# every flag, the backbone's 11 take the int8 chain under quantize_mhc and the
+# ViT fusion's under quantize_vit (the ViT blocks' FFNs are not A's sites).
+INT8_VARIANTS = {"int8": ((False, False, False), 18), "int8_fpn": ((True, False, False), 18),
+                 "int8_mhc": ((False, True, False), 7), "int8_vit": ((False, False, True), 17),
+                 "int8_all": ((True, True, True), 6)}
+# int8 against bf16 raw head outputs of the same seeded weights (a b16 eager
+# forward; random init, so no detection-level comparison): per scale, the
+# correlation and mean |diff| over mean |bf16|. At random init the full-width
+# network amplifies any rounding: the bf16 model itself reads only corr
+# ~0.8 against the fp32 one (printed beside, as "bf16_vs_fp32"). Measured
+# first on the card (PERF.md: corr 0.27-0.53, rel 0.96-1.22 over the five
+# variants), the limits leave room around those readings; accuracy is
+# judged on trained weights (python -m hvs_tpu_torch.quantize).
+INT8_RAW_MIN_CORR, INT8_RAW_MAX_REL = 0.2, 1.5
+INT8_RELOAD_FACTOR = 1.5  # the scales a reload swaps in: every site's times this
+
+
+def int8_configs(scales_path=None, fpn: bool = False, mhc: bool = False, vit: bool = False):
+    """The flagship's model config (int8 when ``scales_path`` is given, with
+    the variant's flags) and an inference config at 640², buckets (1, 16)."""
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+
+    mcfg = ModelConfig()
+    if scales_path is not None:
+        q = mcfg.quantization
+        q.enabled, q.scales_path = True, scales_path
+        q.quantize_fpn, q.quantize_mhc, q.quantize_vit = fpn, mhc, vit
+    icfg = InferenceConfig()
+    icfg.preprocessing.image_size = IMAGE
+    icfg.performance.batch_buckets = INT8_BUCKETS
+    return mcfg, icfg
+
+
+def replay_ms(engine, entry, reps: int = 10, trials: int = 3):
+    """Device ms per replay of a captured serve graph (CUDA events on the
+    engine's stream, median of ``trials``); None where nothing is captured."""
+    if entry.graph is None:
+        return None
+    times = []
+    with engine._serve_lock, torch.cuda.stream(engine._stream):
+        for _ in range(trials):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record(engine._stream)
+            for _ in range(reps):
+                entry.graph.replay()
+            z.record(engine._stream)
+            z.synchronize()
+            times.append(a.elapsed_time(z) / reps)
+    entry.replays += reps * trials
+    return float(np.median(times))
+
+
+def serve_bucket(engine, batch: int, frames: np.ndarray):
+    """Replay the engine's letterboxed graph of ``batch`` on ``frames`` (RGB,
+    640²) and run its serve function eagerly on the same input; returns the
+    two packed outputs (host)."""
+    entry = engine._serve_fn(batch)
+    with engine._serve_lock, engine._on(engine._stream):
+        entry.static_in.copy_(torch.from_numpy(frames[:batch]))
+        out, _ = entry.run(engine._stream)
+        eager = entry.serve_eager(entry.static_in)
+    torch.cuda.synchronize()
+    return out.numpy().copy(), eager.cpu().numpy()
+
+
+def raw_diff(ref: dict, got: dict) -> dict:
+    """Per scale: correlation and mean |diff| / mean |ref| of raw head outputs."""
+    out = {}
+    for key, r in ref.items():
+        a, b = r.float().flatten(), got[key].float().flatten()
+        corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+        out[key] = {"corr": corr, "rel_mean_abs": float((a - b).abs().mean() / a.abs().mean())}
+    return out
+
+
+def phase_int8(card: str) -> dict:
+    """int8 serving of the flagship at its published widths (640², 80
+    classes, seeded conditioned weights):
+      1. calibration (``models.quantize.calibrate_quant_scales``) of the
+         bf16 engine's model on 16 640² frames of the shapes generator, made
+         here, in batches of 8; the scales written to a sidecar;
+      2. per variant (int8, int8_fpn, int8_mhc, int8_vit, int8_all): an
+         engine with ``quantization.enabled`` reading the sidecar, graphs at
+         buckets 1 and 16; kernel A's launches per replay (its sites) and
+         ``_int_mm``'s, counted at capture; each replay bitwise equal to its
+         eager serve function; device ms per replay beside bf16's; raw head
+         outputs against bf16's (``INT8_RAW_*``);
+      3. ``_int_mm``'s int32 accumulators on the card equal to the plain
+         (CPU) product, exactly, at every product shape of a b16 forward of
+         int8_all, and at ragged shapes (its zero padding);
+      4. a ``reload`` with every scale times ``INT8_RELOAD_FACTOR`` changes
+         the replay's output (and equals the eager forward after it); a
+         reload back restores it bitwise.
+    Returns kernel A's launches over the variants' replays."""
+    import gc
+    import shutil
+    import tempfile
+
+    from hvs_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
+    from hvs_tpu_torch.data import generate_shapes_image
+    from hvs_tpu_torch.inference import InferenceEngine
+    from hvs_tpu_torch.inference.engine import WARMUP_CALLS
+    from hvs_tpu_torch.models import compute_constraints, load_constraints, param_tree
+    from hvs_tpu_torch.models.quantize import calibrate_quant_scales
+    from hvs_tpu_torch.ops import quant as quant_mod
+
+    workdir = tempfile.mkdtemp(prefix="hvs_int8_smoke_")
+    launches = {"mhc_block": 0}
+    try:
+        rng = np.random.default_rng(0)
+        frames = np.stack([generate_shapes_image(rng, size=IMAGE, num_classes=80)[0]
+                           for _ in range(INT8_CALIB_IMAGES)])
+        params = int8_params()
+        float_engine = InferenceEngine(*int8_configs(), variables={"params": params})
+        device = float_engine.device
+        mean = torch.tensor(IMAGENET_MEAN, device=device)
+        std = torch.tensor(IMAGENET_STD, device=device)
+        normalized = (torch.from_numpy(frames).to(device).float() / 255.0 - mean) / std
+        batches = list(normalized.split(INT8_CALIB_BATCH))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scales = calibrate_quant_scales(float_engine.model, batches)
+        calib_s = time.perf_counter() - t0
+        sidecar = f"{workdir}/quant_scales.pt"
+        torch.save(scales, sidecar)
+        print(json.dumps({"phase": "int8_calibrate", "images": INT8_CALIB_IMAGES,
+                          "batch": INT8_CALIB_BATCH, "seconds": calib_s, "sites": len(scales),
+                          "min_scale": float(min(scales.values())),
+                          "max_scale": float(max(scales.values())), "card": card}), flush=True)
+        if not all(np.isfinite(float(v)) and float(v) > 0 for v in scales.values()):
+            fail(f"int8: calibration gave non-finite or zero scales: {scales}")
+
+        with torch.inference_mode():
+            ref_raw = float_engine.model(normalized)["detection"]["raw"]
+            fp32 = int8_configs()[0]
+            fp32.precision = "fp32"
+            fp32_model = fp32.build_model(production=True).eval()
+            for name, p in fp32_model.named_parameters():
+                p.copy_(params[name])
+            load_constraints(fp32_model, compute_constraints(param_tree(fp32_model)))
+            floor = raw_diff(ref_raw, fp32_model(normalized)["detection"]["raw"])
+            del fp32_model
+        print(json.dumps({"phase": "int8_noise_floor", "bf16_vs_fp32": floor, "card": card}),
+              flush=True)
+        bf16_ms = {}
+        for b in INT8_BUCKETS:
+            serve_bucket(float_engine, b, frames)
+            bf16_ms[b] = replay_ms(float_engine, float_engine._serve_fn(b))
+        del float_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rows, shapes_seen = {}, {}
+        for label, ((fpn, mhc, vit), sites) in INT8_VARIANTS.items():
+            zero_counts()
+            engine = InferenceEngine(*int8_configs(sidecar, fpn, mhc, vit),
+                                     variables={"params": params})
+            row = {"phase": "int8_variant", "variant": label, "kernel_sites": engine.kernel_sites,
+                   "buckets": {}}
+            for b in INT8_BUCKETS:
+                a0, m0 = mhc_mod.launches, quant_mod.launches
+                engine._serve_fn(b)  # capture: WARMUP_CALLS eager calls and the capture
+                calls = WARMUP_CALLS + 1
+                a_per, mm_per = ((mhc_mod.launches - a0) / calls,
+                                 (quant_mod.launches - m0) / calls)
+                graph, eager = serve_bucket(engine, b, frames)
+                row["buckets"][b] = {
+                    "a_per_replay": a_per, "int_mm_per_replay": mm_per,
+                    "bitwise_equal_eager": bool(np.array_equal(graph, eager)),
+                    "max_abs_diff_eager": packed_max_diff(graph, eager),
+                    "detections": int(graph[:, 0, 6].sum()),
+                    "ms": replay_ms(engine, engine._serve_fn(b)), "bf16_ms": bf16_ms[b]}
+            with torch.inference_mode():
+                row["raw_vs_bf16"] = raw_diff(ref_raw, engine.model(normalized)["detection"]["raw"])
+            if label == "int8_all":
+                with recorded_products(quant_mod) as seen, torch.inference_mode():
+                    engine.model(normalized)
+                shapes_seen = seen
+            if label == "int8":
+                row["reload"] = int8_reload_check(engine, scales, frames)
+            replays = sum(engine.replays.values())
+            launches["mhc_block"] += replays * engine.kernel_sites
+            row.update(replays=replays, card=card)
+            print(json.dumps(row), flush=True)
+            rows[label] = row
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        products = int_mm_check(quant_mod, shapes_seen)
+        print(json.dumps({"phase": "int8_int_mm", **products, "card": card}), flush=True)
+        print(json.dumps({"phase": "int8_summary", "device_ms": {
+            label: {str(b): r["buckets"][b]["ms"] for b in INT8_BUCKETS}
+            for label, r in rows.items()}, "bf16_ms": {str(b): bf16_ms[b] for b in INT8_BUCKETS},
+            "a_per_replay": {label: r["kernel_sites"] for label, r in rows.items()},
+            "int_mm_per_replay": {label: r["buckets"][SERVE_BATCH]["int_mm_per_replay"]
+                                  for label, r in rows.items()},
+            "card": card}), flush=True)
+
+        for label, row in rows.items():
+            sites = INT8_VARIANTS[label][1]
+            for b, r in row["buckets"].items():
+                if row["kernel_sites"] != sites or r["a_per_replay"] != sites:
+                    fail(f"int8 {label}: kernel A launched {r['a_per_replay']} times per call "
+                         f"at bucket {b} over {row['kernel_sites']} sites; expected {sites}")
+                if r["int_mm_per_replay"] <= 0:
+                    fail(f"int8 {label}: no _int_mm launch at bucket {b}: {row}")
+                if not r["bitwise_equal_eager"] or r["detections"] == 0:
+                    fail(f"int8 {label}: bucket {b} replay against eager: {r}")
+            for key, d in row["raw_vs_bf16"].items():
+                if not (d["corr"] >= INT8_RAW_MIN_CORR and d["rel_mean_abs"] <= INT8_RAW_MAX_REL):
+                    fail(f"int8 {label}: raw {key} against bf16 {d}; limits corr >= "
+                         f"{INT8_RAW_MIN_CORR}, rel <= {INT8_RAW_MAX_REL}")
+        reload = rows["int8"]["reload"]
+        if not (reload["changed"] and reload["equals_eager_after"] and reload["restored"]):
+            fail(f"int8: reload of scales: {reload}")
+        if not products["all_equal"] or products["shapes"] == 0:
+            fail(f"int8: _int_mm against the plain product: {products}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
+def int8_params() -> dict:
+    """The int8 phase's weights: the engine phase's conditioned seed-0 ones."""
+    return conditioned_params(0)
+
+
+@contextlib.contextmanager
+def recorded_products(quant_mod):
+    """Every ``int_mm`` call's operands, one pair per (M, K, N)."""
+    seen, orig = {}, quant_mod.int_mm
+
+    def spy(a, b_t):
+        seen.setdefault((a.shape[0], a.shape[1], b_t.shape[0]), (a, b_t))
+        return orig(a, b_t)
+
+    quant_mod.int_mm = spy
+    try:
+        yield seen
+    finally:
+        quant_mod.int_mm = orig
+
+
+def int_mm_check(quant_mod, seen: dict) -> dict:
+    """``int_mm`` on the card against ``int_mm_plain`` (CPU), exactly, on the
+    recorded operands and on ragged shapes that take the zero padding."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    ragged = {}
+    for m, k, n in ((5, 20, 12), (17, 8, 8), (300, 36, 3)):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        device = next(iter(seen.values()))[0].device if seen else "cpu"
+        ragged[(m, k, n)] = (a.to(device), b.to(device))
+    before = quant_mod.launches
+    rows, all_equal = [], True
+    for (m, k, n), (a, b_t) in {**seen, **ragged}.items():
+        got = quant_mod.int_mm(a, b_t)
+        want = quant_mod.int_mm_plain(a, b_t)
+        equal = bool(torch.equal(got.cpu(), want))
+        all_equal &= equal
+        rows.append({"m": m, "k": k, "n": n, "equal": equal, "ragged": (m, k, n) in ragged})
+    quant_mod.launches = before  # comparison launches are not the path's
+    return {"shapes": len(rows), "site_shapes": len(seen), "all_equal": all_equal,
+            "rows": rows}
+
+
+def int8_reload_check(engine, scales: dict, frames: np.ndarray) -> dict:
+    """Reload with every scale times ``INT8_RELOAD_FACTOR``: the b16 replay
+    changes and equals the eager forward; a reload back restores it."""
+    params = {k: v.detach().clone() for k, v in engine.model.named_parameters()}
+    before, _ = serve_bucket(engine, SERVE_BATCH, frames)
+    engine.reload({"params": params, "quant": {k: v * INT8_RELOAD_FACTOR
+                                               for k, v in scales.items()}})
+    after, eager_after = serve_bucket(engine, SERVE_BATCH, frames)
+    engine.reload({"params": params, "quant": scales})
+    back, _ = serve_bucket(engine, SERVE_BATCH, frames)
+    return {"changed": not np.array_equal(before, after),
+            "max_abs_change": packed_max_diff(before, after),
+            "equals_eager_after": bool(np.array_equal(after, eager_after)),
+            "restored": bool(np.array_equal(before, back))}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
@@ -2518,6 +2817,7 @@ def main() -> None:
     multitask_launches = entry_point_phase(phase_multitask, defaults, card)
     light = entry_point_phase(phase_lightweight, defaults, card, sm_clock_hz)
     data = entry_point_phase(phase_data, defaults, card)
+    int8 = entry_point_phase(phase_int8, defaults, card)
 
     kernels = [
         kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"],
@@ -2529,6 +2829,7 @@ def main() -> None:
                          multitask_launches["mhc_block_unfolded"])]
     for k in kernels:
         k["launches_data"] = data[k["name"]]
+    kernels[0]["launches_int8"] = int8["mhc_block"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -108,13 +108,20 @@ class RAGConfig:
 
 @dataclass
 class QuantizationConfig:
-    """Int8 serving (W8A8 in the JAX package; not ported yet: ``enabled``
-    raises in ``build_model``)."""
+    """Int8 serving, W8A8 (``hvs_tpu_torch/ops/quant.py``): with ``enabled``,
+    ``build_model(production=True)`` builds the int8 twin of the serve model
+    (the backbone's convolutions and the head towers' in int8; the knobs
+    below extend it), and ``InferenceEngine`` serves it with calibrated
+    per-site activation scales: those embedded in its variables (``quant``),
+    else the sidecar at ``scales_path``, which ``python -m
+    hvs_tpu_torch.quantize`` writes with ``torch.save`` (``{site: fp32
+    scalar}``; the JAX package writes a flax msgpack tree there), else a
+    ``ValueError``. Float checkpoints load unchanged."""
 
     enabled: bool = False
     scales_path: Optional[str] = None
-    # Calibration headroom lives at calibration time (scripts/quantize.py
-    # --margin), not here: the serving engine only CONSUMES finished scales.
+    # Calibration headroom lives at calibration time (python -m
+    # hvs_tpu_torch.quantize --margin), not here: the engine only reads scales.
     # Extend int8 to the FPN laterals/refines/projections (a further ~11% of
     # serve bytes). Separate knob so its accuracy cost is measurable alone.
     quantize_fpn: bool = False
@@ -202,17 +209,16 @@ class ModelConfig(BaseConfig):
         dropout 0, constraints computed at load); ``monitor`` turns on the
         per-layer stability telemetry of a training model. ``task`` is the
         task whose heads get parameters, as the flax model's ``init`` task
-        decides it (``"multi_task"`` builds every head the flags enable)."""
+        decides it (``"multi_task"`` builds every head the flags enable).
+        ``production`` with ``quantization.enabled`` builds the int8 twin (its
+        scales are loaded separately: ``models.quantize.load_quant_scales``)."""
         from ..models import HybridVisionSystem, ProductionHybridVision
 
-        missing = []
         if self.rag.enabled:
-            missing.append("rag.enabled (ROADMAP queue 1, item 9)")
-        if self.quantization.enabled:
-            missing.append("quantization.enabled (int8 serving, ROADMAP queue 1, item 8)")
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
+            raise NotImplementedError("not ported yet: rag.enabled (ROADMAP queue 1, item 9)")
         cls = ProductionHybridVision if production else HybridVisionSystem
+        q = self.quantization
+        int8 = production and q.enabled
         return cls(
             monitor=False if production else monitor,
             num_classes=self.detection.num_classes,
@@ -234,4 +240,8 @@ class ModelConfig(BaseConfig):
             dtype=self.dtype(),
             device=self.device if device is None else device,
             seed=seed,
+            act_quant=int8,
+            act_quant_fpn=int8 and q.quantize_fpn,
+            act_quant_mhc=int8 and q.quantize_mhc,
+            act_quant_vit=int8 and q.quantize_vit,
         )

@@ -10,6 +10,10 @@ flax and OIHW here. Transposed-convolution kernels (flax auto-name
 
 The tree is given as nested dicts of numpy arrays; a caller holding JAX
 arrays converts them first (``jax.device_get``). This module imports no JAX.
+
+The int8 scales (the JAX ``quant`` collection) cross the same way:
+``load_flax_quant`` turns a ``quant`` tree into the port's scales,
+``{dotted site name: fp32 scalar}``, and ``export_flax_quant`` turns them back.
 """
 
 from __future__ import annotations
@@ -92,3 +96,26 @@ def export_flax_params(model: nn.Module) -> Tree:
     """The model's parameters as a flax-layout tree of numpy arrays."""
     return nest({name: to_flax_layout(name, p.detach().cpu().numpy())
                  for name, p in model.named_parameters()})
+
+
+def load_flax_quant(model: nn.Module, quant: Tree) -> Dict[str, torch.Tensor]:
+    """A flax ``quant`` tree (calibrated scales) as the port's scales for
+    ``model``. Every leaf must be a scalar at the path of an int8 site of the
+    model (``models.quantize.quant_site_names``); anything else raises."""
+    from .models.quantize import quant_site_names
+
+    flat = flatten(quant)
+    unknown = sorted(set(flat) - set(quant_site_names(model)))
+    if unknown:
+        raise KeyError(f"quant tree does not match the model's int8 sites: {unknown[:8]}")
+    out = {}
+    for name, value in flat.items():
+        if value.size != 1:
+            raise ValueError(f"{name}: a scale is a scalar, got shape {value.shape}")
+        out[name] = torch.tensor(float(value.reshape(())), dtype=torch.float32)
+    return out
+
+
+def export_flax_quant(scales: Dict[str, Any]) -> Tree:
+    """The port's scales as a flax ``quant`` tree of fp32 numpy scalars."""
+    return nest({name: np.asarray(float(v), np.float32) for name, v in scales.items()})

@@ -22,6 +22,11 @@ graph per bucket (and per registered raw source shape):
 
 On the CPU (``device="cpu"``) nothing is captured: the same serve functions
 run eagerly, with the plain versions of the kernels.
+
+With ``quantization.enabled`` the engine serves the int8 twin (W8A8,
+``ops/quant.py``): its calibrated activation scales and its weights' int8
+forms are device buffers that the graphs read in place, so a ``reload``
+(new weights, or new scales) reaches every captured graph.
 """
 
 from __future__ import annotations
@@ -40,12 +45,13 @@ import torch
 from ..config.inference import InferenceConfig
 from ..config.model import ModelConfig
 from ..constants import COCO_CLASSES, IMAGENET_MEAN, IMAGENET_STD
-from ..convert import flatten, nest, to_port_layout
+from ..convert import flatten, load_flax_quant, nest, to_port_layout
 from ..data.dataset import letterbox, letterbox_geometry, letterbox_raw_batch
 from ..device import DeviceLike, pin_matmul_precision, resolve_device
 from ..models.constraints import compute_constraints, load_constraints, param_tree
 from ..models.hybrid import detect
 from ..models.layers import ManifoldHyperConnection
+from ..models.quantize import load_quant_scales
 from ..models.rag import roi_pool_bilinear
 from ..ops.sinkhorn import doubly_stochastic_error, sinkhorn_log
 from ..utils.metrics import InferenceMetrics
@@ -263,8 +269,11 @@ class InferenceEngine:
         if variables is None and self.config.checkpoint_path:
             variables = self.load_checkpoint(self.config.checkpoint_path)
         if variables is None:
+            scales = self._quant_scales({})
             with self._on(self._stream), torch.no_grad():
                 load_constraints(self.model, self._constraints(param_tree(self.model)))
+                if scales is not None:
+                    load_quant_scales(self.model, scales)
         else:
             self.reload(variables)
         self._synchronize()
@@ -276,9 +285,6 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"nms_method {self.config.postprocessing.nms_method!r} is not ported yet "
                 "(soft and matrix NMS: ROADMAP queue 1, item 9); use 'hard'")
-        if self.model_config.quantization.enabled:
-            raise NotImplementedError(
-                "quantization.enabled: int8 serving is not ported yet (ROADMAP queue 1, item 8)")
 
     @staticmethod
     def _on(stream):
@@ -292,10 +298,33 @@ class InferenceEngine:
         """The constraints tree of a parameter tree (kernel B on the card)."""
         return compute_constraints(params, self.model_config.mhc.sinkhorn_iterations)
 
+    def _quant_scales(self, variables: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """The int8 model's calibrated scales (None when quantization is off):
+        those embedded in ``variables["quant"]`` (a flax ``quant`` tree or the
+        port's ``{site: scale}``), else the sidecar at
+        ``quantization.scales_path`` (``torch.save``, as ``python -m
+        hvs_tpu_torch.quantize`` writes it), else a ValueError."""
+        qcfg = self.model_config.quantization
+        if not qcfg.enabled:
+            return None
+        if "quant" in variables:
+            quant = variables["quant"]
+            if any(isinstance(v, dict) for v in quant.values()):
+                return load_flax_quant(self.model, quant)
+            return dict(quant)
+        if qcfg.scales_path:
+            return torch.load(qcfg.scales_path, map_location="cpu")
+        raise ValueError(
+            "quantization.enabled requires calibrated scales: set "
+            "quantization.scales_path (python -m hvs_tpu_torch.quantize) or pass "
+            "a variables tree containing the 'quant' collection")
+
     def _prepare_variables(self, variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Weights as new {parameter name: fp32 tensor on the device},
         checked against the model's parameters by name and shape."""
         params = variables.get("params", variables)
+        if "params" not in variables:
+            params = {k: v for k, v in params.items() if k != "quant"}
         if any(isinstance(v, dict) for v in params.values()):
             flat = {name: to_port_layout(name, a) for name, a in flatten(params).items()}
         else:
@@ -334,7 +363,8 @@ class InferenceEngine:
         return {"params": params}
 
     def reload(self, variables: Dict[str, Any]) -> None:
-        """Hot model swap: new weights of the same structure.
+        """Hot model swap: new weights of the same structure (and, for an
+        int8 model, their scales: ``variables["quant"]`` or the sidecar).
 
         The captured graphs read the parameters and the constrained matrices
         at fixed addresses, so the swap copies into them in place rather
@@ -352,6 +382,7 @@ class InferenceEngine:
             # The caller's tensors may still be being written on its stream;
             # and once copied, the caller may free them.
             self._load_stream.wait_stream(caller)
+        scales = self._quant_scales(variables)
         with self._on(self._load_stream), torch.no_grad():
             params = self._prepare_variables(variables)
             constraints = self._constraints(nest(params))
@@ -363,6 +394,8 @@ class InferenceEngine:
             for name, p in self.model.named_parameters():
                 p.copy_(params[name])
             load_constraints(self.model, constraints)
+            if scales is not None:
+                load_quant_scales(self.model, scales)
             if self._stream is not None:
                 # The sources were allocated on the load stream: later work
                 # there (which may reuse their memory) waits for the copies.

@@ -1,22 +1,25 @@
 """Hybrid CNN backbone with channel-wise mHC, NHWC at every boundary.
 
 Counterpart of ``hvs_tpu/models/backbone.py`` (``ConvMHCBlock`` with the
-standard and the fused serve tail, ``HybridVisionBackbone``). The int8
-``QuantConv`` path is not ported yet.
+standard and the fused serve tail, ``HybridVisionBackbone``, and their int8
+paths through ``QuantConv``, ``models/layers.py``).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv, ManifoldHyperConnection, SqueezeExcite, group_norm
+from ..ops.quant import dequantize_tensor, quantize_tensor
+from .layers import Conv, ManifoldHyperConnection, QuantConv, QuantSites, SqueezeExcite, \
+    group_norm
 
 
-class ConvMHCBlock(nn.Module):
+class ConvMHCBlock(QuantSites, nn.Module):
     """Bottleneck residual block: 1x1 reduce -> 3x3 (optionally strided) ->
     channel mHC at the bottleneck width -> 1x1 expand -> tail.
 
@@ -30,38 +33,57 @@ class ConvMHCBlock(nn.Module):
     is the spatial mean of that map (``ch_mean*s + t``), and the SE gate is
     per channel, so the tail is ``silu(y*(s*g) + t*g + shortcut)``.
 
+    int8 (``act_quant``): the four convolutions are ``QuantConv``s. The block
+    input is quantized once (site ``x_scale``) and shared by ``reduce``, the
+    projection ``shortcut`` and, dequantized, the identity shortcut;
+    ``spatial`` reads ``y1_scale`` and ``expand`` ``y2_scale``; the tail is
+    the standard one. ``act_quant_mhc`` puts the mHC layer on its int8
+    chain. A float block records its three sites while calibrating, and
+    then takes the standard tail.
+
     ``mhc`` are keyword options of the mHC layer (``sk_iters``, ``monitor``,
     ``precomputed_constraints``); its dropout rate is ``dropout_rate``.
     """
 
+    SITES = ("x_scale", "y1_scale", "y2_scale")
+
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
-                 dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0, **mhc):
+                 dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0,
+                 act_quant: bool = False, act_quant_mhc: bool = False, **mhc):
         super().__init__()
         mid = max(16, channels // 2)  # bottleneck width
         self.dtype = dtype
+        self.act_quant = act_quant
         self.precomputed_constraints = mhc.get("precomputed_constraints", False)
-        self.reduce = Conv(in_channels, mid, (1, 1), use_bias=False, dtype=dtype)
+        conv = QuantConv if act_quant else partial(Conv, use_bias=False)
+        self.reduce = conv(in_channels, mid, (1, 1), dtype=dtype)
         self.GroupNorm_0 = group_norm(mid, dtype)
-        self.spatial = Conv(mid, mid, (3, 3), (stride, stride), use_bias=False, dtype=dtype)
+        self.spatial = conv(mid, mid, (3, 3), (stride, stride), dtype=dtype)
         self.GroupNorm_1 = group_norm(mid, dtype)
         self.mhc = ManifoldHyperConnection(mid, 1, 1, dtype=dtype, dropout_rate=dropout_rate,
-                                           **mhc)
-        self.expand = Conv(mid, channels, (1, 1), use_bias=False, dtype=dtype)
+                                           act_quant=act_quant_mhc, quant_sites=True, **mhc)
+        self.expand = conv(mid, channels, (1, 1), dtype=dtype)
         self.GroupNorm_2 = group_norm(channels, dtype)
         self.se = SqueezeExcite(channels, dtype=dtype)
         if stride != 1 or in_channels != channels:
-            self.shortcut = Conv(in_channels, channels, (1, 1), (stride, stride),
-                                 use_bias=False, dtype=dtype)
+            self.shortcut = conv(in_channels, channels, (1, 1), (stride, stride), dtype=dtype)
             self.GroupNorm_3 = group_norm(channels, dtype)
         else:
             self.shortcut = None
+        self._init_quant(self.SITES, self.SITES if act_quant else ())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.act_quant:
+            return self._forward_int8(x)
+        self.record("x_scale", x)
         y = F.silu(self.GroupNorm_0(self.reduce(x)))
+        self.record("y1_scale", y)
         y = F.silu(self.GroupNorm_1(self.spatial(y)))
-        y = self.expand(self.mhc(y))
-        if not (self.precomputed_constraints and not self.training):
+        y = self.mhc(y)
+        self.record("y2_scale", y)
+        y = self.expand(y)
+        if not (self.precomputed_constraints and not self.training) or self.calibrating:
             shortcut = x if self.shortcut is None else self.GroupNorm_3(self.shortcut(x))
             return F.silu(self.se(self.GroupNorm_2(y)) + shortcut)
 
@@ -80,25 +102,43 @@ class ConvMHCBlock(nn.Module):
             out = y32 * s + t + x.float()
         return F.silu(out).to(self.dtype)
 
+    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        x_s, y1_s, y2_s = (self.act_scale(site) for site in self.SITES)
+        x_q = quantize_tensor(x, x_s)
+        y = F.silu(self.GroupNorm_0(self.reduce(x_q, x_s)))
+        y = F.silu(self.GroupNorm_1(self.spatial(quantize_tensor(y, y1_s), y1_s)))
+        y = self.mhc(y)
+        y = self.expand(quantize_tensor(y, y2_s), y2_s)
+        if self.shortcut is not None:
+            shortcut = self.GroupNorm_3(self.shortcut(x_q, x_s))
+        else:
+            shortcut = dequantize_tensor(x_q, x_s, self.dtype)
+        return F.silu(self.se(self.GroupNorm_2(y)) + shortcut)
 
-class HybridVisionBackbone(nn.Module):
+
+class HybridVisionBackbone(QuantSites, nn.Module):
     """Stem (two stride-2 convs) and four stages of ``ConvMHCBlock``.
 
     [B, H, W, 3] -> {"scale_small": stride 8, "scale_medium": stride 16,
-    "scale_large": stride 32}, with stage_channels[1:] channels.
+    "scale_large": stride 32}, with stage_channels[1:] channels. With
+    ``act_quant`` ``stem2`` takes its input in int8 (site ``stem2_scale``;
+    ``stem1``'s 3 input channels stay float) and so do the blocks;
+    ``act_quant_mhc`` goes to the blocks.
     """
 
     SCALE_NAMES = {1: "scale_small", 2: "scale_medium", 3: "scale_large"}
 
     def __init__(self, base_channels: int = 32, stage_blocks: Sequence[int] = (2, 3, 4, 2),
                  stage_channels: Sequence[int] = (64, 128, 256, 512),
-                 dtype: torch.dtype = torch.bfloat16, **mhc):
+                 dtype: torch.dtype = torch.bfloat16, act_quant: bool = False,
+                 act_quant_mhc: bool = False, **mhc):
         super().__init__()
         self.dtype = dtype
+        self.act_quant = act_quant
         self.stem1 = Conv(3, base_channels, (3, 3), (2, 2), use_bias=False, dtype=dtype)
         self.GroupNorm_0 = group_norm(base_channels, dtype)
-        self.stem2 = Conv(base_channels, stage_channels[0], (3, 3), (2, 2), use_bias=False,
-                          dtype=dtype)
+        conv = QuantConv if act_quant else partial(Conv, use_bias=False)
+        self.stem2 = conv(base_channels, stage_channels[0], (3, 3), (2, 2), dtype=dtype)
         self.GroupNorm_1 = group_norm(stage_channels[0], dtype)
         self.stages = []  # per stage: the block names, in order
         in_ch = stage_channels[0]
@@ -107,14 +147,23 @@ class HybridVisionBackbone(nn.Module):
             for block_idx in range(n_blocks):
                 stride = 2 if (block_idx == 0 and stage_idx > 0) else 1
                 name = f"stage{stage_idx + 1}_block{block_idx}"
-                self.add_module(name, ConvMHCBlock(in_ch, ch, stride, dtype=dtype, **mhc))
+                self.add_module(name, ConvMHCBlock(in_ch, ch, stride, dtype=dtype,
+                                                   act_quant=act_quant,
+                                                   act_quant_mhc=act_quant_mhc, **mhc))
                 names.append(name)
                 in_ch = ch
             self.stages.append(names)
+        self._init_quant(("stem2_scale",), ("stem2_scale",) if act_quant else ())
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = F.silu(self.GroupNorm_0(self.stem1(x.to(self.dtype))))
-        x = F.silu(self.GroupNorm_1(self.stem2(x)))
+        if self.act_quant:
+            scale = self.act_scale("stem2_scale")
+            x = self.stem2(quantize_tensor(x, scale), scale)
+        else:
+            self.record("stem2_scale", x)
+            x = self.stem2(x)
+        x = F.silu(self.GroupNorm_1(x))
         outputs = {}
         for stage_idx, names in enumerate(self.stages):
             for name in names:

@@ -6,7 +6,8 @@ parameter tree that holds ``H_pre_raw``/``H_post_raw``/``H_res_raw``,
 ``w1_folded`` = h_pre @ mlp_in_kernel) at the same path, in fp32.
 ``param_tree`` gives a model's parameters as such a tree (paths are the
 flax paths), and ``load_constraints`` installs a constraints tree on the
-model's mHC layers.
+model's mHC layers (and, for an int8 model, prepares the int8 weights, which
+also depend on the weights alone).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from torch import nn
 
 from ..convert import Tree, nest
 from ..ops.sinkhorn import sinkhorn_log
-from .layers import ManifoldHyperConnection
+from .layers import ManifoldHyperConnection, QuantConv, QuantDense
 
 
 def param_tree(model: nn.Module) -> Tree:
@@ -48,11 +49,15 @@ def compute_constraints(params: Tree, sk_iters: int = 20) -> Tree:
 
 
 def load_constraints(model: nn.Module, constraints: Tree) -> int:
-    """Install ``constraints`` on every mHC layer of ``model``; returns the
-    number of layers set. Raises if a layer has no entry."""
+    """Install ``constraints`` on every mHC layer of ``model`` (an int8 layer
+    also quantizes its chain's matrices) and prepare the int8 weights of
+    every ``QuantConv`` and ``QuantDense``, in place; returns the number of
+    mHC layers set. Raises if a layer has no entry."""
     count = 0
     for name, module in model.named_modules():
-        if isinstance(module, ManifoldHyperConnection):
+        if isinstance(module, (QuantConv, QuantDense)):
+            module.refresh_quant()
+        elif isinstance(module, ManifoldHyperConnection):
             node = constraints
             for key in name.split(".") if name else ():
                 node = node[key]

@@ -125,6 +125,16 @@ class HybridVisionSystem(nn.Module):
     unless ``device="cpu"`` is passed. Real weights come from a flax tree
     through ``hvs_tpu_torch.convert.load_flax_params``.
 
+    int8 serving (W8A8, ``ops/quant.py``), as the JAX model's flags:
+    ``act_quant`` the backbone's convolutions (``stem2`` and the blocks')
+    and the head towers' ``reduce`` and ``conv``; ``act_quant_fpn`` the FPN's
+    laterals, refines and projections; ``act_quant_mhc`` the backbone
+    blocks' mHC chains; ``act_quant_vit`` the ViT's projections and mHC
+    chains. Their scales come from ``models/quantize.py``
+    (``calibrate_quant_scales``, ``load_quant_scales``); calibration
+    records every site whatever the flags. Parameters are those of the
+    float model, so float checkpoints load unchanged.
+
     ``use_vit=False`` builds and runs no ViT encoder. ``use_segmentation``
     and ``use_depth`` add the dense heads on the fused features. A flax
     model holds the parameters of the heads its ``init`` task ran, so
@@ -151,7 +161,9 @@ class HybridVisionSystem(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, monitor: bool = False,
                  precomputed_constraints: bool = False, device: DeviceLike = None,
                  seed: int = 0, use_vit: bool = True, use_segmentation: bool = False,
-                 use_depth: bool = False, task: str = "detection"):
+                 use_depth: bool = False, task: str = "detection", act_quant: bool = False,
+                 act_quant_fpn: bool = False, act_quant_mhc: bool = False,
+                 act_quant_vit: bool = False):
         super().__init__()
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")
@@ -163,15 +175,17 @@ class HybridVisionSystem(nn.Module):
         mhc = dict(sk_iters=sk_iters, monitor=monitor,
                    precomputed_constraints=precomputed_constraints)
         self.backbone = HybridVisionBackbone(base_channels, stage_blocks, stage_channels,
-                                             dtype=dtype, **mhc)
+                                             dtype=dtype, act_quant=act_quant,
+                                             act_quant_mhc=act_quant_mhc, **mhc)
         self.vit_encoder = (HybridVisionEncoder(stage_channels[-1], vit_dim, vit_depth,
                                                 vit_heads, dtype=dtype,
-                                                dropout_rate=dropout_rate, **mhc)
+                                                dropout_rate=dropout_rate,
+                                                act_quant=act_quant_vit, **mhc)
                             if use_vit else None)
         self.fpn = FeaturePyramidNetwork(tuple(stage_channels[1:]), fpn_channels, dtype=dtype,
-                                         **mhc)
+                                         act_quant=act_quant_fpn, **mhc)
         self.detection_head = (YOLODetectionHead(OUT_CHANNELS, num_classes, head_channels,
-                                                 dtype=dtype, **mhc)
+                                                 dtype=dtype, act_quant=act_quant, **mhc)
                                if task in ("detection", "multi_task") else None)
         self.feature_proj = Dense(sum(OUT_CHANNELS), feature_dim, dtype=dtype)
         self.mhc_features = ManifoldHyperConnection(feature_dim, 1, 2, dtype=dtype,

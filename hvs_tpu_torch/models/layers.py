@@ -1,5 +1,6 @@
 """Core layers: mHC (serve and training branches), Dense, Conv,
-ConvTranspose, the norms, SqueezeExcite, attention, dropout.
+ConvTranspose, their int8 twins ``QuantDense`` and ``QuantConv``, the norms,
+SqueezeExcite, attention, dropout.
 
 Counterpart of ``hvs_tpu/models/layers.py``. Public layouts follow the JAX
 package: feature maps are NHWC, dense kernels are [d_in, d_out] applied as
@@ -19,6 +20,14 @@ kernel), applies dropout in train mode and records telemetry when
 unfolded block. Each block is the Hopper kernel on a CUDA tensor and its
 plain version on a CPU tensor (``ops/mhc_block.py``). Torch's ``training``
 flag plays the part of JAX's ``deterministic=False``.
+
+int8 serving (W8A8, ``ops/quant.py``): a module with int8 sites
+(``QuantSites``) names the activations it can quantize. While it
+calibrates (``models/quantize.py``) it records each one's max|x| and runs
+the float path; a module built with its ``act_quant`` flag reads each
+site's calibrated scale from a device buffer of that name and multiplies
+int8 by int8. The serve-mode mHC layer under ``act_quant`` runs the int8
+chain in place of the fused block.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from torch import nn
 
 from ..ops.mhc_block import SUPPORTED_WIDTHS, layernorm as _layernorm, mhc_block, \
     mhc_block_unfolded
+from ..ops.quant import calib_maxabs, conv_int8_prepared, matmul_int8_prepared, \
+    prepare_conv_weight, prepare_dense_weight, quantize_tensor
 from ..ops.sinkhorn import doubly_stochastic_error, sinkhorn_log
 
 Generator = Optional[torch.Generator]
@@ -136,6 +147,109 @@ class Conv(nn.Module):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         y = F.conv2d(xc, self.kernel.to(self.dtype), bias, self.strides, padding)
         return y.permute(0, 2, 3, 1)
+
+
+class QuantSites:
+    """Mixin of a module with int8 activation sites.
+
+    ``quant_sites``: the sites the module records while calibrating, by
+    their local names in the flax ``quant`` collection. ``quant_reads``: the
+    sites whose scale its int8 path reads; each is a buffer of that name, an
+    fp32 scalar on the module's device, None until ``load_quant_scales``
+    sets it (the int8 path raises while one is missing; a scale never
+    defaults to 1). While ``quant_stats`` is a dict (set by
+    ``models/quantize.py`` on every such module of a float model), the
+    module records ``{quant_prefix + site: max|x|}`` in it.
+    """
+
+    quant_sites: Tuple[str, ...] = ()
+    quant_reads: Tuple[str, ...] = ()
+    quant_stats: Optional[dict] = None
+    quant_prefix: str = ""
+
+    def _init_quant(self, sites: Sequence[str], reads: Sequence[str] = ()) -> None:
+        self.quant_sites, self.quant_reads = tuple(sites), tuple(reads)
+        for site in self.quant_reads:
+            self.register_buffer(site, None, persistent=False)
+
+    @property
+    def calibrating(self) -> bool:
+        return self.quant_stats is not None
+
+    def record(self, site: str, x: torch.Tensor) -> None:
+        if self.quant_stats is not None and site in self.quant_sites:
+            self.quant_stats[self.quant_prefix + site] = calib_maxabs(x)
+
+    def act_scale(self, site: str) -> torch.Tensor:
+        scale = getattr(self, site)
+        if scale is None:
+            raise RuntimeError(f"int8 scale {self.quant_prefix}{site} is not loaded: "
+                               "load calibrated scales (models.quantize.load_quant_scales)")
+        return scale
+
+
+def _set_buffer(module: nn.Module, name: str, value: torch.Tensor) -> None:
+    """Set a buffer, copying in place once it exists with this shape (a CUDA
+    graph reads it at a fixed address)."""
+    current = getattr(module, name)
+    if current is not None and current.shape == value.shape and current.dtype == value.dtype:
+        current.copy_(value)
+    else:
+        setattr(module, name, value.contiguous())
+
+
+class QuantConv(Conv):
+    """int8 twin of ``Conv(use_bias=False)`` (JAX's ``QuantConv``): the same
+    ``kernel`` parameter, so float checkpoints load unchanged.
+
+    ``forward(x_q, act_scale)`` convolves the int8 NHWC map ``x_q``
+    (quantized with ``act_scale``) with the int8 kernel into int32
+    (``ops/quant.py``). The kernel's int8 form and per-channel scales depend
+    only on the weights: ``refresh_quant`` computes them, at load
+    (``load_constraints``), into buffers it later overwrites in place.
+    """
+
+    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int] = (1, 1),
+                 strides: Sequence[int] = (1, 1), dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, features, kernel_size, strides, use_bias=False,
+                         dtype=dtype)
+        self.register_buffer("kernel_q", None, persistent=False)
+        self.register_buffer("w_scale", None, persistent=False)
+
+    @torch.no_grad()
+    def refresh_quant(self) -> None:
+        q, scale = prepare_conv_weight(self.kernel)
+        _set_buffer(self, "kernel_q", q)
+        _set_buffer(self, "w_scale", scale)
+
+    def forward(self, x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
+        if self.kernel_q is None:
+            raise RuntimeError("QuantConv's int8 weights are not prepared (refresh_quant)")
+        return conv_int8_prepared(x, self.kernel_q, self.w_scale, act_scale,
+                                  self.kernel.shape[2:], self.strides, self.dtype)
+
+
+class QuantDense(Dense):
+    """int8 twin of ``Dense`` (JAX's ``QuantDense``): the same ``kernel`` and
+    ``bias``; ``forward(x_q, act_scale)`` is the int8 product plus the bias
+    in ``dtype``. Weights as ``QuantConv``'s."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, features, dtype=dtype)
+        self.register_buffer("kernel_q", None, persistent=False)
+        self.register_buffer("w_scale", None, persistent=False)
+
+    @torch.no_grad()
+    def refresh_quant(self) -> None:
+        q, scale = prepare_dense_weight(self.kernel)
+        _set_buffer(self, "kernel_q", q)
+        _set_buffer(self, "w_scale", scale)
+
+    def forward(self, x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
+        if self.kernel_q is None:
+            raise RuntimeError("QuantDense's int8 weights are not prepared (refresh_quant)")
+        out = matmul_int8_prepared(x, self.kernel_q, self.w_scale, act_scale, self.dtype)
+        return out + self.bias.to(self.dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -284,8 +398,12 @@ def set_dropout_generator(model: nn.Module, generator: Generator) -> None:
 # ---------------------------------------------------------------------------
 # mHC
 
+# The int8 chain's weights, each held as ``<name>_q`` (int8 [N, K]) and
+# ``<name>_s`` (per-column scales): W1_folded, W2, H_post, H_res.
+INT8_OPERANDS = ("w1", "w2", "h_post", "h_res")
 
-class ManifoldHyperConnection(nn.Module):
+
+class ManifoldHyperConnection(QuantSites, nn.Module):
     """mHC layer: ``out = LN2(x @ H_res + MLP(LN1(x) @ H_pre) @ H_post)`` with
     H_pre = sigmoid(H_pre_raw), H_post = 2·sigmoid(H_post_raw) and H_res =
     Sinkhorn(H_res_raw), a doubly stochastic matrix.
@@ -306,12 +424,22 @@ class ManifoldHyperConnection(nn.Module):
     (``signal_ratio``, ``ds_error``, ``row_sum_error``, ``col_sum_error``;
     detached tensors) in ``self.metrics`` after each forward, as the JAX
     layer sows it into the ``stability`` collection.
+
+    int8 (``act_quant`` with serve constraints): the chain's four products
+    take int8 operands (``y1``: LN1's output, ``a1`` and ``a2``: the GELUs'
+    outputs, ``x``: the input, each with its calibrated scale) against the
+    int8 forms of W1_folded, W2, H_post and H_res, computed in fp32 when the
+    constraints are installed; the fused block is not taken. With
+    ``quant_sites`` the layer records those four sites while calibrating
+    (the backbone's, the ViT's and the ViT fusion's layers, as in JAX);
+    while calibrating every layer runs the unfused bf16 chain.
     """
 
     def __init__(self, dim: int, expansion_rate: int = 2, mlp_ratio: int = 2,
                  dtype: torch.dtype = torch.bfloat16, *, sk_iters: int = 20, tau: float = 1.0,
                  dropout_rate: float = 0.1, monitor: bool = False,
-                 precomputed_constraints: bool = False):
+                 precomputed_constraints: bool = False, act_quant: bool = False,
+                 quant_sites: bool = False):
         super().__init__()
         d = dim
         hidden = d * expansion_rate
@@ -332,9 +460,16 @@ class ManifoldHyperConnection(nn.Module):
         self.norm_post_scale = nn.Parameter(torch.ones(d))
         self.norm_post_bias = nn.Parameter(torch.zeros(d))
         self.dropout = Dropout(dropout_rate)
-        # The fused blocks serve the sites whose matrices are all [d, d].
+        # The int8 chain serves the serve branch only, as in JAX.
+        self.int8 = act_quant and precomputed_constraints
+        # The fused blocks serve the bf16 sites whose matrices are all [d, d].
         self.fused = (expansion_rate == 1 and mlp_ratio == 1 and dtype == torch.bfloat16
-                      and dim in SUPPORTED_WIDTHS)
+                      and dim in SUPPORTED_WIDTHS and not self.int8)
+        chain_sites = ("y1_scale", "a1_scale", "a2_scale", "x_scale")
+        self._init_quant(chain_sites if quant_sites else (), chain_sites if self.int8 else ())
+        for name in (INT8_OPERANDS if self.int8 else ()):
+            self.register_buffer(name + "_q", None, persistent=False)
+            self.register_buffer(name + "_s", None, persistent=False)
         self.metrics: dict = {}
         self.h_res_given: Optional[torch.Tensor] = None
         for name in ("h_pre", "h_post", "h_res", "w1_folded"):
@@ -356,13 +491,18 @@ class ManifoldHyperConnection(nn.Module):
         Once installed, later calls copy into the same buffers instead of
         rebinding them: a CUDA graph captured over this layer reads the
         buffers at fixed addresses, and a hot swap must reach it."""
+        device = self.H_res_raw.device
         for name in ("h_pre", "h_post", "h_res", "w1_folded"):
-            value = node[name].to(device=self.H_res_raw.device, dtype=self.dtype)
-            current = getattr(self, name)
-            if current is not None and current.shape == value.shape:
-                current.copy_(value)
-            else:
-                setattr(self, name, value.contiguous())
+            _set_buffer(self, name, node[name].to(device=device, dtype=self.dtype))
+        if self.int8:
+            # From the fp32 matrices, as JAX's chain quantizes them.
+            fp32 = {"w1": node["w1_folded"], "w2": self.mlp_out_kernel.detach(),
+                    "h_post": node["h_post"], "h_res": node["h_res"]}
+            for name in INT8_OPERANDS:
+                q, scale = prepare_dense_weight(fp32[name].to(device=device,
+                                                              dtype=torch.float32))
+                _set_buffer(self, name + "_q", q)
+                _set_buffer(self, name + "_s", scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.precomputed_constraints:
@@ -376,6 +516,10 @@ class ManifoldHyperConnection(nn.Module):
                 "compute_constraints(param_tree(model))) first (Detector does this at load)"
             )
         dt = self.dtype
+        if self.calibrating:
+            return self._serve_chain(x_in)
+        if self.int8:
+            return self._int8_chain(x_in)
         if self.fused:
             # contiguous(): a no-op on the tensors an eager forward makes; under
             # torch.export the traced strides can differ from them.
@@ -386,11 +530,36 @@ class ManifoldHyperConnection(nn.Module):
                 self.norm_post_scale, self.norm_post_bias,
             )
             return out.reshape(x_in.shape)
+        return self._serve_chain(x_in)
+
+    def _serve_chain(self, x_in: torch.Tensor) -> torch.Tensor:
+        """The unfused bf16 serve chain; records its int8 sites when calibrating."""
+        dt = self.dtype
         y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt)
+        self.record("y1_scale", y)
         y = gelu(y @ self.w1_folded + self.mlp_in_bias.to(dt))
+        self.record("a1_scale", y)
         y = gelu(y @ self.mlp_out_kernel.to(dt) + self.mlp_out_bias.to(dt))
+        self.record("a2_scale", y)
+        self.record("x_scale", x_in)
         y = y @ self.h_post
         res = x_in @ self.h_res
+        return _layernorm(res + y, self.norm_post_scale, self.norm_post_bias).to(dt)
+
+    def _int8_chain(self, x_in: torch.Tensor) -> torch.Tensor:
+        """JAX's ``int8_chain``: every product int8 by int8 into int32."""
+        dt = self.dtype
+
+        def product(a: torch.Tensor, site: str, name: str) -> torch.Tensor:
+            scale = self.act_scale(site)
+            return matmul_int8_prepared(quantize_tensor(a, scale), getattr(self, name + "_q"),
+                                        getattr(self, name + "_s"), scale, dt)
+
+        y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt)
+        y = gelu(product(y, "y1_scale", "w1") + self.mlp_in_bias.to(dt))
+        y = gelu(product(y, "a1_scale", "w2") + self.mlp_out_bias.to(dt))
+        y = product(y, "a2_scale", "h_post")
+        res = product(x_in, "x_scale", "h_res")
         return _layernorm(res + y, self.norm_post_scale, self.norm_post_bias).to(dt)
 
     def _train_branch(self, x_in: torch.Tensor) -> torch.Tensor:
@@ -455,42 +624,59 @@ class SqueezeExcite(nn.Module):
         return x * g
 
 
-class DenseAttention(nn.Module):
+class DenseAttention(QuantSites, nn.Module):
     """Multi-head self-attention: dense QKV, matmuls in ``dtype``, softmax in
     fp32 (explicit products, so the roundings follow the JAX layer), dropout
-    on the attention weights in train mode."""
+    on the attention weights in train mode. ``act_quant`` serves the QKV and
+    output projections in int8 (sites ``qkv_in_scale``, ``proj_in_scale``);
+    the attention itself stays in ``dtype`` and fp32."""
+
+    SITES = ("qkv_in_scale", "proj_in_scale")
 
     def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, act_quant: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
-        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
-        self.proj = Dense(dim, dim, dtype=dtype)
+        self.act_quant = act_quant
+        dense = QuantDense if act_quant else Dense
+        self.qkv = dense(dim, 3 * dim, dtype=dtype)
+        self.proj = dense(dim, dim, dtype=dtype)
         self.dropout = Dropout(dropout_rate)
+        self._init_quant(self.SITES, self.SITES if act_quant else ())
+
+    def _project(self, layer: Dense, x: torch.Tensor, site: str) -> torch.Tensor:
+        if self.act_quant:
+            scale = self.act_scale(site)
+            return layer(quantize_tensor(x, scale), scale)
+        self.record(site, x)
+        return layer(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
         head_dim = self.dim // self.num_heads
-        qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, head_dim)
+        qkv = self._project(self.qkv, x, "qkv_in_scale").reshape(b, t, 3, self.num_heads,
+                                                                  head_dim)
         q, k, v = (a.transpose(1, 2) for a in qkv.unbind(dim=2))
         logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(head_dim)
         attn = self.dropout(torch.softmax(logits, dim=-1).to(self.dtype))
         out = (attn @ v).transpose(1, 2).reshape(b, t, self.dim)
-        return self.proj(out)
+        return self._project(self.proj, out, "proj_in_scale")
 
 
 class MHCTransformerBlock(nn.Module):
     """Pre-norm block: ``x + DenseAttention(LN(x))``, then an mHC layer as FFN;
-    ``dropout_rate`` goes to both."""
+    ``dropout_rate`` and ``act_quant`` go to both."""
 
     def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.1, **mhc):
+                 dropout_rate: float = 0.1, act_quant: bool = False, **mhc):
         super().__init__()
         self.dtype = dtype
         self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
-        self.attn = DenseAttention(dim, num_heads, dtype=dtype, dropout_rate=dropout_rate)
+        self.attn = DenseAttention(dim, num_heads, dtype=dtype, dropout_rate=dropout_rate,
+                                   act_quant=act_quant)
         self.mhc_ffn = ManifoldHyperConnection(dim, expansion_rate=1, mlp_ratio=2, dtype=dtype,
-                                               dropout_rate=dropout_rate, **mhc)
+                                               dropout_rate=dropout_rate, act_quant=act_quant,
+                                               quant_sites=True, **mhc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)

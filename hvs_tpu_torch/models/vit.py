@@ -36,16 +36,19 @@ def interpolate_pos_embed(pos: torch.Tensor, src_grid: Tuple[int, int],
 
 class VisionTransformerEncoder(nn.Module):
     """``depth`` pre-norm mHC transformer blocks and a final LayerNorm;
-    ``dropout_rate`` and the mHC options ``mhc`` go to every block."""
+    ``dropout_rate``, ``act_quant`` and the mHC options ``mhc`` go to every
+    block."""
 
     def __init__(self, dim: int = 256, depth: int = 6, num_heads: int = 8,
-                 dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.1, **mhc):
+                 dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.1,
+                 act_quant: bool = False, **mhc):
         super().__init__()
         self.dtype = dtype
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block{i}", MHCTransformerBlock(
-                dim, num_heads, dtype=dtype, dropout_rate=dropout_rate, **mhc))
+                dim, num_heads, dtype=dtype, dropout_rate=dropout_rate, act_quant=act_quant,
+                **mhc))
         self.final_norm = LayerNorm(dim, dtype=dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -59,22 +62,26 @@ class HybridVisionEncoder(nn.Module):
     """CNN <-> ViT bridge on the backbone's ``scale_large`` map [B, h, w, C]:
     1x1 to tokens, + position embeddings, a cls token, the encoder, the cls
     vector broadcast back over the grid, 1x1 back to C channels, added to the
-    input and fused by an mHC layer at width C. ``dropout_rate`` and the mHC
-    options ``mhc`` go to the encoder and the fusion layer."""
+    input and fused by an mHC layer at width C. ``dropout_rate``, the mHC
+    options ``mhc`` and ``act_quant`` (the JAX model's ``act_quant_vit``: the
+    blocks' projections and mHC chains and the fusion's chain in int8; the
+    token convs stay float) go to the encoder and the fusion layer."""
 
     def __init__(self, cnn_channels: int = 512, dim: int = 256, depth: int = 6,
                  num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.1, **mhc):
+                 dropout_rate: float = 0.1, act_quant: bool = False, **mhc):
         super().__init__()
         self.dtype, self.dim = dtype, dim
         self.to_tokens = Conv(cnn_channels, dim, (1, 1), dtype=dtype)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.empty(1, POS_GRID * POS_GRID + 1, dim))
         self.encoder = VisionTransformerEncoder(dim, depth, num_heads, dtype=dtype,
-                                                dropout_rate=dropout_rate, **mhc)
+                                                dropout_rate=dropout_rate, act_quant=act_quant,
+                                                **mhc)
         self.to_cnn = Conv(dim, cnn_channels, (1, 1), dtype=dtype)
         self.mhc_fuse = ManifoldHyperConnection(cnn_channels, 1, 1, dtype=dtype,
-                                                dropout_rate=dropout_rate, **mhc)
+                                                dropout_rate=dropout_rate, act_quant=act_quant,
+                                                quant_sites=True, **mhc)
 
     def reset_parameters(self, g) -> None:
         with torch.no_grad():

@@ -8,6 +8,7 @@ the -4.0 objectness/class bias), ``decode_predictions``,
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
@@ -16,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nms import NMSResult, batched_nms
-from .layers import Conv, ManifoldHyperConnection, group_norm
+from ..ops.quant import quantize_tensor
+from .layers import Conv, ManifoldHyperConnection, QuantConv, QuantSites, group_norm
 
 # COCO anchor sizes in pixels at a 416 input, normalized by 416, ordered from
 # the fine (stride 8) grid to the coarse (stride 32) one.
@@ -54,24 +56,31 @@ def make_anchor_grid(grid_h: int, grid_w: int, anchors) -> np.ndarray:
     return out
 
 
-class YOLOPredictionHead(nn.Module):
+class YOLOPredictionHead(QuantSites, nn.Module):
     """Per-scale tower: 1x1 reduce -> GN/SiLU -> 3x3 -> GN/SiLU -> channel mHC
     -> 1x1 to A*(5+C) logits; returns [B, H, W, A, 5+C]. The mHC keeps the
     layer's default dropout rate (0.1), as the JAX tower passes none; ``mhc``
-    are its other keyword options."""
+    are its other keyword options. ``act_quant``: ``reduce`` and ``conv``
+    take int8 inputs (sites ``x_scale``, ``y1_scale``); the mHC layer and the
+    ``predict`` logits stay bf16, as in JAX."""
+
+    SITES = ("x_scale", "y1_scale")
 
     def __init__(self, in_channels: int, num_classes: int = 80, head_channels: int = 256,
-                 dtype: torch.dtype = torch.bfloat16, **mhc):
+                 dtype: torch.dtype = torch.bfloat16, act_quant: bool = False, **mhc):
         super().__init__()
         self.dtype = dtype
+        self.act_quant = act_quant
         self.per_anchor = 5 + num_classes
-        self.reduce = Conv(in_channels, head_channels, (1, 1), use_bias=False, dtype=dtype)
+        conv = QuantConv if act_quant else partial(Conv, use_bias=False)
+        self.reduce = conv(in_channels, head_channels, (1, 1), dtype=dtype)
         self.GroupNorm_0 = group_norm(head_channels, dtype)
-        self.conv = Conv(head_channels, head_channels, (3, 3), use_bias=False, dtype=dtype)
+        self.conv = conv(head_channels, head_channels, (3, 3), dtype=dtype)
         self.GroupNorm_1 = group_norm(head_channels, dtype)
         self.mhc = ManifoldHyperConnection(head_channels, 1, 1, dtype=dtype, **mhc)
         self.predict = Conv(head_channels, NUM_ANCHORS * self.per_anchor, (1, 1), dtype=dtype,
                             bias_init=self._bias_init)
+        self._init_quant(self.SITES, self.SITES if act_quant else ())
 
     def _bias_init(self, bias: torch.Tensor) -> None:
         # Objectness and class logits start at -4.0, box offsets at 0.
@@ -79,9 +88,16 @@ class YOLOPredictionHead(nn.Module):
         b.fill_(-4.0)
         b[:, :4] = 0.0
 
+    def _conv(self, layer: Conv, x: torch.Tensor, site: str) -> torch.Tensor:
+        if self.act_quant:
+            scale = self.act_scale(site)
+            return layer(quantize_tensor(x, scale), scale)
+        self.record(site, x)
+        return layer(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.silu(self.GroupNorm_0(self.reduce(x.to(self.dtype))))
-        y = self.mhc(F.silu(self.GroupNorm_1(self.conv(y))))
+        y = F.silu(self.GroupNorm_0(self._conv(self.reduce, x.to(self.dtype), "x_scale")))
+        y = self.mhc(F.silu(self.GroupNorm_1(self._conv(self.conv, y, "y1_scale"))))
         out = self.predict(y)
         b, h, w, _ = out.shape
         return out.reshape(b, h, w, NUM_ANCHORS, self.per_anchor)
@@ -126,12 +142,14 @@ class YOLODetectionHead(nn.Module):
     concatenated fine to coarse."""
 
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024), num_classes: int = 80,
-                 head_channels: int = 256, dtype: torch.dtype = torch.bfloat16, **mhc):
+                 head_channels: int = 256, dtype: torch.dtype = torch.bfloat16,
+                 act_quant: bool = False, **mhc):
         super().__init__()
         self.num_classes = num_classes
         for key, c in zip(SCALE_ORDER, in_channels):
             self.add_module(f"head_{key}", YOLOPredictionHead(c, num_classes, head_channels,
-                                                              dtype=dtype, **mhc))
+                                                              dtype=dtype, act_quant=act_quant,
+                                                              **mhc))
         self._anchor_grids: Dict[Any, torch.Tensor] = {}
 
     def _anchor_grid(self, scale_idx: int, h: int, w: int, device) -> torch.Tensor:

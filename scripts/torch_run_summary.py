@@ -1,0 +1,49 @@
+#!/usr/bin/env python
+"""Summary of a ``train_device`` run from its ``steps.jsonl``: the loss's
+window means (``--window`` steps each, as ``STABILITY_r03.json``'s
+``loss_window_means``: 2,500 steps), the first and last 1 % means, the
+largest ``ds_error_max``, the chunks' median ms per step (host clock) and their
+validation losses.
+
+    python scripts/torch_run_summary.py runs/trained [--window 2500]
+"""
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+
+def summarize(run_dir: str, window: int = 2500) -> dict:
+    with open(os.path.join(run_dir, "steps.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    loss = np.array([s["loss"] for s in steps], np.float64)
+    one_pct = max(1, len(loss) // 100)
+    chunks = []
+    path = os.path.join(run_dir, "chunks.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            chunks = [json.loads(line) for line in f]
+    return {
+        "steps": len(steps),
+        "all_finite": bool(np.isfinite(loss).all()),
+        "loss_window_means": [round(float(loss[i:i + window].mean()), 3)
+                              for i in range(0, len(loss), window)],
+        "loss_first_1pct_mean": float(loss[:one_pct].mean()),
+        "loss_last_1pct_mean": float(loss[-one_pct:].mean()),
+        "loss_min": float(loss.min()),
+        "ds_error_max_overall": float(max(s["ds_error_max"] for s in steps)),
+        "grad_norm_p50": float(np.median([s["grad_norm"] for s in steps])),
+        "ms_per_step_median": float(np.median([1e3 / c["steps_per_sec"] for c in chunks]))
+        if chunks else None,
+        "val_losses": [(c["step"], c["val_loss"]) for c in chunks if c.get("val_loss") is not None],
+    }
+
+
+if __name__ == "__main__":
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("run_dir")
+    p.add_argument("--window", type=int, default=2500)
+    a = p.parse_args()
+    print(json.dumps(summarize(a.run_dir, a.window)))

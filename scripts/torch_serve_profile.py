@@ -1,10 +1,12 @@
 """Where the time of the port's 640² serve path goes, on one CUDA card.
 
     python3 scripts/torch_serve_profile.py [--batch 16] [--iters 3] [--trace out.json]
-        [--model flagship|lightweight]
+        [--model flagship|lightweight] [--int8 int8|int8_fpn|int8_mhc|int8_vit|int8_all]
 
 Builds the full-width flagship, or ``LightweightHybridVision`` with the
-serving flags (seeded random weights, bf16), serves it with
+serving flags (seeded random weights, bf16), or with ``--int8`` the
+flagship's int8 twin (that variant's flags; scales calibrated on two seeded
+batches of 8 by its float twin), serves it with
 ``hvs_tpu_torch.inference.Detector``, and runs ``torch.profiler`` over
 ``--iters`` forwards after a warm-up. Prints JSON lines: wall time per
 forward, summed device time per forward, the device's idle share, device time
@@ -29,6 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 IMAGE = 640
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("mhc_block (kernel A or C)", ("mhc_block_kernel",)),
+    ("int8 matmul (_int_mm)", ("s8s8", "i8i8", "imma", "_s8_", "int8")),
     ("sinkhorn forward (kernel B)", ("sinkhorn_forward_cluster", "sinkhorn_forward_streamed")),
     ("sinkhorn backward (kernel B)", ("sinkhorn_backward_cluster", "sinkhorn_backward_streamed")),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "winograd", "fprop")),
@@ -38,6 +41,12 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("copy / layout", ("copy", "memcpy", "memset", "cat", "pad", "index", "gather")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+
+
+# The int8 variants' flags beside act_quant (models/hybrid.py).
+INT8_FLAGS = {"int8": {}, "int8_fpn": {"act_quant_fpn": True},
+              "int8_mhc": {"act_quant_mhc": True}, "int8_vit": {"act_quant_vit": True},
+              "int8_all": {"act_quant_fpn": True, "act_quant_mhc": True, "act_quant_vit": True}}
 
 
 def category(name: str) -> str:
@@ -54,6 +63,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     ap.add_argument("--model", default="flagship", choices=["flagship", "lightweight"])
+    ap.add_argument("--int8", default=None, choices=sorted(INT8_FLAGS),
+                    help="the flagship's int8 twin with this variant's flags")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -64,10 +75,21 @@ def main() -> None:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
-    det = Detector(ProductionHybridVision(seed=0) if args.model == "flagship" else
-                   LightweightHybridVision(precomputed_constraints=True, dropout_rate=0.0, seed=0))
     gen = torch.Generator(device="cuda").manual_seed(0)
     images = torch.rand((args.batch, IMAGE, IMAGE, 3), generator=gen, device="cuda")
+    if args.int8:
+        from hvs_tpu_torch.models.quantize import calibrate_quant_scales, load_quant_scales
+
+        calib = Detector(ProductionHybridVision(seed=0))
+        scales = calibrate_quant_scales(calib.model, [
+            torch.rand((8, IMAGE, IMAGE, 3), generator=gen, device="cuda") for _ in range(2)])
+        del calib
+        det = Detector(ProductionHybridVision(seed=0, act_quant=True, **INT8_FLAGS[args.int8]))
+        load_quant_scales(det.model, scales)
+    else:
+        det = Detector(ProductionHybridVision(seed=0) if args.model == "flagship" else
+                       LightweightHybridVision(precomputed_constraints=True, dropout_rate=0.0,
+                                               seed=0))
     for _ in range(3):
         det(images)
     torch.cuda.synchronize()
@@ -83,7 +105,7 @@ def main() -> None:
         prof.export_chrome_trace(args.trace)
 
     summarize(prof, args.iters, wall_ms, card,
-              {"model": args.model, "batch": args.batch, "image": IMAGE}, "forward")
+              {"model": args.int8 or args.model, "batch": args.batch, "image": IMAGE}, "forward")
 
 
 def summarize(prof, iters: int, wall_ms: float, card: str, head: dict, unit: str) -> None:

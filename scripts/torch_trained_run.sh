@@ -1,0 +1,52 @@
+#!/usr/bin/env bash
+# The port's first trained checkpoint on one card, and what is measured on it:
+# the shapes dataset at 640² (4,000 + 500 images), train_device for STEPS
+# captured steps (8 classes), evaluate at 640² on the 500 val images, the
+# trained-weight checks (scripts/torch_trained_checks.py) and int8
+# calibration and scoring at 416² and 640² (python -m hvs_tpu_torch.quantize).
+# Everything small lands in OUT; the dataset and the checkpoint stay in
+# data/ and runs/ (both gitignored).
+#
+#   bash scripts/torch_trained_run.sh [OUT] [STEPS]
+#
+# With QUANTIZE=0 in the environment the int8 step is left out.
+set -uo pipefail
+OUT=${1:-runs/trained_report}
+STEPS=${2:-10000}
+DATA=data/shapes640
+RUN=runs/trained
+mkdir -p "$OUT"
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
+stamp() { echo "$(date +%s) $*" | tee -a "$OUT/times.txt"; }
+
+stamp start
+if [ ! -f "$DATA/annotations/instances_val.json" ]; then
+  python -m hvs_tpu_torch.make_shapes_dataset --root "$DATA" --size 640 \
+    > "$OUT/make_dataset.log" 2>&1 || { stamp dataset_failed; exit 1; }
+fi
+stamp dataset
+python -m hvs_tpu_torch.train_device --data-root "$DATA" --num-classes 8 \
+  --total-steps "$STEPS" --run-dir "$RUN" > "$OUT/train.log" 2>&1 \
+  || { stamp train_failed; tail -50 "$OUT/train.log"; exit 1; }
+stamp trained
+cp "$RUN"/steps.jsonl "$RUN"/chunks.jsonl "$RUN"/stability_report.json "$OUT"/ 2>/dev/null
+python scripts/torch_run_summary.py "$RUN" > "$OUT/summary.json"
+cat "$OUT/summary.json"
+CKPT="$RUN/checkpoints/final"
+python -m hvs_tpu_torch.evaluate --data-root "$DATA" --split val --image-size 640 \
+  --num-classes 8 --checkpoint "$CKPT" --output "$OUT/eval640.json" > "$OUT/eval.log" 2>&1
+stamp evaluated
+python scripts/torch_trained_checks.py --checkpoint "$CKPT" --data-root "$DATA" \
+  --num-classes 8 --output "$OUT/checks.json" --dump "$OUT/sites.pt" > "$OUT/checks.log" 2>&1
+echo "checks exit $?" | tee -a "$OUT/times.txt"
+stamp checked
+if [ "${QUANTIZE:-1}" != 0 ]; then
+  python -m hvs_tpu_torch.quantize --checkpoint "$CKPT" --data-root "$DATA" \
+    --eval-fpn --eval-mhc --eval-vit --scales-out "$RUN/quant_scales.pt" \
+    --output "$OUT/quant.json" > "$OUT/quant.log" 2>&1
+  echo "quantize exit $?" | tee -a "$OUT/times.txt"
+  stamp quantized
+  tail -n 3 "$OUT/quant.log"
+fi
+tail -n 3 "$OUT/eval.log"
+head -c 3000 "$OUT/checks.json"; echo

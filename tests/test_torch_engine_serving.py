@@ -381,8 +381,9 @@ def test_soft_and_matrix_nms_raise(method):
 
 
 # use_segmentation, use_depth and vit.enabled=False were ported with the
-# multi-task model: their cases now check that the config builds them (the
-# ids keep the ROADMAP item they were ported under); RAG and int8 still raise.
+# multi-task model, and quantization.enabled with int8 serving: their cases
+# now check that the config builds them (the ids keep the ROADMAP item they
+# were ported under); RAG still raises.
 @pytest.mark.parametrize("field,item", [
     ("quantization", "item 8"), ("rag", "item 9"), ("use_segmentation", "item 9"),
     ("use_depth", "item 9"), ("vit", "item 9")])
@@ -404,11 +405,17 @@ def test_parts_not_ported_raise(field, item):
             "use_segmentation": field == "use_segmentation", "use_depth": field == "use_depth",
             "vit": field != "vit"}
         return
+    if field == "quantization":
+        # The int8 twin (flags as JAX's build_model sets them); the engine
+        # needs calibrated scales, as JAX's does.
+        model = cfg.build_model(production=True)
+        assert model.backbone.act_quant and not model.fpn.act_quant
+        assert not cfg.build_model().backbone.act_quant  # a training model stays float
+        with pytest.raises(ValueError, match="requires calibrated scales"):
+            InferenceEngine(cfg, port_inference_config())
+        return
     with pytest.raises(NotImplementedError, match=item):
         cfg.build_model(production=True)
-    if field == "quantization":
-        with pytest.raises(NotImplementedError, match=item):
-            InferenceEngine(cfg, port_inference_config())
 
 
 def test_config_device_and_dtype(tmp_path):

@@ -881,3 +881,102 @@ def test_batch_augment_on_the_card_matches_the_cpu():
     # A generator on the card draws there.
     out, flipped = batch_augment_device(images.cuda(), torch.Generator("cuda").manual_seed(2))
     assert out.device.type == "cuda" and flipped.shape == (8,) and torch.isfinite(out).all()
+
+
+# --- int8 serving: torch._int_mm against the exact integer product ---------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(5, 20, 12), (17, 8, 8), (300, 36, 3), (409600, 288, 32),
+                                   (25600, 2304, 256), (401, 64, 192)])
+def test_int_mm_matches_the_plain_integer_product(m, k, n):
+    """Ragged shapes take the zero padding (M <= 16, K or N not a multiple
+    of 8); the others are flagship site shapes at 640² b16 (stage 1's 3x3,
+    a head tower's 3x3) and the ViT's QKV at b1."""
+    _need_card()
+    from hvs_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b_t = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    before = quant.launches
+    got = quant.int_mm(a.cuda(), b_t.cuda())
+    assert quant.launches == before + 1 and got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), quant.int_mm_plain(a, b_t))
+
+
+def _int8_flagship(**flags):
+    """The full-width int8 serve model on the card, calibrated on two
+    seeded 320² batches of 2."""
+    from hvs_tpu_torch.models import ProductionHybridVision, compute_constraints, \
+        load_constraints, param_tree
+    from hvs_tpu_torch.models.quantize import calibrate_quant_scales, load_quant_scales
+
+    float_model = ProductionHybridVision(device="cuda").eval()
+    load_constraints(float_model, compute_constraints(param_tree(float_model)))
+    g = torch.Generator().manual_seed(0)
+    batches = [torch.randn(2, 320, 320, 3, generator=g).cuda() for _ in range(2)]
+    scales = calibrate_quant_scales(float_model, batches)
+    model = ProductionHybridVision(device="cuda", **flags).eval()
+    model.load_state_dict(float_model.state_dict())
+    load_constraints(model, compute_constraints(param_tree(model)))
+    load_quant_scales(model, scales)
+    return model, scales
+
+
+@pytest.mark.gpu
+def test_int8_products_at_every_site_shape_of_a_b16_forward():
+    _need_card()
+    from hvs_tpu_torch.ops import quant
+
+    model, _ = _int8_flagship(act_quant=True, act_quant_fpn=True, act_quant_mhc=True,
+                              act_quant_vit=True)
+    seen, orig = {}, quant.int_mm
+
+    def spy(a, b_t):
+        seen.setdefault((a.shape[0], a.shape[1], b_t.shape[0]), (a, b_t))
+        return orig(a, b_t)
+
+    quant.int_mm = spy
+    try:
+        with torch.inference_mode():
+            model(torch.randn(16, 640, 640, 3, device="cuda"))
+    finally:
+        quant.int_mm = orig
+    assert len(seen) >= 20
+    for (m, k, n), (a, b_t) in seen.items():
+        assert torch.equal(orig(a, b_t).cpu(), quant.int_mm_plain(a, b_t)), (m, k, n)
+
+
+@pytest.mark.gpu
+def test_int8_engine_replay_matches_eager_and_reload_reaches_the_graph(tmp_path):
+    _need_card()
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+    from hvs_tpu_torch.inference import InferenceEngine
+
+    model, scales = _int8_flagship(act_quant=True, act_quant_mhc=True)
+    torch.save(scales, tmp_path / "scales.pt")
+    mcfg = ModelConfig()
+    mcfg.quantization.enabled, mcfg.quantization.quantize_mhc = True, True
+    mcfg.quantization.scales_path = str(tmp_path / "scales.pt")
+    icfg = InferenceConfig()
+    icfg.preprocessing.image_size = 320
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    engine = InferenceEngine(mcfg, icfg, variables={"params": params})
+    assert engine.kernel_sites == 7
+    entry = engine._serve_fn(2)
+    frames = np.random.default_rng(0).integers(0, 255, (2, 320, 320, 3), np.uint8)
+
+    def replay_and_eager():
+        with engine._serve_lock, torch.cuda.stream(engine._stream):
+            entry.static_in.copy_(torch.from_numpy(frames))
+            out, _ = entry.run(engine._stream)
+            eager = entry.serve_eager(entry.static_in)
+        torch.cuda.synchronize()
+        return out.numpy().copy(), eager.cpu().numpy()
+
+    before, eager = replay_and_eager()
+    assert np.array_equal(before, eager)
+    engine.reload({"params": params, "quant": {k: v * 1.5 for k, v in scales.items()}})
+    after, eager = replay_and_eager()
+    assert np.array_equal(after, eager) and not np.array_equal(before, after)
