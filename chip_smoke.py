@@ -52,12 +52,24 @@ Phases, each of which fails the run with a non-zero exit:
      them; the swap, refused for the failing one, against a fresh engine on
      the seed-1 weights); the health checks (device memory from
      ``torch.cuda.mem_get_info``);
-  7. train: the full-width ``HybridVisionSystem`` (telemetry on, the JAX
+  7. infer: ``python -m hvs_tpu_torch.infer`` in-process (``infer.main``)
+     on one 720x1280 JPEG, a directory of 8, a 24-frame MJPG clip and the
+     synthetic camera, from a checkpoint the port trainer saved with EMA
+     weights: ``results.json``'s keys as ``scripts/inference.py`` writes
+     them, each image's detections bitwise ``engine.infer``'s, kernel A at
+     18 launches per replay, B at 25 at each load, the EMA weights served;
+     hard, soft and matrix NMS in one engine's graphs at buckets 1 and 16
+     (each replay bitwise its eager run; device ms and launches per replay;
+     a hot swap under soft NMS; the card's NMS against the CPU's on the same
+     head outputs, within the bound ``nms_rtol`` states);
+     ``InferenceProfiler`` over the buckets and ``ModelProfiler``'s
+     ``cost_analysis`` of the b16 forward;
+  8. train: the full-width ``HybridVisionSystem`` (telemetry on, the JAX
      dropout rates, bf16) trained by ``ManifoldConstrainedTrainer.train`` on
      the synthetic batches of ``hvs_tpu_torch.train`` (416², batch 8, 8
      classes, 64 boxes) for a few steps with a projection inside, then
      validated over 2 batches; counters zeroed just before, read just after;
-  8. train_chunked: the on-device loop (``train_chunked``) with
+  9. train_chunked: the on-device loop (``train_chunked``) with
      ``train_device``'s defaults: the flagship at 80 classes, 512 seeded
      640² images (16 boxes each) in card memory, one captured train step
      per resolution (416² batch 16, 640² batch 8) replayed for 2 chunks of
@@ -68,9 +80,9 @@ Phases, each of which fails the run with a non-zero exit:
      replays under sync debug mode "error" with one pull per chunk, and the
      launches per step; ms and device ms per step, capture s, peak memory
      per resolution, and one chunk at the ``train`` phase's configuration;
-  9. train_parity: one train step, dropout off, the full-width model at 320²,
+ 10. train_parity: one train step, dropout off, the full-width model at 320²,
      batch 2: the card (kernels) against the CPU (plain versions);
- 10. multitask: ``python -m hvs_tpu_torch.train_multitask``'s run at its
+ 11. multitask: ``python -m hvs_tpu_torch.train_multitask``'s run at its
      defaults (the flagship with the segmentation and depth heads, 8
      classes, 320², batch 8) on 800 synthetic dense images: its set-up
      (data on the card, the captured step and evaluation), 2 chunks of 10
@@ -80,14 +92,14 @@ Phases, each of which fails the run with a non-zero exit:
      10 backward) and per validation batch (B 5, C 18); a replay against
      the eager step from one state; the dense labels reaching the loss at
      the heads' stride; one multi-task step CUDA against CPU in fp32;
- 11. lightweight: ``LightweightHybridVision`` with the serving flags served
+ 12. lightweight: ``LightweightHybridVision`` with the serving flags served
      by ``Detector`` at 640², batch 16 and batch 1 (frames/s, ms/frame, 6
      kernel-A launches per forward at d = 128, B once per matrix at load),
      CUDA against CPU at 320²; kernel A at its 6 sites of both batches, and
      kernel B forward and backward at the bottleneck widths 24, 48, 96 and
      192 and over its 13 matrices in one grouped call, against their plain
      versions;
- 12. data: the data and evaluation layer through its entry points: a shapes
+ 13. data: the data and evaluation layer through its entry points: a shapes
      dataset generated at 640² (8 classes) and a dense one at 320², each
      split's JSON held against its files and an image regenerated alone;
      both decoded (``load_coco_arrays``) and uploaded, the card's tensors
@@ -98,7 +110,7 @@ Phases, each of which fails the run with a non-zero exit:
      ``train_device`` checkpoint (A at 18 per replay, each image's
      detections equal to ``engine.infer`` of its frame, the evaluator's
      numbers equal to a recomputation, the ``--synthetic`` self-check at 1.0);
- 13. int8: int8 serving of the flagship at 640² (``phase_int8``): calibration
+ 14. int8: int8 serving of the flagship at 640² (``phase_int8``): calibration
      on 16 generated frames, an engine per variant (int8, int8_fpn, int8_mhc,
      int8_vit, int8_all) at buckets 1 and 16 with kernel A at 18, 18, 7, 17
      and 6 sites per replay, each replay bitwise its eager serve function,
@@ -108,7 +120,7 @@ Phases, each of which fails the run with a non-zero exit:
 The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
-entry point (3-13) and fails unless they are pinned after it; the plain
+entry point (3-14) and fails unless they are pinned after it; the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -1257,6 +1269,372 @@ def phase_deployment(card: str) -> dict:
                                 abs_tol=1e-3):
         fail(f"deployment health: {row}")
     return {"mhc_block_exported": program_launches, "sinkhorn_per_reload": b_launches}
+
+
+# ---------------------------------------------------------------------------
+# The serve CLI, checkpoints, the NMS methods and the profiler
+
+INFER_RAW_HW = (720, 1280)  # the CLI's JPEGs and video frames
+INFER_DIR_IMAGES = 8
+INFER_VIDEO_FRAMES = 24
+INFER_SYNTHETIC_FRAMES = 30
+NMS_BUCKETS = (1, SERVE_BATCH)
+NMS_METHODS = ("hard", "soft", "matrix")
+# The keys scripts/inference.py writes into results.json, per source, and
+# prints on its last line (tests/test_torch_infer.py holds the port's CLI to
+# the reference script's on the CPU).
+INFER_FILE_KEYS = {"results", "performance"}
+INFER_RESULT_KEYS = {
+    "image": {"file", "num_detections", "detections", "timing_ms"},
+    "video": {"video", "frames", "fps", "latency_mean_ms", "latency_p95_ms", "frames_tracked"},
+    "synthetic": {"source", "frames", "fps", "latency_mean_ms", "latency_p95_ms",
+                  "frames_tracked"}}
+INFER_SUMMARY_KEYS = {"processed", "total_detections", "mean_latency_ms", "results_file"}
+# The card's NMS against the CPU's on the same head outputs. Both sides
+# compute the candidates, boxes and IoUs with the same IEEE operations (each
+# elementwise operation its own kernel, so nothing contracts into an FMA),
+# so hard NMS must agree bitwise. A soft or matrix score is the candidate's
+# score times decay factors exp(.): the card's expf is within 2 ulp of the
+# exact value and the CPU's within 1, so a factor may differ by 3 ulp, and
+# each product rounds once on either side (1 ulp more); an ulp is at most
+# 2^-23 relative, so each factor adds at most 8 * 2^-24. A soft score takes
+# at most M = pre_nms_top_k = 512 factors, a matrix score one. A detection
+# may be kept on one side only where its score lies within that bound of
+# final_threshold, or of the K-th score where all K slots are full.
+NMS_FACTORS = {"hard": 0, "soft": 512, "matrix": 1}
+
+
+def nms_rtol(method: str) -> float:
+    return NMS_FACTORS[method] * 8 * 2.0 ** -24
+
+
+def nms_agreement(card, cpu, method: str, final_threshold: float) -> dict:
+    """Detections of the card's and the CPU's ``NMSResult`` paired by box
+    and class: the largest relative score difference of a pair, and the
+    detections on one side only, each within the bound of a cut or not."""
+    rtol = nms_rtol(method)
+    worst, one_sided, unexplained = 0.0, 0, 0
+    for i in range(card.scores.shape[0]):
+        sides = []
+        for r in (card, cpu):
+            n = int(r.num_valid[i])
+            boxes, scores, classes = (r.boxes[i, :n].cpu().numpy(), r.scores[i, :n].cpu().numpy(),
+                                      r.classes[i, :n].cpu().numpy())
+            found = {}
+            for b, s, c in zip(boxes, scores, classes):
+                found.setdefault((b.tobytes(), int(c)), []).append(float(s))
+            kth = float(scores[-1]) if n == r.scores.shape[1] else None
+            sides.append((found, kth))
+        (a, a_kth), (b, b_kth) = sides
+        for key in set(a) | set(b):
+            sa, sb = sorted(a.get(key, [])), sorted(b.get(key, []))
+            for x, y in zip(sa, sb):
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
+            for s in sa[len(sb):] + sb[len(sa):]:
+                one_sided += 1
+                near = [final_threshold] + [k for k in (a_kth, b_kth) if k is not None]
+                if not any(abs(s - t) <= rtol * abs(s) for t in near):
+                    unexplained += 1
+    return {"rtol": rtol, "max_rel_score_diff": worst, "one_sided": one_sided,
+            "one_sided_outside_bound": unexplained,
+            "agree": worst <= rtol and unexplained == 0}
+
+
+def graph_launches(engine, entry) -> int:
+    """Kernels and memory operations of one replay of a captured serve graph
+    on the card (``torch.profiler``); the replay counts as one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with engine._serve_lock, torch.cuda.stream(engine._stream):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            entry.graph.replay()
+            torch.cuda.synchronize()
+    entry.replays += 1
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def infer_media(workdir: str) -> dict:
+    """One 720x1280 JPEG, a directory of 8, and a 24-frame MJPG clip, from
+    the shapes generator's 640² frames (80 classes) resized."""
+    import cv2
+
+    from hvs_tpu_torch.data import generate_shapes_image
+
+    rng = np.random.default_rng(5)
+    h, w = INFER_RAW_HW
+
+    def frame():
+        image = generate_shapes_image(rng, size=IMAGE, num_classes=80)[0]
+        return np.ascontiguousarray(cv2.resize(image, (w, h))[..., ::-1])
+
+    image = f"{workdir}/image.jpg"
+    cv2.imwrite(image, frame())
+    os.makedirs(f"{workdir}/dir")
+    for i in range(INFER_DIR_IMAGES):
+        cv2.imwrite(f"{workdir}/dir/{i:02d}.jpg", frame())
+    video = f"{workdir}/clip.avi"
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 24, (w, h))
+    for _ in range(INFER_VIDEO_FRAMES):
+        writer.write(frame())
+    writer.release()
+    return {"image": image, "dir": f"{workdir}/dir", "video": video}
+
+
+def save_infer_checkpoint(workdir: str, params: dict, ema: dict) -> str:
+    """``params`` and ``ema`` saved by the port trainer's
+    ``save_checkpoint`` (the train state of a trainer with EMA)."""
+    from hvs_tpu_torch.config import ModelConfig
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+
+    trainer = ManifoldConstrainedTrainer(ModelConfig().build_model(seed=0),
+                                         TrainerConfig(ema_decay=0.999, checkpoint_dir=workdir))
+    trainer.init_state()
+    with torch.no_grad():
+        for name, p in trainer.params().items():
+            p.copy_(params[name])
+            trainer.state.ema_params[name].copy_(ema[name])
+    return trainer.save_checkpoint("infer")
+
+
+def phase_infer(card: str) -> dict:
+    """The serve path's entry point and options at the flagship's published
+    widths (640² letterbox, 80 classes, bf16, seeded conditioned weights):
+      1. a checkpoint saved by the port trainer (params and different EMA
+         weights), served by ``python -m hvs_tpu_torch.infer`` in-process
+         (``infer.main``) on one 720x1280 JPEG, a directory of 8, a 24-frame
+         MJPG clip and the synthetic camera (30 frames): ``results.json``'s
+         keys as ``scripts/inference.py`` writes them, each image's
+         detections bitwise equal to ``engine.infer`` of its decoded frame,
+         kernel A at 18 launches per replay, kernel B at 25 at the load, the
+         EMA weights served; ms per image, frames/s per stream, load s;
+      2. hard, soft and matrix NMS in one engine's graphs at buckets 1 and 16
+         (rebuilt per method): each replay bitwise its eager run, device ms
+         and launches per replay; a hot swap under soft NMS; the card's NMS
+         against the CPU's on the same head outputs (``nms_agreement``);
+      3. ``InferenceProfiler.run`` over the engine's buckets (1, 16) and
+         ``ModelProfiler.cost_analysis`` of the b16 forward.
+    Returns kernel A's and B's launches over the phase's serve paths."""
+    import gc
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from hvs_tpu_torch import infer
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+    from hvs_tpu_torch.data import generate_shapes_image
+    from hvs_tpu_torch.inference import InferenceEngine
+    from hvs_tpu_torch.inference.engine import WARMUP_CALLS
+    from hvs_tpu_torch.models.yolo_head import postprocess_detections
+    from hvs_tpu_torch.utils import InferenceProfiler, ModelProfiler
+
+    workdir = tempfile.mkdtemp(prefix="hvs_infer_smoke_")
+    launches = {"mhc_block": 0, "sinkhorn_forward": 0}
+    try:
+        params, ema = conditioned_params(0), conditioned_params(1)
+        checkpoint = save_infer_checkpoint(workdir, params, ema)
+        media = infer_media(workdir)
+        config = f"{workdir}/inference.json"
+        with open(config, "w") as f:
+            json.dump({"preprocessing": {"image_size": IMAGE},
+                       "performance": {"batch_buckets": [1]}}, f)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 1. The CLI on every source.
+        sources = {"image": ["--image", media["image"]], "dir": ["--dir", media["dir"]],
+                   "video": ["--video", media["video"], "--frames", str(INFER_VIDEO_FRAMES)],
+                   "synthetic": ["--source", "synthetic", "--frames",
+                                 str(INFER_SYNTHETIC_FRAMES)]}
+        rows = {}
+        for name, args in sources.items():
+            zero_counts()
+            t0 = time.perf_counter()
+            run = infer.main([*args, "--checkpoint", checkpoint, "--config", config,
+                              "--output", f"{workdir}/out_{name}"])
+            wall_s = time.perf_counter() - t0
+            counts = kernel_counts()
+            engine = run.engine
+            replays = sum(engine.replays.values())  # the run's, before the checks below
+            with open(run.results_file) as f:
+                written = json.load(f)
+            kind = "image" if name in ("image", "dir") else name
+            keys_ok = (set(written) == INFER_FILE_KEYS and set(run.summary) == INFER_SUMMARY_KEYS
+                       and all(set(r) == INFER_RESULT_KEYS[kind] for r in written["results"]))
+            row = {"phase": "infer_cli", "source": name, "wall_s": wall_s,
+                   "load_s": engine.load_seconds, "graphs": len(engine.replays),
+                   "replays": replays, "kernel_sites": engine.kernel_sites,
+                   "mhc_block_host_launches": counts["mhc_block"],
+                   "sinkhorn_launches_at_load": counts["sinkhorn_forward"],
+                   "keys_as_reference": keys_ok, "summary": run.summary}
+            ok = keys_ok and engine.kernel_sites == KERNEL_SITES and len(engine.replays) == 1 \
+                and counts["mhc_block"] == KERNEL_SITES * (WARMUP_CALLS + 1) \
+                and counts["sinkhorn_forward"] == len(SINKHORN_MIX)
+            if kind == "image":
+                same, dets = 0, 0
+                for r in run.results:
+                    det = engine.infer(cv2.imread(r["file"]))
+                    d = r["detections"]
+                    same += (np.array_equal(np.asarray(d["boxes"], np.float32).reshape(-1, 4),
+                                            det.boxes)
+                             and np.array_equal(np.asarray(d["scores"], np.float32), det.scores)
+                             and np.array_equal(np.asarray(d["classes"]), det.classes))
+                    dets += r["num_detections"]
+                row.update(images=len(run.results), detections=dets,
+                           detections_equal_infer=same,
+                           ms_per_image=float(np.mean([r["timing_ms"]["infer_e2e"]
+                                                       for r in run.results])),
+                           decode_ms_per_image=float(np.mean([r["timing_ms"]["load"]
+                                                              for r in run.results])))
+                ok &= same == len(run.results) and dets > 0 and len(run.results) == (
+                    1 if name == "image" else INFER_DIR_IMAGES)
+            else:
+                r = run.results[0]
+                want = INFER_VIDEO_FRAMES if name == "video" else INFER_SYNTHETIC_FRAMES
+                row.update(frames=r["frames"], fps=r["fps"], latency_mean_ms=r["latency_mean_ms"],
+                           latency_p95_ms=r["latency_p95_ms"])
+                ok &= r["frames"] == want
+            if name == "image":
+                served = dict(engine.model.named_parameters())
+                row["serves_ema"] = all(torch.equal(served[k], ema[k]) for k in served)
+                row["ema_differs"] = not all(torch.equal(params[k], ema[k]) for k in served)
+                ok &= row["serves_ema"] and row["ema_differs"]
+            launches["mhc_block"] += replays * KERNEL_SITES
+            launches["sinkhorn_forward"] += counts["sinkhorn_forward"]
+            row.update(replays=replays, card=card)
+            print(json.dumps(row), flush=True)
+            if not ok:
+                fail(f"infer: the CLI on {name}: {row}")
+            rows[name] = row
+            del engine, run
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # 2. The NMS methods in one engine's graphs.
+        cfg = InferenceConfig()
+        cfg.preprocessing.image_size = IMAGE
+        cfg.performance.batch_buckets = NMS_BUCKETS
+        zero_counts()
+        engine = InferenceEngine(ModelConfig(), cfg, variables={"params": params})
+        b_at_load = sink_mod.launches_forward
+        rng = np.random.default_rng(6)
+        frames = np.stack([generate_shapes_image(rng, size=IMAGE, num_classes=80)[0]
+                           for _ in range(SERVE_BATCH)])
+        nms_rows = {}
+        for method in NMS_METHODS:
+            cfg.postprocessing.nms_method = method
+            engine.rebuild_serve_fns()
+            row = {"phase": "infer_nms", "method": method, "buckets": {}}
+            for b in NMS_BUCKETS:
+                a0 = mhc_mod.launches
+                entry = engine._serve_fn(b)
+                a_per = (mhc_mod.launches - a0) / (WARMUP_CALLS + 1)
+                graph, eager = serve_bucket(engine, b, frames)
+                row["buckets"][b] = {
+                    "captured_for": entry.nms_method, "a_per_replay": a_per,
+                    "bitwise_equal_eager": bool(np.array_equal(graph, eager)),
+                    "detections": int(graph[:, 0, 6].sum()),
+                    "ms": replay_ms(engine, entry), "launches": graph_launches(engine, entry)}
+            if method == "soft":
+                row["reload"] = reload_check(engine, {"params": ema}, {"params": params}, frames)
+            # This method's graphs go at the next rebuild: count their replays now.
+            launches["mhc_block"] += sum(engine.replays.values()) * KERNEL_SITES
+            row["card"] = card
+            print(json.dumps(row), flush=True)
+            nms_rows[method] = row
+            for b, r in row["buckets"].items():
+                if r["captured_for"] != method or r["a_per_replay"] != KERNEL_SITES \
+                        or not r["bitwise_equal_eager"] or r["detections"] == 0:
+                    fail(f"infer: {method} NMS at bucket {b}: {r}")
+        reload = nms_rows["soft"]["reload"]
+        if not (reload["changed"] and reload["equals_eager_after"] and reload["restored"]):
+            fail(f"infer: a hot swap under soft NMS: {reload}")
+        launches["sinkhorn_forward"] += sink_mod.launches_forward  # the load and 2 swaps
+
+        pp = cfg.postprocessing
+        x = torch.from_numpy(frames).to(engine.device).float() / 255.0
+        x = (x - engine._mean) / engine._std
+        with torch.inference_mode():
+            head = engine.model(x)["detection"]
+            head_cpu = {k: v.cpu() for k, v in head.items() if isinstance(v, torch.Tensor)}
+            agreement = {}
+            for method in NMS_METHODS:
+                final = {"hard": pp.score_threshold, "soft": 0.001, "matrix": 0.05}[method]
+                args = (pp.score_threshold, pp.iou_threshold, pp.max_detections,
+                        pp.pre_nms_top_k, method)
+                agreement[method] = nms_agreement(postprocess_detections(head, *args),
+                                                  postprocess_detections(head_cpu, *args),
+                                                  method, final)
+        print(json.dumps({"phase": "infer_nms_card_vs_cpu", "batch": SERVE_BATCH,
+                          "methods": agreement, "card": card}), flush=True)
+        if not all(a["agree"] for a in agreement.values()):
+            fail(f"infer: the card's NMS against the CPU's: {agreement}")
+
+        # 3. The profilers (after the launch counts: not the serve path's),
+        # on the default method's graphs.
+        cfg.postprocessing.nms_method = "hard"
+        engine.rebuild_serve_fns()
+        sweep = InferenceProfiler(lambda b: engine.infer_batch, batch_sizes=NMS_BUCKETS)
+        sweep.run(lambda b: list(frames[:b]), iters=10)
+        model = engine.model
+
+        def forward(images):
+            with torch.inference_mode():
+                return model(images)
+
+        profiler = ModelProfiler(forward, x)
+        costs = profiler.cost_analysis()
+        report = profiler.profile(iters=5)
+        a_flops = sum(8 * n * d * d for n, d in mhc_sites(SERVE_BATCH))
+        prof_row = {"phase": "infer_profilers", "sweep": {str(b): r for b, r in
+                                                          sweep.results.items()},
+                    "optimal_batch": sweep.optimal_batch(),
+                    "scaling_efficiency": {str(b): e for b, e in
+                                           sweep.scaling_efficiency().items()},
+                    "b16_forward_flops": costs["flops"],
+                    "b16_forward_bytes_accessed": costs["bytes accessed"],
+                    "kernel_a_flops": a_flops, "b16_forward_ms": report.wall_time_ms,
+                    "achieved_tflops": report.achieved_tflops, "peak_mem_mb": report.memory_mb,
+                    "recommendations": report.recommendations, "card": card}
+        print(json.dumps(prof_row), flush=True)
+        if not (costs["flops"] > a_flops > 0 and report.wall_time_ms > 0
+                and all(r["latency_ms"] > 0 for r in sweep.results.values())):
+            fail(f"infer: profilers: {prof_row}")
+        summary = {
+            "phase": "infer",
+            "cli_ms_per_image": {k: rows[k]["ms_per_image"] for k in ("image", "dir")},
+            "cli_fps": {k: rows[k]["fps"] for k in ("video", "synthetic")},
+            "cli_load_s": {k: r["load_s"] for k, r in rows.items()},
+            "cli_wall_s": {k: r["wall_s"] for k, r in rows.items()},
+            "nms_replay_ms": {m: {str(b): r["buckets"][b]["ms"] for b in NMS_BUCKETS}
+                              for m, r in nms_rows.items()},
+            "nms_launches_per_replay": {m: {str(b): r["buckets"][b]["launches"]
+                                            for b in NMS_BUCKETS}
+                                        for m, r in nms_rows.items()},
+            "sinkhorn_launches_per_load": b_at_load, "launches": launches, "card": card}
+        print(json.dumps(summary), flush=True)
+        del engine, model, profiler
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
+def reload_check(engine, new: dict, old: dict, frames: np.ndarray) -> dict:
+    """A hot swap to the variables ``new``: the b16 replay changes and
+    equals the eager serve function after it; a swap back to ``old``
+    restores it bitwise."""
+    before, _ = serve_bucket(engine, SERVE_BATCH, frames)
+    engine.reload(new)
+    after, eager_after = serve_bucket(engine, SERVE_BATCH, frames)
+    engine.reload(old)
+    back, _ = serve_bucket(engine, SERVE_BATCH, frames)
+    return {"changed": not np.array_equal(before, after),
+            "max_abs_change": packed_max_diff(before, after),
+            "equals_eager_after": bool(np.array_equal(after, eager_after)),
+            "restored": bool(np.array_equal(before, back))}
 
 
 # ---------------------------------------------------------------------------
@@ -2772,16 +3150,9 @@ def int8_reload_check(engine, scales: dict, frames: np.ndarray) -> dict:
     """Reload with every scale times ``INT8_RELOAD_FACTOR``: the b16 replay
     changes and equals the eager forward; a reload back restores it."""
     params = {k: v.detach().clone() for k, v in engine.model.named_parameters()}
-    before, _ = serve_bucket(engine, SERVE_BATCH, frames)
-    engine.reload({"params": params, "quant": {k: v * INT8_RELOAD_FACTOR
-                                               for k, v in scales.items()}})
-    after, eager_after = serve_bucket(engine, SERVE_BATCH, frames)
-    engine.reload({"params": params, "quant": scales})
-    back, _ = serve_bucket(engine, SERVE_BATCH, frames)
-    return {"changed": not np.array_equal(before, after),
-            "max_abs_change": packed_max_diff(before, after),
-            "equals_eager_after": bool(np.array_equal(after, eager_after)),
-            "restored": bool(np.array_equal(before, back))}
+    return reload_check(engine, {"params": params, "quant": {k: v * INT8_RELOAD_FACTOR
+                                                             for k, v in scales.items()}},
+                        {"params": params, "quant": scales}, frames)
 
 
 def main() -> None:
@@ -2811,6 +3182,7 @@ def main() -> None:
     entry_point_phase(phase_parity, defaults, card)
     entry_point_phase(phase_engine, defaults, card)
     deployment = entry_point_phase(phase_deployment, defaults, card)
+    infer = entry_point_phase(phase_infer, defaults, card)
     train_launches = entry_point_phase(phase_train, defaults, card)
     chunked_launches = entry_point_phase(phase_train_chunked, defaults, card)
     entry_point_phase(phase_train_parity, defaults, card)
@@ -2830,6 +3202,8 @@ def main() -> None:
     for k in kernels:
         k["launches_data"] = data[k["name"]]
     kernels[0]["launches_int8"] = int8["mhc_block"]
+    for k in kernels:
+        k["launches_infer"] = infer.get(k["name"], 0)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

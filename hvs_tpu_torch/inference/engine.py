@@ -9,7 +9,8 @@ graph per bucket (and per registered raw source shape):
   * a serve function takes uint8 NHWC frames, divides by 255 and normalizes,
     runs the flagship forward with the mHC constraints computed at load
     (kernel B at load, kernel A at every eligible mHC site), decodes, runs
-    class-aware hard NMS over the top ``pre_nms_top_k`` candidates,
+    class-aware NMS (``postprocessing.nms_method``: hard, soft or matrix)
+    over the top ``pre_nms_top_k`` candidates,
     optionally ROI-pools appearance embeddings, and packs everything into
     one fp32 [B, K, 7(+C)] tensor, so one device-to-host copy returns a
     batch;
@@ -123,9 +124,12 @@ class _BucketServe:
     """
 
     def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], in_shape, device,
-                 stream=None, pool=None, staged: bool = False):
+                 stream=None, pool=None, staged: bool = False, nms_method: str = "hard"):
         self.fn = fn
         self.device = device
+        # The NMS method is part of what the graph was captured for, as it is
+        # part of the reference's program key.
+        self.nms_method = nms_method
         self.static_in = torch.zeros(in_shape, dtype=torch.uint8, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_out: Optional[torch.Tensor] = None
@@ -236,7 +240,6 @@ class InferenceEngine:
         self.device = resolve_device(self.config.device if device is None else device)
         self.model_config = model_config or ModelConfig(device=self.device.type)
         pin_matmul_precision()
-        self._check_postprocessing()
         self.model = self.model_config.build_model(production=True, device=self.device,
                                                    seed=rng_seed).eval()
         self.image_size = self.config.preprocessing.image_size
@@ -280,12 +283,6 @@ class InferenceEngine:
         self.load_seconds = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
-    def _check_postprocessing(self) -> None:
-        if self.config.postprocessing.nms_method != "hard":
-            raise NotImplementedError(
-                f"nms_method {self.config.postprocessing.nms_method!r} is not ported yet "
-                "(soft and matrix NMS: ROADMAP queue 1, item 9); use 'hard'")
-
     @staticmethod
     def _on(stream):
         return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
@@ -350,9 +347,9 @@ class InferenceEngine:
         """Weights from a checkpoint of the port's trainer
         (``ManifoldConstrainedTrainer.save_checkpoint``: ``<path>`` or
         ``<path>.pt``), its EMA weights when ``use_ema`` is set and it has
-        them. Orbax and flax msgpack checkpoints are not read here (ROADMAP
-        queue 1, item 5): restore them with JAX and pass the params tree as
-        ``variables``."""
+        them. A checkpoint of the JAX package (an orbax directory or a flax
+        msgpack file) is first converted to this format by
+        ``scripts/torch_import_checkpoint.py``."""
         import os
 
         file = path if os.path.isfile(path) else path + ".pt"
@@ -415,10 +412,13 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def _make_serve(self, src_hw: Optional[Tuple[int, int]]):
         """The end-to-end serve function of the letterboxed (``src_hw``
-        None) or raw-frame path. Thresholds are read now and stay fixed."""
-        self._check_postprocessing()
+        None) or raw-frame path. Thresholds and the NMS method are read now
+        and stay fixed."""
         pre, pp = self.config.preprocessing, self.config.postprocessing
         model, mean, std, size = self.model, self._mean, self._std, self.image_size
+        nms = (pp.score_threshold, pp.iou_threshold, pp.max_detections, pp.pre_nms_top_k,
+               pp.nms_method)
+        embeddings = pp.return_embeddings
 
         def serve(images_u8: torch.Tensor) -> torch.Tensor:
             if src_hw is None:
@@ -427,9 +427,8 @@ class InferenceEngine:
                 x = letterbox_raw_batch(images_u8, size, pre.pad_color, pre.bgr_to_rgb)
             if pre.normalize:
                 x = (x - mean) / std
-            det, out = detect(model, x, pp.score_threshold, pp.iou_threshold,
-                              pp.max_detections, pp.pre_nms_top_k)
-            emb = _roi_embeddings(out, det.boxes) if pp.return_embeddings else None
+            det, out = detect(model, x, *nms)
+            emb = _roi_embeddings(out, det.boxes) if embeddings else None
             return _pack_outputs(det, emb)
 
         return serve
@@ -442,7 +441,8 @@ class InferenceEngine:
             entry = self._serve_fns.get(key)
             if entry is None:
                 entry = _BucketServe(self._make_serve(src_hw), in_shape, self.device,
-                                     self._stream, self._pool, staged=src_hw is not None)
+                                     self._stream, self._pool, staged=src_hw is not None,
+                                     nms_method=self.config.postprocessing.nms_method)
                 self._serve_fns[key] = entry
             return entry
 

@@ -7,9 +7,9 @@ The NMS itself runs on the card inside the engine's serve graphs
   * :class:`DetectionPostprocessor` — output-format extraction, scale-weighted
     fusion, temperature calibration, validity filtering, coordinate scaling,
     and tracker hookup (reference pipeline :114-426).
-  * :class:`NMSFilter` — standalone NMS API (hard, through the port's
-    ``nms_fixed`` on CPU tensors; soft and matrix are not ported yet and
-    raise) with a numpy greedy fallback for host-only use.
+  * :class:`NMSFilter` — standalone NMS API (hard, soft and matrix, through
+    the port's ``ops.nms`` on CPU tensors) with a numpy greedy fallback for
+    host-only use.
   * :class:`DetectionTracker` — IoU tracker with track age / min-hits and
     3-frame box smoothing (reference built-in tracker :850-1119).
 """
@@ -55,15 +55,13 @@ def _np_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 class NMSFilter:
-    """Standalone NMS. ``"hard"`` is exact greedy class-aware NMS; ``"soft"``
-    and ``"matrix"`` are not ported yet and raise (ROADMAP queue 1, item 9)."""
+    """Standalone NMS with the hard, soft and matrix methods
+    (``iou_threshold`` applies to hard only, as in the reference)."""
 
     def __init__(self, method: str = "hard", iou_threshold: float = 0.45,
                  score_threshold: float = 0.25, max_detections: int = 100):
-        assert method in ("hard", "soft", "matrix")
-        if method != "hard":
-            raise NotImplementedError(
-                f"NMS method {method!r} is not ported yet (ROADMAP queue 1, item 9); use 'hard'")
+        if method not in ("hard", "soft", "matrix"):
+            raise ValueError(f"unknown NMS method: {method!r}")
         self.method = method
         self.iou_threshold = iou_threshold
         self.score_threshold = score_threshold
@@ -73,15 +71,17 @@ class NMSFilter:
         """NMS on numpy inputs (CPU tensors); returns filtered numpy arrays."""
         import torch
 
-        from ..ops.nms import nms_fixed
+        from ..ops.nms import NMS_METHODS
 
         b = torch.as_tensor(np.asarray(boxes, np.float32)).reshape(-1, 4)
         s = torch.as_tensor(np.asarray(scores, np.float32)).reshape(-1)
         c = torch.as_tensor(np.asarray(classes, np.int32)).reshape(-1)
-        r = nms_fixed(b, s, c, iou_threshold=self.iou_threshold,
-                      score_threshold=self.score_threshold,
+        kwargs = dict(score_threshold=self.score_threshold,
                       max_detections=self.max_detections,
                       pre_nms_top_k=min(512, max(len(s), 1)))
+        if self.method == "hard":
+            kwargs["iou_threshold"] = self.iou_threshold
+        r = NMS_METHODS[self.method](b, s, c, **kwargs)
         k = int(r.num_valid)
         return r.boxes[:k].numpy(), r.scores[:k].numpy(), r.classes[:k].numpy()
 

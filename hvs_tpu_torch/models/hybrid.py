@@ -287,10 +287,11 @@ class ProductionHybridVision(HybridVisionSystem):
 
 
 def detect(model: HybridVisionSystem, images: torch.Tensor, score_threshold: float = 0.25,
-           iou_threshold: float = 0.45, max_detections: int = 100, pre_nms_top_k: int = 512):
+           iou_threshold: float = 0.45, max_detections: int = 100, pre_nms_top_k: int = 512,
+           nms_method: str = "hard"):
     """Forward + on-device postprocess; returns (NMSResult, raw outputs).
     The model's constraints must be installed (see ``constraints.py``)."""
     out = model(images)
     det = postprocess_detections(out["detection"], score_threshold, iou_threshold,
-                                 max_detections, pre_nms_top_k)
+                                 max_detections, pre_nms_top_k, nms_method)
     return det, out

@@ -183,11 +183,13 @@ class YOLODetectionHead(nn.Module):
 
 def postprocess_detections(outputs: Dict[str, torch.Tensor], score_threshold: float = 0.25,
                            iou_threshold: float = 0.45, max_detections: int = 100,
-                           pre_nms_top_k: int = 512) -> NMSResult:
-    """Confidence threshold -> class-aware hard NMS -> fixed top-K, on the
-    device the head ran on. Boxes stay normalized xyxy."""
-    return batched_nms(
-        outputs["boxes"], outputs["class_scores"], outputs["class_indices"],
-        score_threshold=score_threshold, iou_threshold=iou_threshold,
-        max_detections=max_detections, pre_nms_top_k=pre_nms_top_k,
-    )
+                           pre_nms_top_k: int = 512, nms_method: str = "hard") -> NMSResult:
+    """Confidence threshold -> class-aware NMS (``nms_method``: hard, soft or
+    matrix) -> fixed top-K, on the device the head ran on. ``iou_threshold``
+    goes to hard NMS only, as in the reference. Boxes stay normalized xyxy."""
+    kwargs = dict(score_threshold=score_threshold, max_detections=max_detections,
+                  pre_nms_top_k=pre_nms_top_k)
+    if nms_method == "hard":
+        kwargs["iou_threshold"] = iou_threshold
+    return batched_nms(outputs["boxes"], outputs["class_scores"], outputs["class_indices"],
+                       method=nms_method, **kwargs)

@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 SUPPORTED_WIDTHS = (32, 64, 128, 256, 512)
 # Token rows per block and threads per block of each width, as
@@ -204,6 +205,14 @@ _LIB.impl("mhc_block", _mhc_block_cuda, "CUDA")
 _LIB.impl("mhc_block", mhc_block_plain, "CPU")
 torch.library.register_fake("hvs::mhc_block", _mhc_block_fake, lib=_LIB)
 mhc_block_op = torch.ops.hvs.mhc_block.default
+
+
+@register_flop_formula(torch.ops.hvs.mhc_block)
+def _mhc_block_flops(x_shape, *operand_shapes, out_shape=None, **kwargs) -> int:
+    """Four [N, d] x [d, d] products (W1_folded, W2, H_post, H_res): 8·N·d²
+    (what ``torch.utils.flop_counter.FlopCounterMode`` counts for the operator)."""
+    n, d = x_shape
+    return 8 * n * d * d
 
 
 def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,

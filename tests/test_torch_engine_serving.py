@@ -370,14 +370,27 @@ def test_precision_helper_pins_the_three_flags():
             setattr(o, n, v)
 
 
+# Soft and matrix NMS were ported: the cases now check that the engine and
+# NMSFilter take them (the graphs record the method they were built for, and
+# a rebuild picks up a new one), and that an unknown method still raises.
 @pytest.mark.parametrize("method", ["soft", "matrix"])
 def test_soft_and_matrix_nms_raise(method):
     cfg = port_inference_config()
     cfg.postprocessing.nms_method = method
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        InferenceEngine(port_model_config(), cfg)
-    with pytest.raises(NotImplementedError):
-        NMSFilter(method)
+    engine = InferenceEngine(port_model_config(), cfg)
+    det = engine.infer(_image())
+    assert engine._serve_fns[1].nms_method == method and np.isfinite(det.scores).all()
+    cfg.postprocessing.nms_method = "hard"
+    engine.rebuild_serve_fns()
+    engine.infer(_image())
+    assert engine._serve_fns[1].nms_method == "hard"
+    assert NMSFilter(method).method == method
+    with pytest.raises(ValueError, match="unknown NMS method"):
+        NMSFilter("greedy")
+    cfg.postprocessing.nms_method = "greedy"
+    engine.rebuild_serve_fns()
+    with pytest.raises(ValueError, match="unknown NMS method"):
+        engine.infer(_image())
 
 
 # use_segmentation, use_depth and vit.enabled=False were ported with the

@@ -980,3 +980,64 @@ def test_int8_engine_replay_matches_eager_and_reload_reaches_the_graph(tmp_path)
     engine.reload({"params": params, "quant": {k: v * 1.5 for k, v in scales.items()}})
     after, eager = replay_and_eager()
     assert np.array_equal(after, eager) and not np.array_equal(before, after)
+
+
+# ---------------------------------------------------------------------------
+# Soft and matrix NMS in the engine's graphs; the inference CLI
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["soft", "matrix"])
+def test_engine_soft_and_matrix_nms_replay_equals_eager(method):
+    """A graph captured with soft or matrix NMS at bucket 4 (soft NMS runs
+    all pre_nms_top_k trips under the capture) equals its eager run. The
+    head is conditioned (kernels x4, objectness and class biases 1) so that
+    decayed scores pass matrix NMS's final threshold of 0.05."""
+    _need_card()
+    engine = _tiny_card_engine()
+    params = {k: v.detach().clone() for k, v in engine.model.named_parameters()}
+    for name, value in params.items():
+        if ".predict." in name and name.endswith("kernel"):
+            value.mul_(4.0)
+        elif ".predict." in name:
+            value.view(3, -1)[:, 4:] = 1.0
+    engine.reload({"params": params})
+    engine.config.postprocessing.nms_method = method
+    engine.config.performance.batch_buckets = (1, 4)
+    engine.rebuild_serve_fns()
+    entry = engine._serve_fn(4)
+    with engine._serve_lock, torch.cuda.stream(engine._stream):
+        entry.stage(_frames(3, 4, 64, 64), engine._stream)
+        out, done = entry.run(engine._stream)
+        eager = entry.serve_eager(entry.static_in)
+        torch.cuda.synchronize()
+    assert entry.graph is not None and entry.nms_method == method
+    assert out[:, 0, 6].sum() > 0
+    assert torch.equal(out, eager.cpu())
+
+
+@pytest.mark.gpu
+def test_infer_cli_on_the_card(tmp_path):
+    """``python -m hvs_tpu_torch.infer --tiny`` on one image on the card: the
+    results file's keys, and the image's detections bitwise those of
+    ``engine.infer`` on the decoded frame."""
+    _need_card()
+    import json
+
+    import cv2
+
+    from hvs_tpu_torch import infer
+
+    image = str(tmp_path / "frame.jpg")
+    cv2.imwrite(image, _frames(4, 1, 120, 160)[0])
+    run = infer.main(["--tiny", "--image", image, "--score-threshold", "1e-4",
+                      "--output", str(tmp_path / "out")])
+    assert run.engine.device.type == "cuda" and run.engine._serve_fns[1].graph is not None
+    det = run.engine.infer(cv2.imread(image))
+    got = run.results[0]["detections"]
+    assert run.results[0]["num_detections"] == len(det) > 0
+    assert np.array_equal(np.asarray(got["boxes"], np.float32).reshape(-1, 4), det.boxes)
+    assert np.array_equal(np.asarray(got["scores"], np.float32), det.scores)
+    assert np.array_equal(np.asarray(got["classes"]), det.classes)
+    with open(run.results_file) as f:
+        assert set(json.load(f)) == {"results", "performance"}
