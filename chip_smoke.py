@@ -82,6 +82,17 @@ Phases, each of which fails the run with a non-zero exit:
      per resolution, and one chunk at the ``train`` phase's configuration;
  10. train_parity: one train step, dropout off, the full-width model at 320²,
      batch 2: the card (kernels) against the CPU (plain versions);
+     train_trajectory: 120 steps of the full-width model in bf16 (dropout
+     off) through the captured chunk steps at 128² and 160² alternating, a
+     warm-up of 30, a projection at step 100, the EMA on, against the same
+     steps on this machine's CPU fed the same draws: 20-step window means of
+     the loss within 10 % and the largest grad norm after step 20 within
+     JAX's own bf16/fp32 spread;
+     ddp: ``train_device``'s captured step at 416² batch 16 data-parallel
+     over an NCCL process group of one process (its all-reduces captured),
+     against the step without a process group from the same state, with the
+     step's ms with and without the all-reduce, and a captured validation
+     pass;
  11. multitask: ``python -m hvs_tpu_torch.train_multitask``'s run at its
      defaults (the flagship with the segmentation and depth heads, 8
      classes, 320², batch 8) on 800 synthetic dense images: its set-up
@@ -244,6 +255,30 @@ TRAIN_PARITY = {
     "bfloat16": {"loss_rtol": 0.02, "grad_norm_rtol": 0.05, "h_res_grad_min_cos": 0.8,
                  "mhc_update_min_cos": 0.9},
 }
+
+# The train_trajectory phase: the full-width flagship (8 classes, bf16,
+# dropout off) trained on the card through its captured TrainChunk steps and
+# on this machine's CPU through the same chunk bodies eagerly, fed the
+# card's draws, from the same weights: sizes 128² and 160² alternating by
+# chunk of 10, batch 4, warm-up 30 (the peak rate reached), step 100 a
+# projection step, EMA 0.999, 64 shapes-benchmark frames at 160². The card
+# and the CPU run one program in bf16 and differ by rounding alone. The loss
+# limit: 20-step window means within 10 %, between JAX's own seed-to-seed
+# spread at this configuration on the CPU (6.0 %) and its bf16-to-fp32 spread
+# (18.5 %) (scripts/torch_train_parity.py trajectory, 200 steps). The grad
+# norm: the largest after the first 20 steps (the init transient, where bf16
+# rounding at init sets every run's largest), within JAX's bf16-to-fp32
+# spread of that largest, a factor 1.80 either way (the same record).
+TRAJ_SIZES, TRAJ_BATCH, TRAJ_CHUNK, TRAJ_STEPS, TRAJ_WINDOW = (128, 160), 4, 10, 120, 20
+TRAJ_IMAGES, TRAJ_IMAGE, TRAJ_WARMUP, TRAJ_CLASSES, TRAJ_BOXES = 64, 160, 30, 8, 16
+TRAJ_LOSS_WINDOW_RTOL = 0.10
+TRAJ_TRANSIENT = 20
+TRAJ_GRAD_NORM_RATIO = 1.80
+# The ddp phase: train_device's captured step at 416² batch 16 (80 classes),
+# data parallel over an NCCL process group of one process (a localhost TCP
+# store), against the same step without a process group; 64 seeded 640²
+# images, validation over 16 at 640² batch 4.
+DDP_IMAGE, DDP_BATCH, DDP_IMAGES, DDP_VAL_IMAGES, DDP_VAL_BATCH = 416, 16, 64, 16, 4
 
 
 def fail(msg: str) -> None:
@@ -2385,6 +2420,241 @@ def train_step_pair(dtype: torch.dtype, task: str = "detection") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Training held against its CPU run, and data parallelism
+
+
+def shapes_arrays(n: int, size: int, seed: int, max_boxes: int):
+    """``n`` frames of the shapes benchmark (``data/shapes.py``'s generator)
+    as ``load_coco_arrays`` returns them: uint8 images, normalized cxcywh
+    boxes, labels and mask, padded to ``max_boxes``."""
+    from hvs_tpu_torch.data.shapes import generate_image
+
+    rng = np.random.default_rng(seed)
+    images = np.zeros((n, size, size, 3), np.uint8)
+    boxes = np.zeros((n, max_boxes, 4), np.float32)
+    labels = np.zeros((n, max_boxes), np.int32)
+    mask = np.zeros((n, max_boxes), np.float32)
+    for i in range(n):
+        img, xywh, lab = generate_image(rng, size=size)
+        k = min(len(lab), max_boxes)
+        x, y, w, h = (xywh[:k, j] for j in range(4))
+        images[i] = img
+        boxes[i, :k] = np.stack([(x + w / 2) / size, (y + h / 2) / size, w / size, h / size], -1)
+        labels[i, :k] = lab[:k]
+        mask[i, :k] = 1.0
+    return images, boxes, labels, mask
+
+
+def phase_train_trajectory(card: str, steps: int = TRAJ_STEPS, sizes=TRAJ_SIZES,
+                           batch: int = TRAJ_BATCH, warmup: int = TRAJ_WARMUP) -> dict:
+    """``steps`` steps of the full-width flagship in bf16 (dropout off)
+    on the card, through its captured ``TrainChunk`` steps, against the same
+    steps on this machine's CPU through the chunk bodies run eagerly, fed
+    the draws each replay made, from the same weights. Compares the 20-step
+    window means of the loss and the largest grad norm after the first 20
+    steps within the limits above. Returns kernel B's launches on the card's path (each captured
+    step's times its replays; counters zeroed just before).
+    ``scripts/torch_train_parity.py trajectory --device cuda`` calls it with
+    its own steps, sizes, batch and warm-up."""
+    import copy
+
+    from hvs_tpu_torch.data import AugmentDraws, put_device_data
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.models.layers import Dropout
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+    from hvs_tpu_torch.training.chunk import TrainChunk
+
+    arrays = shapes_arrays(TRAJ_IMAGES, TRAJ_IMAGE, seed=0, max_boxes=TRAJ_BOXES)
+    model = HybridVisionSystem(num_classes=TRAJ_CLASSES, monitor=True, seed=0)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    cpu_model = copy.deepcopy(model).to("cpu")
+    config = TrainerConfig(num_classes=TRAJ_CLASSES, max_boxes=TRAJ_BOXES,
+                           warmup_steps=warmup, total_steps=6000, ema_decay=0.999)
+    zero_counts()
+    sides = {}
+    for name, m, dev in (("cuda", model, torch.device("cuda")),
+                         ("cpu", cpu_model, torch.device("cpu"))):
+        trainer = ManifoldConstrainedTrainer(m, config, device=dev, seed=0)
+        trainer.init_state()
+        data = put_device_data(*arrays, device=dev)
+        sides[name] = (trainer, {o: TrainChunk(trainer, data, o, batch, TRAJ_CHUNK)
+                                 for o in sizes})
+    rows = {"cuda": [], "cpu": []}
+    seconds = {"cuda": 0.0, "cpu": 0.0}
+    for i in range(steps):
+        size = sizes[(i // TRAJ_CHUNK) % len(sizes)]
+        card_chunk, cpu_chunk = sides["cuda"][1][size], sides["cpu"][1][size]
+        if i % TRAJ_CHUNK == 0:
+            card_chunk.pos.zero_()
+            cpu_chunk.pos.zero_()
+        t0 = time.perf_counter()
+        card_chunk.replay()
+        torch.cuda.synchronize()
+        seconds["cuda"] += time.perf_counter() - t0
+        draws = AugmentDraws(*(d.cpu() for d in card_chunk.last_draws))
+        t0 = time.perf_counter()
+        cpu_chunk.step(draws)
+        seconds["cpu"] += time.perf_counter() - t0
+        if (i + 1) % TRAJ_CHUNK == 0:
+            for side, chunk in (("cuda", card_chunk), ("cpu", cpu_chunk)):
+                host = chunk.pull()
+                rows[side] += [{k: float(v[j]) for k, v in host.items()}
+                               for j in range(TRAJ_CHUNK)]
+    launches = {k: sum(c.launches[k] * c.replays for c in sides["cuda"][1].values())
+                for k in kernel_counts()}
+
+    def windows(side, key):
+        v = np.array([r[key] for r in rows[side]], np.float64)
+        return v.reshape(-1, TRAJ_WINDOW).mean(1)
+
+    card_w, cpu_w = windows("cuda", "loss"), windows("cpu", "loss")
+    gap = float(np.max(np.abs(card_w - cpu_w) / np.abs(cpu_w)))
+    g_card = max(r["grad_norm"] for r in rows["cuda"][TRAJ_TRANSIENT:])
+    g_cpu = max(r["grad_norm"] for r in rows["cpu"][TRAJ_TRANSIENT:])
+    finite = bool(np.isfinite([r[k] for side in rows for r in rows[side]
+                               for k in ("loss", "grad_norm")]).all())
+    row = {"phase": "train_trajectory", "steps": steps, "sizes": list(sizes),
+           "batch": batch, "dtype": "bfloat16",
+           "loss_window_means_cuda": card_w.round(4).tolist(),
+           "loss_window_means_cpu": cpu_w.round(4).tolist(),
+           "loss_window_max_rel_gap": gap, "limit_loss_window_rtol": TRAJ_LOSS_WINDOW_RTOL,
+           "grad_norm_max_after_transient_cuda": g_card,
+           "grad_norm_max_after_transient_cpu": g_cpu, "transient_steps": TRAJ_TRANSIENT,
+           "grad_norm_max_cuda": max(r["grad_norm"] for r in rows["cuda"]),
+           "grad_norm_max_cpu": max(r["grad_norm"] for r in rows["cpu"]),
+           "grad_norm_p50_cuda": float(np.median([r["grad_norm"] for r in rows["cuda"]])),
+           "grad_norm_p50_cpu": float(np.median([r["grad_norm"] for r in rows["cpu"]])),
+           "limit_grad_norm_ratio": TRAJ_GRAD_NORM_RATIO,
+           "lr_last": rows["cuda"][-1]["lr"], "projection_at_step": config.project_every,
+           "ms_per_step_cuda": 1e3 * seconds["cuda"] / steps,
+           "ms_per_step_cpu": 1e3 * seconds["cpu"] / steps,
+           "launches_per_step": sides["cuda"][1][sizes[0]].launches,
+           "launches": launches, "card": card}
+    print(json.dumps(row), flush=True)
+    ratio = g_card / g_cpu
+    if not (finite and gap <= TRAJ_LOSS_WINDOW_RTOL
+            and 1 / TRAJ_GRAD_NORM_RATIO <= ratio <= TRAJ_GRAD_NORM_RATIO):
+        fail(f"train_trajectory: the card's run parts from the CPU's beyond the limits: {row}")
+    return launches
+
+
+def phase_ddp(card: str) -> dict:
+    """``train_device``'s captured step (416² batch 16) data-parallel over an
+    NCCL process group of one process (``init_process_group`` with a
+    ``tcp://127.0.0.1`` store, in this process), its all-reduces captured in
+    the graph, with a captured validation pass; then the same step without a
+    process group, from the same weights and generator. One replay of each
+    from the same state (a projection step): forward metrics bitwise equal,
+    the grad norm within the fp32 train-parity limit (the backward's atomics
+    order sums differently in two graphs), every parameter within 2·lr, the
+    update's cosine above 0.999; then ms per step with and without the
+    all-reduce (plain, data-parallel, data-parallel, plain; CUDA events).
+    Returns the data-parallel path's launches (counters zeroed before it)."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from hvs_tpu_torch.data import put_device_data
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.parallel import Mesh, make_mesh
+    from hvs_tpu_torch.train_device import synthetic_arrays
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+    from hvs_tpu_torch.training.chunk import TrainChunk, ValChunk
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh()
+        if not (mesh.distributed and mesh.shape == {"data": 1, "model": 1}):
+            fail(f"ddp: make_mesh() under a process group gave {mesh}")
+        data = put_device_data(*synthetic_arrays(DDP_IMAGES, IMAGE, CHUNK_BOXES, CHUNK_CLASSES,
+                                                 seed=0))
+        val_data = put_device_data(*synthetic_arrays(DDP_VAL_IMAGES, IMAGE, CHUNK_BOXES,
+                                                     CHUNK_CLASSES, seed=1))
+        model = HybridVisionSystem(num_classes=CHUNK_CLASSES, monitor=True, seed=0)
+        plain_model = copy.deepcopy(model)
+        config = TrainerConfig(num_classes=CHUNK_CLASSES, max_boxes=CHUNK_BOXES,
+                               ema_decay=0.999)
+        pool = torch.cuda.graph_pool_handle()
+        zero_counts()
+        ddp = ManifoldConstrainedTrainer(model, config, seed=0, mesh=mesh)
+        ddp.init_state()
+        t0 = time.perf_counter()
+        chunk = TrainChunk(ddp, data, DDP_IMAGE, ddp._share(DDP_BATCH), CHUNK_STEPS, pool=pool)
+        capture_s = time.perf_counter() - t0
+        val = ValChunk(ddp, val_data, DDP_VAL_BATCH, IMAGE, DDP_VAL_IMAGES // DDP_VAL_BATCH,
+                       pool=pool)
+        plain = ManifoldConstrainedTrainer(plain_model, config, seed=0, mesh=Mesh(data=1))
+        plain.init_state()
+        plain_chunk = TrainChunk(plain, data, DDP_IMAGE, DDP_BATCH, CHUNK_STEPS, pool=pool)
+
+        # One replay of each from the same state, at a projection step.
+        results = {}
+        count = config.project_every - 1
+        for name, t, c in (("ddp", ddp, chunk), ("plain", plain, plain_chunk)):
+            t.tx.count.fill_(count)
+            t.lr_scale_t.fill_(1.0)
+            start = [p.detach().clone() for p in t.params().values()]
+            c.pos.zero_()
+            c.replay()
+            torch.cuda.synchronize()
+            results[name] = {
+                "row": dict(zip(c.keys, c.metrics[0].tolist())),
+                "update": torch.cat([(p.detach() - s).flatten().float()
+                                     for p, s in zip(t.params().values(), start)]),
+                "draws": tuple(d.clone() for d in c.last_draws)}
+        d, p = results["ddp"], results["plain"]
+        same_draws = all(torch.equal(a, b) for a, b in zip(d["draws"], p["draws"]))
+        forward_equal = all(d["row"][k] == p["row"][k] for k in d["row"]
+                            if k not in ("grad_norm",))
+        grad_rel = abs(d["row"]["grad_norm"] - p["row"]["grad_norm"]) / p["row"]["grad_norm"]
+        cos = float((d["update"] * p["update"]).sum()
+                    / (d["update"].norm() * p["update"].norm() + 1e-30))
+        max_diff = float((d["update"] - p["update"]).abs().max())
+        limit = 2 * ddp.schedule(count) + 1e-6
+        bitwise = bool(torch.equal(d["update"], p["update"])) and forward_equal
+
+        # ms per step: plain, data-parallel, data-parallel, plain.
+        for c in (plain_chunk, chunk, chunk, plain_chunk):
+            c.run()
+        v = val.run()
+        torch.cuda.synchronize()
+        launches = {k: chunk.launches[k] * chunk.replays + val.launches[k] * val.replays
+                    for k in kernel_counts()}
+        tol = TRAIN_PARITY["float32"]
+        row = {"phase": "ddp", "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+               "image": DDP_IMAGE, "batch": DDP_BATCH, "classes": CHUNK_CLASSES,
+               "capture_s": capture_s, "captured_with_all_reduce": chunk.graph is not None,
+               "same_draws": same_draws, "forward_metrics_equal": forward_equal,
+               "bitwise": bitwise, "grad_norm_rel_diff": grad_rel, "update_cos": cos,
+               "param_max_abs_diff": max_diff, "param_limit": limit,
+               "ms_per_step_ddp": [t["device_ms"] / CHUNK_STEPS for t in chunk.timings],
+               "ms_per_step_plain": [t["device_ms"] / CHUNK_STEPS for t in plain_chunk.timings],
+               "val_loss": v, "launches_per_step": chunk.launches,
+               "launches_per_val_batch": val.launches, "launches": launches, "card": card}
+        print(json.dumps(row), flush=True)
+        if not (same_draws and forward_equal and grad_rel <= tol["grad_norm_rtol"]
+                and cos > tol["mhc_update_min_cos"] and max_diff <= limit
+                and np.isfinite(v) and chunk.graph is not None):
+            fail(f"ddp: the data-parallel replay disagrees with the plain one: {row}")
+        n_widths = len(set(SINKHORN_MIX))
+        if (chunk.launches["sinkhorn_forward"], chunk.launches["sinkhorn_backward"],
+                val.launches["mhc_block_unfolded"]) != (3 * n_widths, 2 * n_widths,
+                                                        KERNEL_SITES):
+            fail(f"ddp: launches per step {chunk.launches}, per validation batch "
+                 f"{val.launches}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # The multi-task model and the lightweight variant
 
 
@@ -3186,6 +3456,8 @@ def main() -> None:
     train_launches = entry_point_phase(phase_train, defaults, card)
     chunked_launches = entry_point_phase(phase_train_chunked, defaults, card)
     entry_point_phase(phase_train_parity, defaults, card)
+    trajectory_launches = entry_point_phase(phase_train_trajectory, defaults, card)
+    ddp_launches = entry_point_phase(phase_ddp, defaults, card)
     multitask_launches = entry_point_phase(phase_multitask, defaults, card)
     light = entry_point_phase(phase_lightweight, defaults, card, sm_clock_hz)
     data = entry_point_phase(phase_data, defaults, card)
@@ -3204,6 +3476,8 @@ def main() -> None:
     kernels[0]["launches_int8"] = int8["mhc_block"]
     for k in kernels:
         k["launches_infer"] = infer.get(k["name"], 0)
+        k["launches_trajectory"] = trajectory_launches[k["name"]]
+        k["launches_ddp"] = ddp_launches[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

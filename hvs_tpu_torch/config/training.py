@@ -5,8 +5,8 @@ Counterpart of ``hvs_tpu/config/training.py`` with the same fields and
 defaults. ``TrainingConfig.trainer_config`` builds the port's
 ``TrainerConfig``. ``device="auto"`` resolves to ``cuda`` and raises without
 a card, as for every config of the port (``config/base.py``); the
-``distributed`` block is kept for file compatibility and read by nothing
-yet (data parallelism: ROADMAP queue 1, item 6).
+``distributed`` block joins the processes and shapes the mesh
+(``parallel.setup``).
 """
 
 from __future__ import annotations
@@ -91,8 +91,11 @@ class LossConfig:
 
 @dataclass
 class DistributedConfig:
-    """Multi-process data parallelism (kept for file compatibility; not
-    read by the port yet)."""
+    """Multi-process data parallelism, one process per card: ``enabled``
+    joins ``num_processes`` processes at ``coordinator_address`` as
+    ``process_id`` (else torchrun's environment, if any, is read);
+    ``data_parallel`` (-1: all processes) and ``model_parallel`` size the
+    mesh (``parallel.setup`` reads it)."""
 
     enabled: bool = False
     data_parallel: int = -1  # -1 = all devices

@@ -1,7 +1,7 @@
 """Data: the shapes benchmark generator, the COCO reader and host loaders with
 their transforms, the letterbox, camera streaming, and the dataset held in
 device memory with sampling and augmentation on the device (counterpart of
-``hvs_tpu/data``; ``ShardedDataLoader`` waits for ROADMAP queue 1, item 6).
+``hvs_tpu/data``).
 Importing it needs no cv2: only the functions that decode, draw or resize
 import it."""
 
@@ -11,7 +11,7 @@ from .dataset import (BaseVisionDataset, letterbox, letterbox_cv2, letterbox_geo
 from .device_pipeline import (AugmentConfig, AugmentDraws, DenseData, DeviceData, apply_augment,
                               dense_batch, draw_augment, eval_batch, load_coco_arrays,
                               put_dense_data, put_device_data, warp_images)
-from .loader import MHCDataLoader, StreamingDataLoader, default_collate
+from .loader import MHCDataLoader, ShardedDataLoader, StreamingDataLoader, default_collate
 from .shapes import SHAPE80_CLASSES, SHAPE_CLASSES, class_names_for
 from .shapes import generate_dataset as generate_shapes_dataset
 from .shapes import generate_image as generate_shapes_image
@@ -29,7 +29,7 @@ __all__ = [
     "MHCTransformComposer", "AdaptiveAugmentation", "BatchAugmentDraws", "batch_augment_device",
     "draw_batch_augment", "apply_batch_augment", "mosaic", "mixup", "hflip", "color_jitter",
     "random_resized_crop", "rotate_small", "random_erasing",
-    "MHCDataLoader", "StreamingDataLoader", "default_collate",
+    "MHCDataLoader", "ShardedDataLoader", "StreamingDataLoader", "default_collate",
     "Frame", "MultiCameraManager", "RoboticCameraStream", "StreamConfig", "StreamType",
     "AugmentConfig", "AugmentDraws", "DeviceData", "DenseData", "apply_augment", "dense_batch",
     "draw_augment", "eval_batch", "load_coco_arrays", "put_dense_data", "put_device_data",

@@ -155,7 +155,8 @@ def load_coco_arrays(root: str, split: str, max_boxes: int = 64, limit: Optional
 def put_device_data(images: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
                     mask: np.ndarray, device: DeviceLike = None) -> DeviceData:
     """Upload a split to ``device`` (the CUDA card unless ``device="cpu"``).
-    Sharding over a mesh waits for ROADMAP queue 1 item 6."""
+    Under data parallelism every process uploads the whole split to its
+    card, as JAX's ``put_device_data(mesh=)`` replicates it."""
     dev = resolve_device(device)
 
     def put(a, dtype):

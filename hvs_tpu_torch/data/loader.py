@@ -12,8 +12,9 @@ Counterpart of ``hvs_tpu/data/loader.py`` (numpy and cv2, copied):
   * ``StreamingDataLoader``: a cv2 capture thread with frame skipping to a
     target rate and a bounded queue that drops the oldest frame.
 
-``ShardedDataLoader`` (one index shard per process) waits for data
-parallelism (ROADMAP queue 1, item 6).
+  * ``ShardedDataLoader``: one contiguous index shard per data-parallel
+    process (``_ShardView``; the remainder dropped, as JAX drops it), its
+    batches handed to the trainer as this process's share.
 """
 
 from __future__ import annotations
@@ -147,6 +148,60 @@ class MHCDataLoader:
             for t in threads:
                 t.join(timeout=2.0)
         self.epoch += 1
+
+
+class ShardedDataLoader:
+    """Per-process shard loader for data parallelism (the JAX package's
+    ``ShardedDataLoader``): each process of ``mesh`` iterates its contiguous
+    slice of the dataset (``_ShardView``) with ``MHCDataLoader``, and
+    yields its batches as tensors on ``device`` (``device_put``), which the
+    trainer takes as this process's share of the global batch; with
+    ``device_put=False`` the numpy batches."""
+
+    def __init__(self, dataset, mesh, per_process_batch: int = 8, shuffle: bool = True,
+                 num_workers: int = 2, seed: int = 0, device_put: bool = True, device=None):
+        self.mesh = mesh
+        self.process_index = mesh.rank
+        self.process_count = mesh.data
+        self.device_put = device_put
+        self.device = device
+        self._loader = MHCDataLoader(_ShardView(dataset, self.process_index, self.process_count),
+                                     batch_size=per_process_batch, shuffle=shuffle,
+                                     num_workers=num_workers, seed=seed)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self._loader)
+
+    def __iter__(self):
+        if not self.device_put:
+            yield from self._loader
+            return
+        import torch
+
+        from ..device import resolve_device
+
+        dev = resolve_device(self.device)
+        for batch in self._loader:
+            yield {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+
+
+class _ShardView:
+    """Contiguous index shard of a dataset (one per process)."""
+
+    def __init__(self, dataset, shard: int, num_shards: int):
+        self.dataset = dataset
+        per = len(dataset) // num_shards
+        self.start = shard * per
+        self.length = per
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getitem__(self, idx):
+        return self.dataset[self.start + idx]
 
 
 class StreamingDataLoader:

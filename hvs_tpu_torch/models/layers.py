@@ -420,7 +420,12 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
     hand each its projection in ``h_res_given`` for one forward (see
     ``HybridVisionSystem.forward``); a layer called on its own projects its
     own. In train mode dropout (``dropout_rate``) follows both GELUs and
-    LN2, as in JAX, and autograd differentiates the chain. With ``monitor`` the layer leaves its telemetry
+    LN2, as in JAX, and autograd differentiates the chain. The products
+    ``x @ H_res`` and ``y @ H_post`` are rounded to ``dtype``, their sum and
+    LN2 are not (fp32), as XLA compiles JAX's layer; a deterministic forward
+    without autograd at a fused site takes kernel C, which rounds the sum
+    too, as the reference's Pallas kernel does. With
+    ``monitor`` the layer leaves its telemetry
     (``signal_ratio``, ``ds_error``, ``row_sum_error``, ``col_sum_error``;
     detached tensors) in ``self.metrics`` after each forward, as the JAX
     layer sows it into the ``stability`` collection.
@@ -583,8 +588,12 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
             y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt) @ h_pre
             y = self.dropout(gelu(y @ w1 + self.mlp_in_bias.to(dt)))
             y = self.dropout(gelu(y @ w2 + self.mlp_out_bias.to(dt)))
-            out = _layernorm(x_in @ h_res + y @ h_post, self.norm_post_scale,
-                             self.norm_post_bias).to(dt)
+            # As XLA compiles JAX's step: each product rounded to bf16, their
+            # sum and LN2 in fp32. At a near-uniform H_res or H_post the sum's
+            # spread across channels lies under one bf16 step of its mean, so
+            # rounding the sum as well leaves LN2 normalising rounding noise.
+            out = _layernorm((x_in @ h_res).float() + (y @ h_post).float(),
+                             self.norm_post_scale, self.norm_post_bias).to(dt)
             out = self.dropout(out)
         if self.monitor:
             with torch.no_grad():

@@ -19,6 +19,14 @@ card unless ``--device cpu`` is given:
 
 Checkpoints go to the config's ``checkpoint_dir`` (``--checkpoint-dir``)
 and the stability report to its ``log_dir`` (``--log-dir``).
+
+Data-parallel over N cards, one process each: ``torchrun --nproc_per_node N
+-m hvs_tpu_torch.train ...``, or the config's ``distributed`` block
+(``enabled``, ``coordinator_address``, ``num_processes``, ``process_id``;
+``parallel.setup``). Every process reads the same batches of
+``batch_size`` and takes its slice (the global batch is split, as the JAX
+trainer's ``shard_batch`` splits it); the first writes the files.
+``--n-model`` above 1 (tensor parallelism) raises.
 """
 
 from __future__ import annotations
@@ -75,6 +83,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-dir", default=None)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--n-model", type=int, default=None,
+                   help="tensor-parallel size (default: the config's model_parallel, 1); "
+                        "above 1 raises: not executed by the port")
     return p.parse_args(argv)
 
 
@@ -105,10 +116,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     args = parse_args(argv)
     from .device import pin_matmul_precision
     from .models import HybridVisionSystem
+    from .parallel import setup
     from .training import ManifoldConstrainedTrainer
 
     tcfg = training_config(args)
     pin_matmul_precision()
+    # The distributed block (or torchrun's environment): one process per card,
+    # joined before anything takes a device.
+    mesh, device = setup(tcfg.device, tcfg.distributed, n_model=args.n_model)
     ds = tcfg.dataset
     if args.synthetic:
         num_classes = args.num_classes if args.num_classes is not None else 80
@@ -133,10 +148,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         print(f"dataset: {len(dm.train_dataset)} train / {len(dm.val_dataset)} val images, "
               f"{num_classes} classes", flush=True)
 
-    model = HybridVisionSystem(num_classes=num_classes, monitor=True, device=tcfg.device,
+    model = HybridVisionSystem(num_classes=num_classes, monitor=True, device=device,
                                seed=args.seed, **(dict(TINY) if args.tiny else {}))
     trainer = ManifoldConstrainedTrainer(model, tcfg.trainer_config(num_classes=num_classes),
-                                         device=tcfg.device, seed=args.seed)
+                                         device=device, seed=args.seed, mesh=mesh)
     trainer.init_state()
     os.makedirs(tcfg.log_dir, exist_ok=True)
     if tcfg.metrics_log and os.path.dirname(tcfg.metrics_log):
@@ -146,8 +161,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                            resume_from=args.resume)
     trainer.close()
     report = os.path.join(tcfg.log_dir, "stability_report.json")
-    trainer.monitor.save_report(report)
-    summary = {"device": str(trainer.device), "steps": trainer.state.step,
+    if trainer.is_writer:
+        trainer.monitor.save_report(report)
+    summary = {"device": str(trainer.device), "mesh": mesh.shape, "steps": trainer.state.step,
                "seconds": time.perf_counter() - t0,
                "params": sum(p.numel() for p in model.parameters()),
                "num_classes": num_classes,

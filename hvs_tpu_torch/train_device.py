@@ -22,6 +22,11 @@ validation images. Runs on the CUDA card unless ``--device cpu`` is given;
 Writes ``steps.jsonl``, ``chunks.jsonl``, ``stability_report.json`` and
 ``checkpoints/`` under ``--run-dir`` and prints the JAX script's final JSON
 line.
+
+Data-parallel over N cards of one host, one process each (the batches per
+size are global and split over the processes; the first writes the files)::
+
+    torchrun --nproc_per_node N -m hvs_tpu_torch.train_device --data-root data/shapes640
 """
 
 from __future__ import annotations
@@ -99,12 +104,15 @@ def run(args: argparse.Namespace) -> Tuple["ManifoldConstrainedTrainer", Dict[st
         raise NotImplementedError("--use-rag: the RAG blend is not ported yet "
                                   "(ROADMAP queue 1 item 9)")
     from .data import load_coco_arrays, put_device_data
-    from .device import pin_matmul_precision, resolve_device
+    from .device import pin_matmul_precision
     from .models import HybridVisionSystem
+    from .parallel import setup
     from .train import TINY
     from .training import ManifoldConstrainedTrainer, TrainerConfig
 
-    device = resolve_device(args.device)
+    # Under torchrun: one process per card, each batch split over them; the
+    # processes join before anything takes a device.
+    mesh, device = setup(args.device)
     pin_matmul_precision()
     os.makedirs(args.run_dir, exist_ok=True)
     sizes = tuple(int(s) for s in args.train_sizes.split(","))
@@ -143,7 +151,8 @@ def run(args: argparse.Namespace) -> Tuple["ManifoldConstrainedTrainer", Dict[st
         checkpoint_dir=os.path.join(args.run_dir, "checkpoints"),
         checkpoint_every_steps=args.checkpoint_every_steps,
         metrics_log=os.path.join(args.run_dir, "steps.jsonl"))
-    trainer = ManifoldConstrainedTrainer(model, cfg, device=device, seed=args.seed)
+    trainer = ManifoldConstrainedTrainer(model, cfg, device=device, seed=args.seed,
+                                         mesh=mesh)
     trainer.init_state()
     print(f"model: {sum(p.numel() for p in model.parameters()):,} params", flush=True)
     if args.resume:
@@ -151,7 +160,10 @@ def run(args: argparse.Namespace) -> Tuple["ManifoldConstrainedTrainer", Dict[st
         print(f"resumed from {args.resume} at step {trainer.state.step}", flush=True)
 
     t_run = time.time()
-    with open(os.path.join(args.run_dir, "chunks.jsonl"), "a", buffering=1) as fh:
+    # The first process writes the run's files (chunks.jsonl here, steps.jsonl
+    # and the checkpoints in the trainer); every process computes the same rows.
+    chunks_path = os.path.join(args.run_dir, "chunks.jsonl") if trainer.is_writer else os.devnull
+    with open(chunks_path, "a", buffering=1) as fh:
         def progress(row):
             row["wall_s"] = time.time() - t_run
             fh.write(json.dumps(row) + "\n")
@@ -167,7 +179,8 @@ def run(args: argparse.Namespace) -> Tuple["ManifoldConstrainedTrainer", Dict[st
             eig_every_chunks=args.eig_every_chunks, progress_fn=progress)
     trainer.save_checkpoint("final")
     trainer.close()
-    trainer.monitor.save_report(os.path.join(args.run_dir, "stability_report.json"))
+    if trainer.is_writer:
+        trainer.monitor.save_report(os.path.join(args.run_dir, "stability_report.json"))
     summary = {"steps": trainer.state.step, "steps_per_sec": result["steps_per_sec"],
                "best_val_loss": result["best_val_loss"],
                "wall_hours": (time.time() - t_run) / 3600}

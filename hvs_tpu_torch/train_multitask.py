@@ -129,20 +129,27 @@ def prepare(args: argparse.Namespace) -> MultiTaskRun:
     import torch
 
     from .data import load_coco_arrays, put_dense_data
-    from .device import pin_matmul_precision, resolve_device
+    from .device import pin_matmul_precision
+    from .parallel import setup
     from .training import ManifoldConstrainedTrainer, MultiTaskChunk, MultiTaskEval, \
         TrainerConfig
 
-    device = resolve_device(args.device)
+    # Under torchrun: one process per card, the batch split over them; the
+    # processes join before anything takes a device.
+    mesh, device = setup(args.device)
     pin_matmul_precision()
     if args.synthetic is None:
         if not os.path.exists(os.path.join(args.data_root, "annotations",
                                            "instances_train.json")):
             from .data.shapes import generate_dataset
 
-            print("generating dense dataset...", flush=True)
-            generate_dataset(args.data_root, num_train=args.num_train, num_val=args.num_val,
-                             size=args.size, seed=args.seed, with_dense=True)
+            if mesh.rank == 0:  # one writer; the other processes wait for it
+                print("generating dense dataset...", flush=True)
+                generate_dataset(args.data_root, num_train=args.num_train,
+                                 num_val=args.num_val, size=args.size, seed=args.seed,
+                                 with_dense=True)
+            if mesh.distributed:
+                torch.distributed.barrier()
         t0 = time.time()
         train_arrays = load_coco_arrays(args.data_root, "train", args.max_boxes, dense=True)
         val_arrays = load_coco_arrays(args.data_root, "val", args.max_boxes, dense=True)
@@ -161,13 +168,13 @@ def prepare(args: argparse.Namespace) -> MultiTaskRun:
                                                         seed=args.seed, task="multi_task")
     cfg = TrainerConfig(num_classes=NUM_CLASSES, learning_rate=args.learning_rate,
                         warmup_steps=200, total_steps=args.steps)
-    trainer = ManifoldConstrainedTrainer(model, cfg, device=device, seed=args.seed)
+    trainer = ManifoldConstrainedTrainer(model, cfg, device=device, seed=args.seed, mesh=mesh)
     trainer.init_state()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"multi-task model: {n_params:,} params", flush=True)
     pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
-    return MultiTaskRun(trainer, MultiTaskChunk(trainer, train, args.batch_size, args.chunk_steps,
-                                                pool=pool),
+    return MultiTaskRun(trainer, MultiTaskChunk(trainer, train, trainer._share(args.batch_size),
+                                                args.chunk_steps, pool=pool),
                         MultiTaskEval(trainer, val, args.batch_size, pool=pool), n_params)
 
 
@@ -207,10 +214,11 @@ def run(args: argparse.Namespace) -> Tuple[MultiTaskRun, Dict[str, object]]:
                     else f"the dense shapes dataset {args.data_root}")
                  + ", the PyTorch/CUDA port"),
     }
-    if os.path.dirname(args.output):
-        os.makedirs(os.path.dirname(args.output), exist_ok=True)
-    with open(args.output, "w") as f:
-        json.dump(report, f, indent=2)
+    if trainer.is_writer:
+        if os.path.dirname(args.output):
+            os.makedirs(os.path.dirname(args.output), exist_ok=True)
+        with open(args.output, "w") as f:
+            json.dump(report, f, indent=2)
     print(json.dumps(report["after"], indent=2), flush=True)
     return prepared, report
 

@@ -18,6 +18,16 @@ chunk.
 
 On the CPU the same step runs eagerly, step by step.
 
+Under data parallelism (the trainer's ``mesh`` holds a process group) each
+process holds the whole dataset, as JAX's ``put_device_data`` replicates
+it, draws its share of the global batch from its own generator stream, and
+the step's all-reduces (the loss's counts, the gradients, the metrics) are
+captured in the graph with the rest: NCCL collectives replay like any other
+kernel. JAX's ``train_chunked`` puts no sharding constraint on its sampled
+batch; the split by process is the explicit form of the same data
+parallelism. Validation runs replicated, the whole split on every process
+(the parameters are equal, so is the result).
+
 Kernel launch counters (``ops/sinkhorn.py``, ``ops/mhc_block.py``) count
 when the host launches a kernel, so they advance at capture and not at a
 replay; each object records the counts of its captured step
@@ -135,7 +145,7 @@ class TrainChunk:
             draws = self.draw()
         batch = self.batch_of(draws)
         metrics, _ = step_on_device(t.model, t.tx, t.config, batch, t.lr_scale_t,
-                                    t.state.ema_params, task=self.task)
+                                    t.state.ema_params, task=self.task, mesh=t.mesh)
         if self.metrics is None:
             self.keys = list(metrics)
             self.metrics = torch.zeros(self.chunk_steps, len(self.keys), dtype=torch.float32,

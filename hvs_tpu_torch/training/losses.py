@@ -22,6 +22,7 @@ from ..device import device_constant
 from ..models.yolo_head import COCO_ANCHORS_416, SCALE_ORDER, effective_anchors
 from ..ops.boxes import box_ciou, cxcywh_to_xyxy
 from ..ops.sinkhorn import sinkhorn_log_many
+from ..parallel.mesh import Mesh
 
 Tensor = torch.Tensor
 
@@ -129,7 +130,8 @@ def bce_with_smoothing(logits: Tensor, onehot: Tensor, smoothing: float = 0.05) 
 def mhc_yolo_loss(raw_outputs: Dict[str, Tensor], targets: Dict[str, Dict[str, Tensor]],
                   num_classes: int, weights: LossWeights = LossWeights(),
                   label_smoothing: float = 0.05, ignore_iou: float = 0.5, cls_mode: str = "bce",
-                  cls_pos_weight: float = 1.0) -> Tuple[Tensor, Dict[str, Tensor]]:
+                  cls_pos_weight: float = 1.0, mesh: Optional[Mesh] = None
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """YOLO loss over all scales: CIoU box loss at positive cells, focal
     objectness (no-object cells down-weighted and ignored where the
     prediction overlaps a gt by more than ``ignore_iou``), and the class loss
@@ -138,14 +140,21 @@ def mhc_yolo_loss(raw_outputs: Dict[str, Tensor], targets: Dict[str, Dict[str, T
     ``cls_mode``: ``"bce"`` (per-class logistic loss with label smoothing;
     ``cls_pos_weight`` multiplies the true-class term) or ``"softmax"``
     (smoothed softmax cross-entropy).
+
+    A data-parallel ``mesh`` sums the positive counts over its processes:
+    they are then the global batch's, so each process's loss is its share
+    of the global loss and the shares sum to it.
     """
     total_box = total_obj = total_cls = n_pos_total = 0.0
+    n_pos_all = torch.stack([targets[key]["obj"].sum() for key in SCALE_ORDER])
+    if mesh is not None:
+        n_pos_all = mesh.all_sum(n_pos_all)
     for scale_idx, key in enumerate(SCALE_ORDER):
         raw = raw_outputs[key].float()
         t = targets[key]
         _, h, w, _, _ = raw.shape
         obj_mask = t["obj"]
-        n_pos = obj_mask.sum()
+        n_pos = n_pos_all[scale_idx]
         denom = torch.clamp(n_pos, min=1.0)
 
         gy = torch.arange(h, dtype=torch.float32, device=raw.device)[None, :, None, None]
@@ -243,8 +252,8 @@ def at_head_stride(dense: Tensor, h: int, w: int) -> Tensor:
 
 
 def multi_task_loss(outputs: Dict[str, object], batch: Dict[str, object], num_classes: int,
-                    task_weights: Optional[Dict[str, float]] = None
-                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+                    task_weights: Optional[Dict[str, float]] = None,
+                    mesh: Optional[Mesh] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Weighted multi-task objective over whichever heads ran and have labels
     in ``batch``, with the JAX function's terms and metric names:
 
@@ -258,6 +267,14 @@ def multi_task_loss(outputs: Dict[str, object], batch: Dict[str, object], num_cl
       loss over the classes present;
     * depth (0.5): L1 between log(pred + 1e-3) and log(gt + 1e-3),
       ``batch["depth"]`` strided the same way.
+
+    A data-parallel ``mesh`` sums every batch statistic (positive counts,
+    class counts and pixel weights, the Dice sums, element counts) over its
+    processes, so it is the global batch's, and each process's loss is its
+    share of the global loss (the shares sum to it, and so do their
+    gradients). The Dice term is not a sum over pixels: each process takes
+    the global value over the process count, through a differentiable
+    all-reduce of the Dice sums whose backward sums the gradients.
     """
     tw = {"detection": 1.0, "classification": 0.5, "segmentation": 0.5}
     if task_weights:
@@ -266,13 +283,19 @@ def multi_task_loss(outputs: Dict[str, object], batch: Dict[str, object], num_cl
     metrics: Dict[str, Tensor] = {}
     if "detection" in outputs and "targets" in batch:
         det_loss, det_m = mhc_yolo_loss(outputs["detection"]["raw"], batch["targets"],
-                                        num_classes)
+                                        num_classes, mesh=mesh)
         total = total + tw["detection"] * det_loss
         metrics.update(det_m)
         metrics["detection_loss"] = det_loss
     if "classification" in outputs and "class_labels" in batch:
         logits = outputs["classification"].float()
-        cls = F.cross_entropy(logits, batch["class_labels"].long())
+        labels = batch["class_labels"].long()
+        if mesh is None:
+            cls = F.cross_entropy(logits, labels)
+        else:
+            count = mesh.all_sum(torch.full((), labels.numel(), dtype=torch.float32,
+                                            device=logits.device))
+            cls = F.cross_entropy(logits, labels, reduction="sum") / count
         total = total + tw["classification"] * cls
         metrics["classification_loss"] = cls
     if "segmentation" in outputs and "seg_labels" in batch:
@@ -283,16 +306,27 @@ def multi_task_loss(outputs: Dict[str, object], batch: Dict[str, object], num_cl
         ce_map = -log_p.gather(-1, labels[..., None])[..., 0]
         onehot = F.one_hot(labels, k).float()
         counts = onehot.sum(dim=(0, 1, 2))
-        weights = torch.where(counts > 0, labels.numel() / (k * torch.clamp(counts, min=1.0)),
+        numel = torch.full((), labels.numel(), dtype=torch.float32, device=logits.device)
+        if mesh is not None:
+            stats = mesh.all_sum(torch.cat([counts, numel[None]]))
+            counts, numel = stats[:k], stats[k]
+        weights = torch.where(counts > 0, numel / (k * torch.clamp(counts, min=1.0)),
                               torch.zeros_like(counts))
         pix_w = torch.clamp(weights, 0.05, 20.0)[labels]
-        seg = (ce_map * pix_w).sum() / torch.clamp(pix_w.sum(), min=1.0)
+        weight_sum = pix_w.sum()
+        if mesh is not None:
+            weight_sum = mesh.all_sum(weight_sum)
+        seg = (ce_map * pix_w).sum() / torch.clamp(weight_sum, min=1.0)
         p = log_p.exp()
         inter = (p * onehot).sum(dim=(0, 1, 2))
         denom = (p + onehot).sum(dim=(0, 1, 2))
+        if mesh is not None:
+            inter, denom = mesh.all_sum(torch.cat([inter, denom])).split(k)
         present = (counts > 0).float()
         dice = 1.0 - (present * (2.0 * inter + 1.0) / (denom + 1.0)).sum() / torch.clamp(
             present.sum(), min=1.0)
+        if mesh is not None:
+            dice = dice / mesh.data
         seg = seg + 0.5 * dice
         total = total + tw["segmentation"] * seg
         metrics["segmentation_loss"] = seg
@@ -300,7 +334,12 @@ def multi_task_loss(outputs: Dict[str, object], batch: Dict[str, object], num_cl
     if "depth" in outputs and "depth" in batch:
         pred = outputs["depth"].float()[..., 0]
         gt = at_head_stride(batch["depth"].float(), pred.shape[1], pred.shape[2])
-        dep = (torch.log(pred + 1e-3) - torch.log(gt + 1e-3)).abs().mean()
+        err = (torch.log(pred + 1e-3) - torch.log(gt + 1e-3)).abs()
+        if mesh is None:
+            dep = err.mean()
+        else:
+            dep = err.sum() / mesh.all_sum(torch.full((), err.numel(), dtype=torch.float32,
+                                                      device=err.device))
         total = total + tw.get("depth", 0.5) * dep
         metrics["depth_loss"] = dep
     metrics["total_loss"] = total

@@ -35,6 +35,7 @@ from torch import nn
 from ..data.device_pipeline import AugmentConfig, DeviceData, normalize
 from ..device import DeviceLike, pin_matmul_precision, resolve_device
 from ..models.layers import set_dropout_generator
+from ..parallel.mesh import Mesh, shard_batch
 from .losses import build_targets, manifold_regularization_loss, mhc_yolo_loss, \
     multi_task_loss
 from .optimizer import ManifoldAwareOptimizer, global_norm
@@ -113,21 +114,62 @@ def _targets(config: TrainerConfig, images: Tensor, batch: Dict[str, Tensor]):
 
 
 def task_loss(config: TrainerConfig, task: str, outputs: Dict[str, Any],
-              batch: Dict[str, Tensor], targets) -> Tuple[Tensor, Dict[str, Tensor]]:
+              batch: Dict[str, Tensor], targets, mesh: Optional[Mesh] = None
+              ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The loss a step of ``task`` minimises before the regulariser, with its
     metrics: the YOLO loss for ``"detection"`` (``detection_loss``), and
     ``multi_task_loss`` over the heads that ran for ``"multi_task"`` (its
-    dense labels are ``batch["seg_labels"]`` and ``batch["depth"]``)."""
+    dense labels are ``batch["seg_labels"]`` and ``batch["depth"]``).
+    A data-parallel ``mesh`` sums the batch statistics over its processes."""
     if task == "multi_task":
-        return multi_task_loss(outputs, {**batch, "targets": targets}, config.num_classes)
+        return multi_task_loss(outputs, {**batch, "targets": targets}, config.num_classes,
+                               mesh=mesh)
     loss, metrics = mhc_yolo_loss(outputs["detection"]["raw"], targets, config.num_classes,
-                                  cls_mode=config.cls_mode, cls_pos_weight=config.cls_pos_weight)
+                                  cls_mode=config.cls_mode, cls_pos_weight=config.cls_pos_weight,
+                                  mesh=mesh)
     return loss, {**metrics, "detection_loss": loss}
+
+
+# Metrics equal on every data-parallel process (functions of the parameters,
+# of global counts, or of the summed gradients); the others are each
+# process's share of a global sum, except signal_ratio_mean, a mean.
+SHARED_METRICS = ("grad_norm", "lr", "num_positives", "manifold_ds", "manifold_spectral",
+                  "manifold_smooth", "ds_error_max")
+
+
+def _sum_gradients(grads: Dict[str, Tensor], mesh: Mesh) -> Dict[str, Tensor]:
+    """The gradients summed over the processes of ``mesh``: one all-reduce
+    of all of them flattened into one fp32 buffer."""
+    import torch.distributed as dist
+
+    names = list(grads)
+    flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+    dist.all_reduce(flat, group=mesh.group)
+    out, offset = {}, 0
+    for n in names:
+        g = grads[n]
+        out[n] = flat[offset:offset + g.numel()].view(g.shape).to(g.dtype)
+        offset += g.numel()
+    return out
+
+
+def _reduce_metrics(metrics: Dict[str, Tensor], mesh: Mesh) -> Dict[str, Tensor]:
+    """The global batch's metrics from each process's: the shares summed
+    (one all-reduce), the shared ones kept. ``signal_ratio_mean``, telemetry
+    and a ratio of mean norms, is averaged over the processes: close to the
+    global batch's value, not equal to it."""
+    keys = [k for k in metrics if k not in SHARED_METRICS]
+    total = mesh.all_sum(torch.stack([metrics[k].float().reshape(()) for k in keys]))
+    out = dict(metrics)
+    for i, k in enumerate(keys):
+        out[k] = total[i] / mesh.data if k == "signal_ratio_mean" else total[i]
+    return out
 
 
 def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
                    batch: Dict[str, Tensor], lr_scale: Union[float, Tensor] = 1.0,
-                   ema_params: Optional[Dict[str, Tensor]] = None, task: str = "detection"
+                   ema_params: Optional[Dict[str, Tensor]] = None, task: str = "detection",
+                   mesh: Optional[Mesh] = None
                    ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The device work of one optimizer step on ``batch``: updates the
     model's parameters, ``tx`` (its count included) and ``ema_params`` in
@@ -135,18 +177,34 @@ def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: Trainer
     ``task`` ("detection" or "multi_task") is the forward's task and picks
     the loss (``task_loss``). Returns (metrics as 0-dim tensors, the
     gradients by parameter name); the metrics include ``lr``, the schedule's
-    rate at this step."""
+    rate at this step.
+
+    Data parallelism (``mesh`` with a process group): ``batch`` is this
+    process's share of the global batch. JAX's step sees the global batch,
+    so its loss divides by global counts; here the counts are summed over the
+    processes before the division (``task_loss`` with the ``mesh``), so each
+    process's loss is its share of the global loss, the regulariser (a
+    function of the parameters alone) is added on the first process only,
+    and the gradients are summed. Every process then clips by the same
+    global norm and applies the same update: the processes together take
+    the one-process step on the global batch. The metrics are the global
+    batch's (``_reduce_metrics``)."""
     model.train()
+    dp = mesh is not None and mesh.distributed
     images = prepare_images(batch["images"])
     targets = _targets(config, images, batch)
     params = dict(model.named_parameters())
     outputs = model(images, task=task)
-    main_loss, main_metrics = task_loss(config, task, outputs, batch, targets)
+    main_loss, main_metrics = task_loss(config, task, outputs, batch, targets,
+                                        mesh if dp else None)
     reg_loss, reg_metrics = manifold_regularization_loss(params, sk_iters=config.sk_iters)
-    loss = main_loss + config.manifold_reg_alpha * reg_loss
+    reg_weight = config.manifold_reg_alpha if not dp or mesh.rank == 0 else 0.0
+    loss = main_loss + reg_weight * reg_loss
     # Parameters the loss does not reach (the feature head) get zeros, as in JAX.
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
                                                  materialize_grads=True)))
+    if dp:
+        grads = _sum_gradients(grads, mesh)
 
     grad_norm = global_norm(grads.values())
     lr = tx.lr(tx.count)
@@ -169,19 +227,23 @@ def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: Trainer
         metrics["ds_error_max"] = torch.stack([m["ds_error"] for m in stability.values()]).max()
         metrics["signal_ratio_mean"] = torch.stack(
             [m["signal_ratio"] for m in stability.values()]).mean()
+    if dp:
+        metrics = _reduce_metrics(metrics, mesh)
     return metrics, grads
 
 
 def train_step(model: nn.Module, tx: ManifoldAwareOptimizer, config: TrainerConfig,
-               state: TrainState, batch: Dict[str, Tensor], task: str = "detection"
-               ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    """One optimizer step on ``batch`` (tensors on the model's device) for
-    ``task`` (as ``step_on_device``).
+               state: TrainState, batch: Dict[str, Tensor], task: str = "detection",
+               mesh: Optional[Mesh] = None) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One optimizer step on ``batch`` (tensors on the model's device; this
+    process's share under data parallelism) for ``task`` (as
+    ``step_on_device``).
 
     Updates the model's parameters, ``tx`` and ``state`` in place; returns
     (metrics as 0-dim tensors, the gradients by parameter name).
     """
-    out = step_on_device(model, tx, config, batch, state.lr_scale, state.ema_params, task)
+    out = step_on_device(model, tx, config, batch, state.lr_scale, state.ema_params, task,
+                         mesh)
     state.step += 1
     return out
 
@@ -215,15 +277,29 @@ class ManifoldConstrainedTrainer:
 
     ``seed`` seeds the dropout generator (the model's own init is seeded at
     construction). The model is moved to ``device``.
+
+    ``mesh`` (``parallel.setup``'s; None: this process alone) with a
+    process group makes the trainer data-parallel, one process per card,
+    each on the device ``setup`` returned: ``init_state`` broadcasts
+    the first process's parameters, each step takes this process's share of
+    the global batch (``step_on_device``), the process at rank r draws from
+    the stream ``seed + r``, and the first process alone writes the metrics
+    log and the checkpoints, which every process can load. A mesh with
+    ``model > 1`` (tensor parallelism) raises ``NotImplementedError``.
     """
 
     def __init__(self, model: nn.Module, config: TrainerConfig = TrainerConfig(),
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh(data=1)
+        if self.mesh.model > 1:
+            raise NotImplementedError(
+                f"tensor parallelism (a mesh with model={self.mesh.model}) is not executed "
+                f"by the port: ROADMAP queue 1 item 6b")
         pin_matmul_precision()  # process-wide: fp32 accumulation, as the reference
         self.model = model.to(self.device)
         self.config = config
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + self.mesh.rank)
         set_dropout_generator(self.model, self.generator)
         self.monitor = StabilityMonitor(
             StabilityThresholds(grad_explosion=config.grad_explosion_threshold))
@@ -254,6 +330,12 @@ class ManifoldConstrainedTrainer:
         batch the JAX trainer needs for ``init`` is not used)."""
         del sample_batch
         c = self.config
+        if self.mesh.distributed:
+            import torch.distributed as dist
+
+            with torch.no_grad():
+                for p in self.params().values():
+                    dist.broadcast(p.data, src=0, group=self.mesh.group)
         self.tx = ManifoldAwareOptimizer(
             self.params(), self.schedule, weight_decay=c.weight_decay,
             mhc_lr_factor=c.mhc_lr_factor, clip_regular=c.clip_regular, clip_mhc=c.clip_mhc,
@@ -276,10 +358,22 @@ class ManifoldConstrainedTrainer:
         return tensors
 
     def train_step(self, batch: Batch) -> Dict[str, Tensor]:
+        """One step. Under data parallelism a batch of host (numpy) arrays
+        is the global batch, of which this process takes its slice
+        (``shard_batch``, as the JAX trainer does); a batch of tensors is
+        this process's share already (``ShardedDataLoader`` yields those)."""
         assert self.state is not None, "call init_state first"
+        host = not any(isinstance(v, Tensor) for v in batch.values())
+        if self.mesh.distributed and host:
+            batch = shard_batch(self.mesh, batch, self.device)
         metrics, _ = train_step(self.model, self.tx, self.config, self.state,
-                                batch_to(batch, self.device))
+                                batch_to(batch, self.device), mesh=self.mesh)
         return metrics
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes logs and checkpoints (the first)."""
+        return self.mesh.rank == 0
 
     # ------------------------------------------------------------------
     def train_epoch(self, loader: Iterable, epoch: int) -> Dict[str, float]:
@@ -320,7 +414,7 @@ class ManifoldConstrainedTrainer:
         return {k: v / max(n, 1) for k, v in agg.items()}
 
     def _log_step_metrics(self, step: int, host: Dict[str, float]) -> None:
-        if self.config.metrics_log is None:
+        if self.config.metrics_log is None or not self.is_writer:
             return
         if self._metrics_fh is None:
             self._metrics_fh = open(self.config.metrics_log, "a", buffering=1)
@@ -386,8 +480,8 @@ class ManifoldConstrainedTrainer:
         aug = aug if aug is not None else AugmentConfig()
         batch_sizes = dict(batch_sizes or {})
         pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-        self.chunks = {o: TrainChunk(self, data, o, batch_sizes.get(o, batch_size), chunk_steps,
-                                     aug, pool=pool) for o in out_sizes}
+        self.chunks = {o: TrainChunk(self, data, o, self._share(batch_sizes.get(o, batch_size)),
+                                     chunk_steps, aug, pool=pool) for o in out_sizes}
         self.val_chunk = None
         if val_data is not None:
             self.val_chunk = ValChunk(self, val_data, val_batch_size,
@@ -455,6 +549,13 @@ class ManifoldConstrainedTrainer:
         return {"history": self.history, "best_val_loss": self.best_val_loss,
                 "steps_per_sec": n_chunks * chunk_steps / max(time.time() - t_start, 1e-9)}
 
+    def _share(self, global_batch: int) -> int:
+        """This process's share of a global batch."""
+        if global_batch % self.mesh.data:
+            raise ValueError(f"a global batch of {global_batch} does not split over "
+                             f"{self.mesh.data} data-parallel processes")
+        return global_batch // self.mesh.data
+
     # ------------------------------------------------------------------
     def eval_params(self, use_ema: bool = True) -> Optional[Dict[str, Tensor]]:
         """The EMA weights when maintained, else None (the model's own)."""
@@ -512,8 +613,13 @@ class ManifoldConstrainedTrainer:
 
     def save_checkpoint(self, name: str) -> str:
         """The full train state (parameters, optimizer state, step, lr_scale,
-        EMA) with ``torch.save``, and the history beside it as JSON."""
+        EMA) with ``torch.save``, and the history beside it as JSON. Under
+        data parallelism the first process writes (the state is the same on
+        every process) and the others wait until it has."""
         path = self._path(name)
+        if self.mesh.distributed and not self.is_writer:
+            self._barrier()
+            return path
         os.makedirs(os.path.dirname(path), exist_ok=True)
         torch.save({"params": {k: v.detach() for k, v in self.params().items()},
                     "opt_state": self.tx.state_dict(), "step": self.state.step,
@@ -521,7 +627,14 @@ class ManifoldConstrainedTrainer:
                    path + ".pt")
         with open(path + ".history.json", "w") as f:
             json.dump(self.history, f)
+        if self.mesh.distributed:
+            self._barrier()
         return path
+
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier(group=self.mesh.group)
 
     def load_checkpoint(self, name_or_path: str) -> None:
         """Restore a state written by ``save_checkpoint`` onto the live model

@@ -2,7 +2,8 @@
 """Summary of a ``train_device`` run from its ``steps.jsonl``: the loss's
 window means (``--window`` steps each, as ``STABILITY_r03.json``'s
 ``loss_window_means``: 2,500 steps), the first and last 1 % means, the
-largest ``ds_error_max``, the chunks' median ms per step (host clock) and their
+largest ``ds_error_max``, the grad norm's median and largest, the
+stability monitor's LR cuts, the chunks' median ms per step (host clock) and their
 validation losses.
 
     python scripts/torch_run_summary.py runs/trained [--window 2500]
@@ -13,6 +14,15 @@ import json
 import os
 
 import numpy as np
+
+
+def _lr_cuts(run_dir: str):
+    """The stability monitor's LR corrections (``stability_report.json``)."""
+    path = os.path.join(run_dir, "stability_report.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return len(json.load(f)["corrections"])
 
 
 def summarize(run_dir: str, window: int = 2500) -> dict:
@@ -35,6 +45,8 @@ def summarize(run_dir: str, window: int = 2500) -> dict:
         "loss_min": float(loss.min()),
         "ds_error_max_overall": float(max(s["ds_error_max"] for s in steps)),
         "grad_norm_p50": float(np.median([s["grad_norm"] for s in steps])),
+        "grad_norm_max": float(max(s["grad_norm"] for s in steps)),
+        "lr_cuts": _lr_cuts(run_dir),
         "ms_per_step_median": float(np.median([1e3 / c["steps_per_sec"] for c in chunks]))
         if chunks else None,
         "val_losses": [(c["step"], c["val_loss"]) for c in chunks if c.get("val_loss") is not None],

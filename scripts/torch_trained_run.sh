@@ -10,11 +10,20 @@
 #   bash scripts/torch_trained_run.sh [OUT] [STEPS]
 #
 # With QUANTIZE=0 in the environment the int8 step is left out.
+#
+# PROTOCOL=r3_rag_off runs instead the protocol that RAG_EVAL_r03.json
+# records for the JAX package's rag_off variant: 6,000 steps at 416² only,
+# batch 16, lr 1e-3, warm-up 300, EMA 0.999, 8 classes, validation every
+# 1,000 steps, then evaluate at 416² on the 500 val images from the best
+# checkpoint (STEPS is ignored; no checks, no int8):
+#
+#   PROTOCOL=r3_rag_off bash scripts/torch_trained_run.sh [OUT]
 set -uo pipefail
 OUT=${1:-runs/trained_report}
 STEPS=${2:-10000}
 DATA=data/shapes640
 RUN=runs/trained
+PROTOCOL=${PROTOCOL:-default}
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
 stamp() { echo "$(date +%s) $*" | tee -a "$OUT/times.txt"; }
@@ -25,6 +34,23 @@ if [ ! -f "$DATA/annotations/instances_val.json" ]; then
     > "$OUT/make_dataset.log" 2>&1 || { stamp dataset_failed; exit 1; }
 fi
 stamp dataset
+if [ "$PROTOCOL" = r3_rag_off ]; then
+  python -m hvs_tpu_torch.train_device --data-root "$DATA" --num-classes 8 \
+    --train-sizes 416 --total-steps 6000 --warmup-steps 300 --learning-rate 1e-3 \
+    --ema-decay 0.999 --batch-416 16 --chunk-steps 100 --val-every-chunks 10 \
+    --run-dir "$RUN" > "$OUT/train.log" 2>&1 || { stamp train_failed; tail -50 "$OUT/train.log"; exit 1; }
+  stamp trained
+  cp "$RUN"/steps.jsonl "$RUN"/chunks.jsonl "$RUN"/stability_report.json "$OUT"/ 2>/dev/null
+  python scripts/torch_run_summary.py "$RUN" --window 1000 > "$OUT/summary.json" \
+    || { stamp summary_failed; exit 1; }
+  cat "$OUT/summary.json"
+  python -m hvs_tpu_torch.evaluate --data-root "$DATA" --split val --image-size 416 \
+    --num-classes 8 --checkpoint "$RUN/checkpoints/best" --output "$OUT/eval416.json" \
+    > "$OUT/eval.log" 2>&1 || { stamp eval_failed; tail -50 "$OUT/eval.log"; exit 1; }
+  stamp evaluated
+  tail -n 3 "$OUT/eval.log"
+  exit 0
+fi
 python -m hvs_tpu_torch.train_device --data-root "$DATA" --num-classes 8 \
   --total-steps "$STEPS" --run-dir "$RUN" > "$OUT/train.log" 2>&1 \
   || { stamp train_failed; tail -50 "$OUT/train.log"; exit 1; }
@@ -34,7 +60,8 @@ python scripts/torch_run_summary.py "$RUN" > "$OUT/summary.json"
 cat "$OUT/summary.json"
 CKPT="$RUN/checkpoints/final"
 python -m hvs_tpu_torch.evaluate --data-root "$DATA" --split val --image-size 640 \
-  --num-classes 8 --checkpoint "$CKPT" --output "$OUT/eval640.json" > "$OUT/eval.log" 2>&1
+  --num-classes 8 --checkpoint "$CKPT" --output "$OUT/eval640.json" > "$OUT/eval.log" 2>&1 \
+  || { stamp eval_failed; tail -50 "$OUT/eval.log"; exit 1; }
 stamp evaluated
 python scripts/torch_trained_checks.py --checkpoint "$CKPT" --data-root "$DATA" \
   --num-classes 8 --output "$OUT/checks.json" --dump "$OUT/sites.pt" > "$OUT/checks.log" 2>&1

@@ -143,11 +143,14 @@ def test_port_imports_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     sources = [os.path.join(REPO, "chip_smoke.py")]
-    # The card scripts; not the checkpoint import tool, which reads the JAX
-    # package's orbax and msgpack files and so runs where JAX is installed.
+    # The card scripts; not the host tools that import the JAX package by
+    # design and so run where JAX is installed: the checkpoint import tool
+    # (it reads the JAX package's orbax and msgpack files) and the training
+    # parity probe (it holds the port's trainer against JAX's; on the card it
+    # runs the port alone, without reaching those imports).
     sources += [os.path.join(REPO, "scripts", f) for f in os.listdir(os.path.join(REPO, "scripts"))
                 if f.startswith("torch_") and f.endswith(".py")
-                and f != "torch_import_checkpoint.py"]
+                and f not in ("torch_import_checkpoint.py", "torch_train_parity.py")]
     assert len(sources) >= 7
     for root, _, files in os.walk(os.path.join(REPO, "hvs_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
