@@ -18,7 +18,9 @@ Phases, each of which fails the run with a non-zero exit:
      of the validation forwards (416² batch 8, 640² batch 4 and 320² batch
      8) and a ragged count; A and C
      with each launch's row tile, threads and grid, and their time over the
-     18 sites beside the time recorded before their redesign;
+     18 sites beside the time recorded before their redesign; A and C also
+     at every width on inputs whose residual sum is ill-conditioned (the
+     sum and LN2 in fp32; ``ILL_ROWS``);
   3. serve: the full-width flagship ``ProductionHybridVision`` (seeded random
      weights, bf16) served by ``Detector`` at 640², batch 16 and batch 1; the
      launch counters are zeroed just before the load (B once per matrix)
@@ -127,11 +129,19 @@ Phases, each of which fails the run with a non-zero exit:
      and 6 sites per replay, each replay bitwise its eager serve function,
      device ms beside bf16's, raw head outputs against bf16's, ``_int_mm``'s
      accumulators against the plain integer product at every product shape
-     of a b16 forward, and a ``reload`` of scales taking effect.
+     of a b16 forward, and a ``reload`` of scales taking effect;
+ 15. rag: the flagship with ``rag.enabled`` and the 8 shapes classes, the
+     gate open (``phase_rag``): ``InferenceEngine`` at 640² with graphs at
+     buckets 1 and 16 (A at 19 sites per replay, B at 26 matrices at load
+     and per ``reload``, each replay bitwise its eager run), kernel A at
+     the knowledge module's site against its plain version, a ``reload``
+     and ``rebuild_serve_fns``, the ``.pt2`` export (19 launches per call),
+     the card against the CPU, and ``train_device --use-rag``'s captured
+     steps and validation pass (C at 19 per batch).
 The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
-entry point (3-14) and fails unless they are pinned after it; the plain
+entry point (3-15) and fails unless they are pinned after it; the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -218,6 +228,17 @@ RECORDED_BEFORE_REDESIGN_MS = {"mhc_block": 2.468, "mhc_block_unfolded": 1.084}
 # than tests/test_pallas.py's 0.999 / 0.05.
 KERNEL_MIN_CORR = 0.9999
 KERNEL_MAX_MEAN_ABS = 5e-3
+# Ill-conditioned inputs (the kernel and unfolded phases, ILL_ROWS rows at
+# every width): x = 3 ± 0.3 and a near-uniform H_res (Sinkhorn of 0.1·noise),
+# so x @ H_res is ~3 in every channel with a spread under one bf16 step of 3,
+# and a small H_post (0.05·N(0, 1/d)), so y @ H_post carries the row's
+# spread. Their sum is what a bf16 rounding destroys: a plain chain that
+# rounds it reads corr 0.971-0.978 against the fp32 sum, while a 2^-12
+# relative change of tanh in the GELUs leaves 0.999995. With H_post near 1
+# (H_post_raw ≈ 0) the product y @ H_post is itself ill-conditioned, and that
+# tanh change alone drops the chain to corr 0.77-0.92 whatever the sum does,
+# below any kernel-vs-plain limit (scripts/torch_mhc_sum_conditioning.py).
+ILL_ROWS = 4096
 
 # End-to-end CUDA-vs-CPU criteria: both run bf16 through ~60 layers; cuDNN
 # and the CPU's convolutions sum in different orders, so bf16 roundings flip
@@ -415,11 +436,12 @@ def mhc_bound_ms(n: int, d: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def mhc_inputs(n: int, d: int, seed: int):
+def mhc_inputs(n: int, d: int, seed: int, ill: bool = False):
     """Seeded kernel inputs on the card. H_res is near-identity
     (sinkhorn(6·I + noise)); W1/W2 are lecun-scaled and H_post is scaled by
     1/sqrt(d), so the pre-LN2 signal is O(1) and not a near-constant row that
-    LN2 would cancel into rounding noise."""
+    LN2 would cancel into rounding noise. ``ill``: the residual sum
+    ill-conditioned instead (as ``ILL_ROWS`` describes)."""
     r = np.random.default_rng(seed)
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -427,11 +449,15 @@ def mhc_inputs(n: int, d: int, seed: int):
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)
 
-    x = t(r.standard_normal((n, d)), bf)
+    x = t((3.0 + 0.3 * r.standard_normal((n, d))) if ill else r.standard_normal((n, d)), bf)
     w1 = t(r.standard_normal((d, d)) / math.sqrt(d), bf)
     w2 = t(r.standard_normal((d, d)) / math.sqrt(d), bf)
-    h_post = t(2.0 / (1.0 + np.exp(-0.1 * r.standard_normal((d, d)))) / math.sqrt(d), bf)
-    h_res = sinkhorn_log(t(6.0 * np.eye(d) + r.standard_normal((d, d))), 20).to(bf)
+    if ill:
+        h_post = t(0.05 * r.standard_normal((d, d)) / math.sqrt(d), bf)
+        h_res = sinkhorn_log(t(0.1 * r.standard_normal((d, d))), 20).to(bf)
+    else:
+        h_post = t(2.0 / (1.0 + np.exp(-0.1 * r.standard_normal((d, d)))) / math.sqrt(d), bf)
+        h_res = sinkhorn_log(t(6.0 * np.eye(d) + r.standard_normal((d, d))), 20).to(bf)
     b1, b2 = t(0.01 * r.standard_normal(d)), t(0.01 * r.standard_normal(d))
     ln = [t(1 + 0.1 * r.standard_normal(d)), t(0.1 * r.standard_normal(d)),
           t(1 + 0.1 * r.standard_normal(d)), t(0.1 * r.standard_normal(d))]
@@ -441,8 +467,9 @@ def mhc_inputs(n: int, d: int, seed: int):
 def phase_kernels(card: str, shapes=None):
     """Kernel A against its plain version at every main-path shape: the 18
     sites of every engine bucket (which include the serve phase's batch 1
-    and 16) and a ragged count (or at the (tokens, d) pairs of ``shapes``,
-    to time a few quickly)."""
+    and 16), a ragged count and the ill-conditioned rows at every width (or
+    at the (tokens, d) pairs of ``shapes`` only, to time a few quickly)."""
+    ill = shapes is None
     if shapes is None:
         shapes = sorted(set().union(*(mhc_sites(b) for b in ENGINE_BUCKETS))
                         | {(1234, d) for d in mhc_mod.SUPPORTED_WIDTHS})
@@ -474,7 +501,33 @@ def phase_kernels(card: str, shapes=None):
                  f"(need < {KERNEL_MAX_MEAN_ABS})")
         per_shape[(n, d)] = row
     print_total("mhc_block", per_shape, mhc_sites(SERVE_BATCH), card)
+    for d in mhc_mod.SUPPORTED_WIDTHS if ill else ():
+        x, args = mhc_inputs(ILL_ROWS, d, seed=d, ill=True)
+        per_shape[("ill", d)] = ill_conditioned_check(
+            "mhc_block", d, mhc_mod.mhc_block(x, *args), mhc_mod.mhc_block_plain(x, *args), card)
     return per_shape
+
+
+def ill_conditioned_check(kernel: str, d: int, out, ref, card: str) -> dict:
+    """A kernel's output on the ill-conditioned inputs (``ILL_ROWS``) against
+    its plain version's, at ``KERNEL_MIN_CORR``; a build that rounds the
+    residual sum fails it."""
+    torch.cuda.synchronize()
+    a = out.float().flatten().cpu().numpy()
+    b = ref.float().flatten().cpu().numpy()
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        fail(f"{kernel} ill-conditioned d={d}: non-finite output")
+    corr = float(np.corrcoef(a, b)[0, 1])
+    mean_abs = float(np.mean(np.abs(a - b)))
+    row = {"phase": "kernel_ill_conditioned", "kernel": kernel, "n": ILL_ROWS, "d": d,
+           "corr": corr, "mean_abs_err": mean_abs, "max_abs_err": float(np.max(np.abs(a - b))),
+           "card": card}
+    print(json.dumps(row), flush=True)
+    if not (corr > KERNEL_MIN_CORR and mean_abs < KERNEL_MAX_MEAN_ABS):
+        fail(f"{kernel} d={d} disagrees with its plain version on ill-conditioned inputs: "
+             f"corr {corr} (need > {KERNEL_MIN_CORR}), mean |diff| {mean_abs} "
+             f"(need < {KERNEL_MAX_MEAN_ABS})")
+    return row
 
 
 def print_total(kernel: str, per_shape, sites, card: str) -> None:
@@ -639,15 +692,16 @@ def phase_parity(card: str, build=None, name: str = "parity") -> None:
 # Serving engine
 
 
-def conditioned_params(seed: int) -> dict:
-    """Seeded flagship weights (the port's named parameters, on the card) with
-    the prediction convs conditioned as in ``tests/test_torch_serve.py``:
-    kernels x4, objectness bias 1, class biases N(0, 1). At plain random init
-    no score reaches the 0.25 threshold and the engine checks would compare
-    empty outputs."""
+def conditioned_params(seed: int, mcfg=None) -> dict:
+    """Seeded flagship weights (the port's named parameters, on the card; the
+    model of ``mcfg``, default the flagship's config) with the prediction
+    convs conditioned as in ``tests/test_torch_serve.py``: kernels x4,
+    objectness bias 1, class biases N(0, 1). At plain random init no score
+    reaches the 0.25 threshold and the engine checks would compare empty
+    outputs."""
     from hvs_tpu_torch.config import ModelConfig
 
-    model = ModelConfig().build_model(production=True, seed=seed)
+    model = (mcfg or ModelConfig()).build_model(production=True, seed=seed)
     r = np.random.default_rng(seed)
     params = {k: v.detach().clone() for k, v in model.named_parameters()}
     with torch.no_grad():
@@ -660,7 +714,7 @@ def conditioned_params(seed: int) -> dict:
                 bias = value.view(3, -1)
                 bias[:, 4] = 1.0
                 bias[:, 5:] = torch.from_numpy(
-                    r.standard_normal(tuple(bias[:, 5:].shape)).astype(np.float32)).cuda()
+                    r.standard_normal(tuple(bias[:, 5:].shape)).astype(np.float32)).to(bias.device)
     return params
 
 
@@ -1867,10 +1921,11 @@ def unfolded_bound_ms(n: int, d: int):
 def phase_unfolded(card: str, shapes=None):
     """Kernel C against its plain version at the 18 sites of the validation
     forwards (416², batch 8 in ``train``; 640², batch 4 in
-    ``train_chunked``; 320², batch 8 in ``multitask``) and at a ragged count
-    (or at ``shapes``). Inputs
-    are kernel A's well-conditioned ones with a near-identity
-    H_pre = sigmoid(6·I - 3 + noise)."""
+    ``train_chunked``; 320², batch 8 in ``multitask``), at a ragged count
+    and on the ill-conditioned rows at every width (or at ``shapes`` only).
+    Inputs are kernel A's with a near-identity H_pre = sigmoid(6·I - 3 +
+    noise)."""
+    ill = shapes is None
     if shapes is None:
         shapes = sorted(set(mhc_sites(TRAIN_BATCH, TRAIN_IMAGE))
                         | set(mhc_sites(CHUNK_VAL_BATCH, max(CHUNK_BATCHES)))
@@ -1879,10 +1934,7 @@ def phase_unfolded(card: str, shapes=None):
     per_shape = {}
     for n, d in shapes:
         x, args = mhc_inputs(n, d, seed=n * 5 + d)
-        r = np.random.default_rng(d)
-        h_pre = torch.sigmoid(torch.from_numpy(
-            (6.0 * np.eye(d) - 3.0 + 0.5 * r.standard_normal((d, d))).astype(np.float32)))
-        args = (h_pre.to("cuda", torch.bfloat16).contiguous(), *args)
+        args = (near_identity_h_pre(d), *args)
         out = mhc_mod.mhc_block_unfolded(x, *args)
         torch.cuda.synchronize()
         ref = mhc_mod.mhc_block_unfolded_plain(x, *args)
@@ -1907,7 +1959,21 @@ def phase_unfolded(card: str, shapes=None):
                  f"(need < {KERNEL_MAX_MEAN_ABS})")
         per_shape[(n, d)] = row
     print_total("mhc_block_unfolded", per_shape, mhc_sites(TRAIN_BATCH, TRAIN_IMAGE), card)
+    for d in mhc_mod.SUPPORTED_WIDTHS if ill else ():
+        x, args = mhc_inputs(ILL_ROWS, d, seed=d + 1, ill=True)
+        args = (near_identity_h_pre(d), *args)
+        per_shape[("ill", d)] = ill_conditioned_check(
+            "mhc_block_unfolded", d, mhc_mod.mhc_block_unfolded(x, *args),
+            mhc_mod.mhc_block_unfolded_plain(x, *args), card)
     return per_shape
+
+
+def near_identity_h_pre(d: int) -> torch.Tensor:
+    """H_pre = sigmoid(6·I - 3 + noise), bf16 on the card."""
+    r = np.random.default_rng(d)
+    return torch.sigmoid(torch.from_numpy(
+        (6.0 * np.eye(d) - 3.0 + 0.5 * r.standard_normal((d, d))).astype(np.float32))
+    ).to("cuda", torch.bfloat16).contiguous()
 
 
 def unfolded_summary(per_shape, launches: int, chunked: int, multitask: int):
@@ -3425,6 +3491,251 @@ def int8_reload_check(engine, scales: dict, frames: np.ndarray) -> dict:
                         {"params": params, "quant": scales}, frames)
 
 
+# ---------------------------------------------------------------------------
+# The retrieval-augmented model
+
+# The rag phase: the flagship with rag.enabled and the shapes benchmark's 8
+# classes (its knowledge base 8 + 5 facts), seeded conditioned weights with
+# the gate at RAG_GATE (at its init value 0 the blend changes nothing). Its
+# knowledge module's mHC layer (rag/mhc_fuse, d = 256 on the stride-8 map) is
+# a 19th kernel-A site and a 26th mHC matrix. Training: train_device's
+# captured step at 416² batch 16 on 64 seeded 640² images, 2 chunks of 5
+# steps, a validation pass at 416² batch 4.
+RAG_CLASSES, RAG_GATE = 8, 0.5
+RAG_SITES, RAG_MATRICES = KERNEL_SITES + 1, 26
+RAG_BUCKETS = (1, SERVE_BATCH)
+RAG_TRAIN_IMAGES, RAG_TRAIN_IMAGE, RAG_CHUNKS, RAG_CHUNK_STEPS = 64, 416, 2, 5
+RAG_EXPORT_CALLS = 3
+
+
+def rag_model_config():
+    from hvs_tpu_torch.config import ModelConfig
+    from hvs_tpu_torch.data.shapes import class_names_for
+
+    mcfg = ModelConfig()
+    mcfg.detection.num_classes = RAG_CLASSES
+    mcfg.rag.enabled, mcfg.rag.class_names = True, class_names_for(RAG_CLASSES)
+    return mcfg
+
+
+def rag_params(seed: int) -> dict:
+    params = conditioned_params(seed, rag_model_config())
+    params["rag_gate"].fill_(RAG_GATE)
+    return params
+
+
+def rag_production_model(seed: int):
+    """The rag phase's serve model with its seeded init and the gate set (for
+    ``phase_parity``)."""
+    model = rag_model_config().build_model(production=True, seed=seed)
+    with torch.no_grad():
+        model.rag_gate.fill_(RAG_GATE)
+    return model
+
+
+def phase_rag(card: str) -> dict:
+    """The retrieval model at full width, through the entry points:
+      1. ``InferenceEngine`` at 640² with graphs at buckets 1 and 16: B at
+         26 matrices at load, A at 19 launches per replay (counted at
+         capture), each replay bitwise its eager serve function, device ms
+         per replay; kernel A at rag/mhc_fuse (102,400 tokens at b16) on the
+         tokens the site receives in a b16 forward, against its plain
+         version, with its time and bound;
+      2. ``reload`` of seed-1 weights and back (B at 26 per reload; the
+         replay changes, equals the eager forward, and comes back bitwise)
+         and ``rebuild_serve_fns`` (the recaptured graph gives the same
+         output);
+      3. ``ModelExporter``: the ``.pt2`` program of the b1 serve function,
+         19 ``hvs::mhc_block`` nodes and 19 launches per call, consistent
+         with the serve function;
+      4. the card's raw head outputs against the CPU's (``phase_parity``
+         with the rag model, the gate nonzero);
+      5. ``train_device --use-rag``: captured steps at 416² batch 16 (B 15 +
+         10 per step) and a validation pass (C at 19 per batch).
+    Returns the kernels' launches over the phase's main-path runs."""
+    import gc
+    import shutil
+    import tempfile
+
+    from hvs_tpu_torch import train_device
+    from hvs_tpu_torch.config import InferenceConfig
+    from hvs_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
+    from hvs_tpu_torch.data import generate_shapes_image
+    from hvs_tpu_torch.deployment import ModelExporter
+    from hvs_tpu_torch.inference import InferenceEngine
+    from hvs_tpu_torch.inference.engine import WARMUP_CALLS
+
+    launches = {"mhc_block": 0, "mhc_block_unfolded": 0, "sinkhorn_forward": 0,
+                "sinkhorn_backward": 0}
+    workdir = tempfile.mkdtemp(prefix="hvs_rag_smoke_")
+    try:
+        # 1. The engine.
+        icfg = InferenceConfig()
+        icfg.preprocessing.image_size = IMAGE
+        icfg.performance.batch_buckets = RAG_BUCKETS
+        params, other = rag_params(0), rag_params(1)
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = InferenceEngine(rag_model_config(), icfg, variables={"params": params})
+        load_s = time.perf_counter() - t0
+        at_load = kernel_counts()["sinkhorn_forward"]
+        rng = np.random.default_rng(0)
+        frames = np.stack([generate_shapes_image(rng, size=IMAGE, num_classes=RAG_CLASSES)[0]
+                           for _ in range(SERVE_BATCH)])
+        buckets = {}
+        for b in RAG_BUCKETS:
+            a0 = mhc_mod.launches
+            engine._serve_fn(b)  # capture: WARMUP_CALLS eager calls and the capture
+            a_per = (mhc_mod.launches - a0) / (WARMUP_CALLS + 1)
+            graph, eager = serve_bucket(engine, b, frames)
+            buckets[b] = {"a_per_replay": a_per,
+                          "bitwise_equal_eager": bool(np.array_equal(graph, eager)),
+                          "detections": int(graph[:, 0, 6].sum()),
+                          "ms": replay_ms(engine, engine._serve_fn(b))}
+        row = {"phase": "rag_engine", "image": IMAGE, "classes": RAG_CLASSES, "gate": RAG_GATE,
+               "kernel_sites": engine.kernel_sites, "sinkhorn_at_load": at_load,
+               "knowledge_rows": int(engine.model.rag.kb.shape[0]), "load_s": load_s,
+               "buckets": buckets, "card": card}
+        print(json.dumps(row), flush=True)
+        if engine.kernel_sites != RAG_SITES or at_load != RAG_MATRICES \
+                or row["knowledge_rows"] != RAG_CLASSES + 5:
+            fail(f"rag engine: {row}; expected {RAG_SITES} kernel-A sites, {RAG_MATRICES} "
+                 f"kernel-B launches at load")
+        for b, r in buckets.items():
+            if r["a_per_replay"] != RAG_SITES or not r["bitwise_equal_eager"] \
+                    or r["detections"] == 0:
+                fail(f"rag engine bucket {b}: {r}")
+
+        # Kernel A at the knowledge module's site, on the tokens it receives.
+        fuse = engine.model.rag.mhc_fuse
+        seen = {}
+
+        def keep_input(module, args):
+            seen["x"] = args[0].reshape(-1, module.dim).contiguous().clone()
+
+        hook = fuse.register_forward_pre_hook(keep_input)
+        mean = torch.tensor(IMAGENET_MEAN, device=engine.device)
+        std = torch.tensor(IMAGENET_STD, device=engine.device)
+        with torch.inference_mode():
+            engine.model((torch.from_numpy(frames).to(engine.device).float() / 255.0 - mean)
+                         / std)
+        hook.remove()
+        x = seen["x"]
+        n, d = x.shape
+        # The site's own weights at their init are ill-conditioned where the
+        # kernel's hardware tanh moves the output (ILL_ROWS): the check holds
+        # the kernel on this site's tokens with the kernel phase's weights.
+        _, args = mhc_inputs(1, d, seed=d)
+        out, ref = mhc_mod.mhc_block(x, *args), mhc_mod.mhc_block_plain(x, *args)
+        torch.cuda.synchronize()
+        a_, b_ = out.float().flatten().cpu().numpy(), ref.float().flatten().cpu().numpy()
+        corr, mean_abs = float(np.corrcoef(a_, b_)[0, 1]), float(np.mean(np.abs(a_ - b_)))
+        bound, bound_by = mhc_bound_ms(n, d)
+        site = {"phase": "rag_kernel_site", "site": "rag.mhc_fuse", "n": n, "d": d,
+                "corr": corr, "mean_abs_err": mean_abs,
+                "max_abs_err": float(np.max(np.abs(a_ - b_))),
+                "ms": time_ms(lambda: mhc_mod.mhc_block(x, *args)),
+                "plain_ms": time_ms(lambda: mhc_mod.mhc_block_plain(x, *args)),
+                "bound_ms": bound, "bound_by": bound_by, "card": card}
+        print(json.dumps(site), flush=True)
+        if n != SERVE_BATCH * (IMAGE // 8) ** 2 or not np.isfinite(a_).all() \
+                or not (corr > KERNEL_MIN_CORR and mean_abs < KERNEL_MAX_MEAN_ABS):
+            fail(f"rag: kernel A at rag.mhc_fuse disagrees with its plain version: {site}")
+
+        # 2. Hot swap and recapture.
+        zero_counts()
+        swap = reload_check(engine, {"params": other}, {"params": params}, frames)
+        swap["sinkhorn_per_reload"] = kernel_counts()["sinkhorn_forward"] / 2
+        before, _ = serve_bucket(engine, 1, frames)
+        engine.rebuild_serve_fns()
+        after, _ = serve_bucket(engine, 1, frames)
+        swap["recaptured_equal"] = bool(np.array_equal(before, after))
+        print(json.dumps({"phase": "rag_reload", **swap, "card": card}), flush=True)
+        if not (swap["changed"] and swap["equals_eager_after"] and swap["restored"]
+                and swap["recaptured_equal"]) or swap["sinkhorn_per_reload"] != RAG_MATRICES:
+            fail(f"rag: reload and rebuild_serve_fns: {swap}")
+        launches["mhc_block"] += sum(engine.replays.values()) * RAG_SITES
+
+        # 3. The exported program.
+        exporter = ModelExporter(engine.model, IMAGE)
+        path = os.path.join(workdir, "rag.pt2")
+        t0 = time.perf_counter()
+        exporter.export_program(path, batch=1)
+        export_s = time.perf_counter() - t0
+        program = exporter.load_program(path)
+        xin = exporter.example_input(1)
+        zero_counts()
+        with torch.no_grad():
+            for _ in range(RAG_EXPORT_CALLS):
+                program(xin)
+        torch.cuda.synchronize()
+        program_launches = mhc_mod.launches
+        report = exporter.consistency_check(path, rtol=EXPORT_RTOL, batch=1)
+        row = {"phase": "rag_export", "export_s": export_s, "calls": RAG_EXPORT_CALLS,
+               "mhc_block_launches": program_launches,
+               "mhc_block_nodes": sum("hvs.mhc_block" in str(nd.target)
+                                      for nd in program.graph.nodes), **report, "card": card}
+        print(json.dumps(row), flush=True)
+        if program_launches != RAG_SITES * RAG_EXPORT_CALLS or row["mhc_block_nodes"] != RAG_SITES \
+                or not report["consistent"]:
+            fail(f"rag: exported program: {row}")
+        launches["mhc_block"] += program_launches
+        del engine, program, exporter
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. Card against CPU with the gate open.
+        phase_parity(card, build=rag_production_model, name="rag_parity")
+
+        # 5. Training with --use-rag: captured steps and a validation pass.
+        n_widths = len(set(SINKHORN_MIX))
+        want_step = {"mhc_block": 0, "mhc_block_unfolded": 0, "sinkhorn_forward": 3 * n_widths,
+                     "sinkhorn_backward": 2 * n_widths}
+        want_val = {"mhc_block": 0, "mhc_block_unfolded": RAG_SITES,
+                    "sinkhorn_forward": n_widths, "sinkhorn_backward": 0}
+        steps = RAG_CHUNKS * RAG_CHUNK_STEPS
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer, summary = train_device.run(train_device.parse_args([
+            "--synthetic", str(RAG_TRAIN_IMAGES), "--use-rag", "--num-classes",
+            str(RAG_CLASSES), "--train-sizes", str(RAG_TRAIN_IMAGE), "--total-steps",
+            str(steps), "--chunk-steps", str(RAG_CHUNK_STEPS), "--val-every-chunks",
+            str(RAG_CHUNKS), "--eig-every-chunks", str(RAG_CHUNKS), "--run-dir",
+            f"{workdir}/run"]))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        (size, chunk), = trainer.chunks.items()
+        val = trainer.val_chunk
+        with open(f"{workdir}/run/steps.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        row = {"phase": "rag_train", "image": size, "batch": chunk.batch_size,
+               "steps": summary["steps"], "wall_s": wall_s,
+               "ms_per_step": [t["wall_ms"] / RAG_CHUNK_STEPS for t in chunk.timings],
+               "capture_s": chunk.capture_s, "loss_first": log[0]["loss"],
+               "loss_last": log[-1]["loss"], "best_val_loss": summary["best_val_loss"],
+               "rag_gate": float(trainer.model.rag_gate.detach()),
+               "launches_per_step": chunk.launches, "replays": chunk.replays,
+               "launches_per_val_batch": val.launches, "val_batches": val.n_batches,
+               "val_replays": val.replays, "card": card}
+        print(json.dumps(row), flush=True)
+        if (chunk.launches, chunk.replays, summary["steps"]) != (want_step, steps, steps) \
+                or (val.launches, val.replays) != (want_val, val.n_batches):
+            fail(f"rag: train_device --use-rag launched {row}; expected {want_step} per step "
+                 f"over {steps} replays and {want_val} per validation batch")
+        values = [r[k] for r in log for k in ("loss", "grad_norm", "ds_error_max")]
+        if len(log) != steps or not np.isfinite(values + [summary["best_val_loss"]]).all() \
+                or row["rag_gate"] == 0.0:
+            fail(f"rag: train_device --use-rag: non-finite metrics or a gate that never moved "
+                 f"{row}")
+        add_replayed(launches, chunk, val)
+        del trainer, chunk, val
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
@@ -3462,6 +3773,7 @@ def main() -> None:
     light = entry_point_phase(phase_lightweight, defaults, card, sm_clock_hz)
     data = entry_point_phase(phase_data, defaults, card)
     int8 = entry_point_phase(phase_int8, defaults, card)
+    rag = entry_point_phase(phase_rag, defaults, card)
 
     kernels = [
         kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"],
@@ -3475,6 +3787,7 @@ def main() -> None:
         k["launches_data"] = data[k["name"]]
     kernels[0]["launches_int8"] = int8["mhc_block"]
     for k in kernels:
+        k["launches_rag"] = rag[k["name"]]
         k["launches_infer"] = infer.get(k["name"], 0)
         k["launches_trajectory"] = trajectory_launches[k["name"]]
         k["launches_ddp"] = ddp_launches[k["name"]]

@@ -214,8 +214,6 @@ class ModelConfig(BaseConfig):
         scales are loaded separately: ``models.quantize.load_quant_scales``)."""
         from ..models import HybridVisionSystem, ProductionHybridVision
 
-        if self.rag.enabled:
-            raise NotImplementedError("not ported yet: rag.enabled (ROADMAP queue 1, item 9)")
         cls = ProductionHybridVision if production else HybridVisionSystem
         q = self.quantization
         int8 = production and q.enabled
@@ -225,6 +223,10 @@ class ModelConfig(BaseConfig):
             use_vit=self.vit.enabled,
             use_segmentation=self.use_segmentation,
             use_depth=self.use_depth,
+            # As JAX's build_model: the knowledge module keeps its own
+            # knowledge_dim and top_k defaults.
+            use_rag=self.rag.enabled,
+            rag_classes=tuple(self.rag.class_names) if self.rag.class_names else None,
             task=task,
             sk_iters=self.mhc.sinkhorn_iterations,
             base_channels=self.backbone.base_channels,

@@ -8,6 +8,10 @@ flax and OIHW here. Transposed-convolution kernels (flax auto-name
 ``ConvTranspose_N``) stay HWIO, as do Dense kernels ([in, out], applied as
 ``x @ W``).
 
+A retrieval model's knowledge base is a constant in both packages (a
+non-persistent buffer here, rebuilt from the class names), so it is in no
+tree; its gate ``rag_gate`` is a scalar parameter like any other.
+
 The tree is given as nested dicts of numpy arrays; a caller holding JAX
 arrays converts them first (``jax.device_get``). This module imports no JAX.
 

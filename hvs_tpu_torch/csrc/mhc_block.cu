@@ -12,9 +12,13 @@
 //   y   = bf16(gelu(bf16(bf16(y @ W2)  + bf16(b2))))
 //   y   = bf16(y @ H_post)
 //   r   = bf16(x @ H_res)
-//   out = bf16(LN2(bf16(r + y)))
+//   out = bf16(LN2(r + y))                   r + y and LN2 in fp32
 //
 // Products take bf16 operands and accumulate in fp32; GELU is the tanh form.
+// The residual sum is not rounded, as XLA compiles the JAX layer (and the TPU
+// kernel): where H_res and H_post are near uniform, the sum's spread across
+// channels lies under one bf16 step of its mean, and a rounded sum would leave
+// LN2 normalising rounding noise.
 // The TPU kernel's token packing (block-diagonal weights, LayerNorm as a
 // matmul) exists only for the TPU's 128 lanes and is not carried over: rows
 // are read as [n, d] directly.
@@ -43,7 +47,9 @@
 //   * the epilogue (rounding, bias, GELU, residual add) runs on the
 //     accumulators in registers, from the mma's documented layout (lane t
 //     holds rows t/4 and t/4 + 8 of each 16x8 tile, columns 2(t%4) and
-//     2(t%4)+1), and writes bf16 pairs into the shared tile;
+//     2(t%4)+1), and writes bf16 pairs into the shared tile; the last one
+//     writes the fp32 residual sum over the whole of shared memory, which is
+//     free by then, for LN2;
 //   * the [d, d] weights stream from L2 through a ring of kStages k-chunks
 //     (cp.async, one block barrier per chunk; 3 stages, 2 where a third
 //     would leave room for fewer blocks per SM); the first chunks of
@@ -123,8 +129,11 @@ struct Layout {
   static constexpr int kMats = kUnfolded ? 5 : 4;
   static constexpr size_t kTileBytes = size_t(kBM) * LD * sizeof(bf16);
   static constexpr size_t kChunkBytes = size_t(KC) * LD * sizeof(bf16);
-  // The x tile (later the residual), the intermediate tile and the ring.
-  static constexpr size_t kSmemBytes = 2 * kTileBytes + kRing * kChunkBytes;
+  // The x tile (later the residual), the intermediate tile and the ring; at the
+  // end the fp32 residual sum [kBM, LD] covers them (it fits at every width).
+  static constexpr size_t kSumBytes = size_t(kBM) * LD * sizeof(float);
+  static constexpr size_t kStageBytes = 2 * kTileBytes + kRing * kChunkBytes;
+  static constexpr size_t kSmemBytes = kStageBytes > kSumBytes ? kStageBytes : kSumBytes;
   static_assert(kWarps % WARPS_M == 0 && kBM % WARPS_M == 0 && D % WARPS_N == 0,
                 "uneven warp grid");
   static_assert(WM % 16 == 0 && WN % 16 == 0, "a warp owns whole 16x16 pairs of mma tiles");
@@ -134,7 +143,7 @@ struct Layout {
   static_assert(kSmemBytes <= kMaxBlockSmem, "the block's shared memory exceeds 227 KB");
 };
 
-enum Epilogue { kRound = 0, kBiasGelu = 1, kAddResidual = 2 };
+enum Epilogue { kRound = 0, kBiasGelu = 1 };
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -206,13 +215,14 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
-// LayerNorm of every row of the smem tile src, rounded to bf16, into the
-// smem tile dst or (kToGlobal) into rows first + r < n of out. A row is held
+// LayerNorm of every row of the smem tile src (bf16, or fp32 for LN2), rounded
+// to bf16, into the smem tile dst or (kToGlobal) into rows first + r < n of
+// out. Both tiles have the row stride L::LD elements. A row is held
 // by kLanes lanes, each with kVecs 16-byte pieces of it, so a warp normalises
 // 32 / kLanes rows at once and each statistic is a log2(kLanes)-step shuffle
 // reduction. Exact fp32 statistics, two-pass variance.
-template <class L, bool kToGlobal>
-__device__ __forceinline__ void layernorm_tile(const bf16* src, bf16* dst, bf16* __restrict__ out,
+template <class L, bool kToGlobal, class T>
+__device__ __forceinline__ void layernorm_tile(const T* src, bf16* dst, bf16* __restrict__ out,
                                                long long first, long long n,
                                                const float* __restrict__ scale,
                                                const float* __restrict__ bias, int warp,
@@ -243,14 +253,23 @@ __device__ __forceinline__ void layernorm_tile(const bf16* src, bf16* dst, bf16*
     float s = 0.0f;
 #pragma unroll
     for (int p = 0; p < kVecs; ++p) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * L::LD + (p * kLanes + sl) * 8);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const T* piece = src + r * L::LD + (p * kLanes + sl) * 8;
+      if constexpr (sizeof(T) == sizeof(float)) {
+        const float4 lo = *reinterpret_cast<const float4*>(piece);
+        const float4 hi = *reinterpret_cast<const float4*>(piece + 4);
+        v[p][0] = lo.x, v[p][1] = lo.y, v[p][2] = lo.z, v[p][3] = lo.w;
+        v[p][4] = hi.x, v[p][5] = hi.y, v[p][6] = hi.z, v[p][7] = hi.w;
+      } else {
+        const uint4 raw = *reinterpret_cast<const uint4*>(piece);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[p][2 * e] = __low2float(h[e]);
-        v[p][2 * e + 1] = __high2float(h[e]);
-        s += v[p][2 * e] + v[p][2 * e + 1];
+        for (int e = 0; e < 4; ++e) {
+          v[p][2 * e] = __low2float(h[e]);
+          v[p][2 * e + 1] = __high2float(h[e]);
+        }
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s += v[p][2 * e] + v[p][2 * e + 1];
     }
 #pragma unroll
     for (int o = kLanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -375,11 +394,10 @@ __device__ __forceinline__ void product(float (&acc)[L::MI][L::NI][4], const bf1
 // at the same points as the plain version:
 //   kRound:       dst = bf16(acc)
 //   kBiasGelu:    dst = bf16(gelu(bf16(bf16(acc) + bf16(bias))))
-//   kAddResidual: dst = bf16(bf16(acc) + res)
 template <class L, int kMode>
 __device__ __forceinline__ void epilogue(const float (&acc)[L::MI][L::NI][4], bf16* dst,
-                                         const bf16* res, const float* __restrict__ bias,
-                                         int lane, int row0, int col0) {
+                                         const float* __restrict__ bias, int lane, int row0,
+                                         int col0) {
   const int g = lane >> 2;       // row within the 8-row half of a 16x8 tile
   const int t2 = (lane & 3) * 2;  // first of this lane's two columns
 #pragma unroll
@@ -400,15 +418,50 @@ __device__ __forceinline__ void epilogue(const float (&acc)[L::MI][L::NI][4], bf
         if constexpr (kMode == kBiasGelu) {
           v0 = gelu_tanh(round_bf16(v0 + b0));
           v1 = gelu_tanh(round_bf16(v1 + b1));
-        } else if constexpr (kMode == kAddResidual) {
-          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(res + row * L::LD + col);
-          v0 += __low2float(r);
-          v1 += __high2float(r);
         }
         *reinterpret_cast<__nv_bfloat162*>(dst + row * L::LD + col) = __floats2bfloat162_rn(v0, v1);
       }
     }
   }
+}
+
+// acc = bf16(acc) + res in fp32, in place: the residual sum that LN2 takes
+// unrounded (res: the bf16 tile of x @ H_res).
+template <class L>
+__device__ __forceinline__ void add_residual(float (&acc)[L::MI][L::NI][4], const bf16* res,
+                                             int lane, int row0, int col0) {
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < L::NI; ++j)
+#pragma unroll
+    for (int i = 0; i < L::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + i * 16 + g + 8 * h;
+        const __nv_bfloat162 r =
+            *reinterpret_cast<const __nv_bfloat162*>(res + row * L::LD + col0 + j * 8 + t2);
+        acc[i][j][2 * h] = round_bf16(acc[i][j][2 * h]) + __low2float(r);
+        acc[i][j][2 * h + 1] = round_bf16(acc[i][j][2 * h + 1]) + __high2float(r);
+      }
+}
+
+// This warp's accumulators into the fp32 smem tile dst (row stride L::LD).
+template <class L>
+__device__ __forceinline__ void store_f32(const float (&acc)[L::MI][L::NI][4], float* dst,
+                                          int lane, int row0, int col0) {
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < L::NI; ++j)
+#pragma unroll
+    for (int i = 0; i < L::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + i * 16 + g + 8 * h;
+        *reinterpret_cast<float2*>(dst + row * L::LD + col0 + j * 8 + t2) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
 }
 
 template <int D, bool kUnfolded>
@@ -450,19 +503,22 @@ __global__ void __launch_bounds__(Config<D>::kThreads, Config<D>::kMinBlocks)
   layernorm_tile<L, false>(xs, ys, nullptr, first, n, ln1_s, ln1_b, warp, lane);
   float acc[L::MI][L::NI][4];
   product<L, 0>(acc, xs, mat, ring, lane, row0, col0);  // residual first: frees xs
-  epilogue<L, kRound>(acc, xs, nullptr, nullptr, lane, row0, col0);
+  epilogue<L, kRound>(acc, xs, nullptr, lane, row0, col0);
   if constexpr (kUnfolded) {
     product<L, kPre>(acc, ys, mat, ring, lane, row0, col0);
-    epilogue<L, kRound>(acc, ys, nullptr, nullptr, lane, row0, col0);
+    epilogue<L, kRound>(acc, ys, nullptr, lane, row0, col0);
   }
   product<L, kW1>(acc, ys, mat, ring, lane, row0, col0);
-  epilogue<L, kBiasGelu>(acc, ys, nullptr, b1, lane, row0, col0);
+  epilogue<L, kBiasGelu>(acc, ys, b1, lane, row0, col0);
   product<L, kW1 + 1>(acc, ys, mat, ring, lane, row0, col0);
-  epilogue<L, kBiasGelu>(acc, ys, nullptr, b2, lane, row0, col0);
+  epilogue<L, kBiasGelu>(acc, ys, b2, lane, row0, col0);
   product<L, kW1 + 2>(acc, ys, mat, ring, lane, row0, col0);
-  epilogue<L, kAddResidual>(acc, ys, xs, nullptr, lane, row0, col0);
+  add_residual<L>(acc, xs, lane, row0, col0);
+  __syncthreads();  // every residual read: the fp32 sum may now cover xs, ys and the ring
+  float* sum = reinterpret_cast<float*>(smem);
+  store_f32<L>(acc, sum, lane, row0, col0);
   __syncthreads();
-  layernorm_tile<L, true>(ys, nullptr, out, first, n, ln2_s, ln2_b, warp, lane);
+  layernorm_tile<L, true>(sum, nullptr, out, first, n, ln2_s, ln2_b, warp, lane);
 }
 
 // Per device: whether the instantiation's shared-memory limit is set.

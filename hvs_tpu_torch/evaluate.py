@@ -9,7 +9,10 @@ detections, in the image's own pixels like its ground truth, into
 ``per_class_AP@0.5`` by class name, ``performance``, ``stability``).
 ``--checkpoint`` reads a checkpoint of the port's trainer (``torch.save``;
 its EMA weights unless ``--no-ema``); without one the model keeps its
-seeded random init. ``--synthetic`` is the evaluator's self-check: ground
+seeded random init. ``--use-rag`` builds the model with the retrieval path,
+its knowledge base seeded with the dataset's class names, so that a
+checkpoint trained with ``--use-rag`` loads (as ``scripts/accuracy_sweep.py``
+does). ``--synthetic`` is the evaluator's self-check: ground
 truth fed back as predictions must give mAP@0.5 = 1.0. Runs on the CUDA
 card unless ``--device cpu`` is given:
 
@@ -54,6 +57,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "predictions, must yield mAP=1.0")
     p.add_argument("--images", type=int, default=8, help="synthetic image count")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--use-rag", action="store_true",
+                   help="build the model with the RAG path (for RAG-trained checkpoints)")
     return p.parse_args(argv)
 
 
@@ -131,6 +136,9 @@ def run(args: argparse.Namespace) -> EvalRun:
         image_size=args.image_size, max_samples=args.max_images, normalize=False)
     mcfg.detection.num_classes = (args.num_classes if args.num_classes is not None
                                   else len(dataset.class_names))
+    if args.use_rag:
+        mcfg.rag.enabled = True
+        mcfg.rag.class_names = tuple(dataset.class_names)
     engine = InferenceEngine(mcfg, icfg)
     evaluator = DetectionEvaluator(num_classes=len(dataset.class_names))
 

@@ -5,8 +5,11 @@ Counterpart of ``scripts/export_model.py`` with its flags. Formats:
 ``weights`` (``torch.save`` of the parameters, in place of flax msgpack),
 ``pt2`` (the serve program, ``torch.export.save``; in place of StableHLO)
 and ``all``. The program is checked against the serve function on a seeded
-batch (rtol 1e-3, atol 1e-4) unless ``--skip-check``. Runs on the card
-unless ``--device cpu`` is given::
+batch (rtol 1e-3, atol 1e-4) unless ``--skip-check``. ``--model-config``
+takes a ``ModelConfig`` YAML or JSON (its ``device`` is ignored for
+``--device``), such as one with ``rag.enabled``, whose knowledge module's
+mHC layer is one more ``hvs::mhc_block`` call in the program. Runs on the
+card unless ``--device cpu`` is given::
 
     python -m hvs_tpu_torch.export_model --format all --output exports
     python -m hvs_tpu_torch.export_model --tiny --device cpu --output /tmp/export
@@ -31,8 +34,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--skip-check", action="store_true")
     p.add_argument("--tiny", action="store_true", help="tiny model (smoke runs)")
+    p.add_argument("--model-config", default=None, help="model YAML or JSON (ModelConfig)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+def model_config(path: Optional[str], device: str):
+    """The ``ModelConfig`` of ``path`` (default: the flagship's) on ``device``."""
+    from .config import ModelConfig
+    from .config.base import _read, from_dict
+
+    data = _read(path) if path else {}
+    data["device"] = device
+    return from_dict(ModelConfig, data)
 
 
 def tiny_configs(mcfg, icfg, image_size: int) -> None:
@@ -48,12 +62,12 @@ def tiny_configs(mcfg, icfg, image_size: int) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     args = parse_args(argv)
-    from .config import InferenceConfig, ModelConfig
+    from .config import InferenceConfig
     from .deployment.model_server import ModelExporter
     from .inference import InferenceEngine
 
     device = args.device or "auto"
-    mcfg = ModelConfig(device=device)
+    mcfg = model_config(args.model_config, device)
     icfg = InferenceConfig(device=device)
     icfg.preprocessing.image_size = args.image_size
     if args.checkpoint:

@@ -1,6 +1,7 @@
 """Models of the port: the flagship with its detection, segmentation, depth
-and classification heads, the lightweight variant, their layers, and the
-int8 calibration of the serve model."""
+and classification heads and its retrieval module (``rag.py``), the
+lightweight variant, their layers, and the int8 calibration of the serve
+model."""
 
 from .constraints import compute_constraints, load_constraints, param_tree
 from .hybrid import (DepthHead, HybridVisionSystem, LightweightHybridVision,

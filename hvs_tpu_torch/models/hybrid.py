@@ -3,13 +3,13 @@ segmentation and depth heads, and the classifier on the global features.
 
 Counterpart of ``hvs_tpu/models/hybrid.py`` (``SegmentationHead``,
 ``DepthHead``, ``HybridVisionSystem`` for every task, with the ``use_vit``,
-``use_segmentation`` and ``use_depth`` flags, ``LightweightHybridVision``,
-``ProductionHybridVision``, ``detect``). RAG is not ported yet.
+``use_segmentation``, ``use_depth`` and ``use_rag`` flags,
+``LightweightHybridVision``, ``ProductionHybridVision``, ``detect``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +22,7 @@ from .backbone import HybridVisionBackbone
 from .fpn import OUT_CHANNELS, OUT_NAMES, FeaturePyramidNetwork
 from .layers import Conv, ConvTranspose, Dense, ManifoldHyperConnection, group_norm, \
     init_weights
+from .rag import RAGVisionKnowledge
 from .vit import HybridVisionEncoder
 from .yolo_head import YOLODetectionHead, postprocess_detections
 
@@ -135,7 +136,13 @@ class HybridVisionSystem(nn.Module):
     records every site whatever the flags. Parameters are those of the
     float model, so float checkpoints load unchanged.
 
-    ``use_vit=False`` builds and runs no ViT encoder. ``use_segmentation``
+    ``use_vit=False`` builds and runs no ViT encoder. ``use_rag`` injects
+    retrieved knowledge into the small fused scale after the FPN
+    (``RAGVisionKnowledge``, named ``rag``, its knowledge base seeded with
+    ``rag_classes``, COCO's by default) behind a zero-init gate: the blend
+    is ``small + tanh(rag_gate) * tokens``, in fp32 as JAX computes it with
+    its fp32 gate, so at init it changes nothing. Each head casts the
+    blended map to its own dtype. ``use_segmentation``
     and ``use_depth`` add the dense heads on the fused features. A flax
     model holds the parameters of the heads its ``init`` task ran, so
     ``task`` (one of ``TASKS``) says which heads are built: the detection
@@ -163,7 +170,8 @@ class HybridVisionSystem(nn.Module):
                  seed: int = 0, use_vit: bool = True, use_segmentation: bool = False,
                  use_depth: bool = False, task: str = "detection", act_quant: bool = False,
                  act_quant_fpn: bool = False, act_quant_mhc: bool = False,
-                 act_quant_vit: bool = False):
+                 act_quant_vit: bool = False, use_rag: bool = False,
+                 rag_classes: Optional[Sequence[str]] = None):
         super().__init__()
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")
@@ -184,6 +192,12 @@ class HybridVisionSystem(nn.Module):
                             if use_vit else None)
         self.fpn = FeaturePyramidNetwork(tuple(stage_channels[1:]), fpn_channels, dtype=dtype,
                                          act_quant=act_quant_fpn, **mhc)
+        # The knowledge module has no int8 sites and no telemetry, as in JAX.
+        self.rag = (RAGVisionKnowledge(OUT_CHANNELS[0], sk_iters=sk_iters, dtype=dtype,
+                                       precomputed_constraints=precomputed_constraints,
+                                       kb_classes=rag_classes)
+                    if use_rag else None)
+        self.rag_gate = nn.Parameter(torch.zeros(())) if use_rag else None
         self.detection_head = (YOLODetectionHead(OUT_CHANNELS, num_classes, head_channels,
                                                  dtype=dtype, act_quant=act_quant, **mhc)
                                if task in ("detection", "multi_task") else None)
@@ -238,6 +252,11 @@ class HybridVisionSystem(nn.Module):
             enhanced = self.vit_encoder(scales["scale_large"])
             scales["scale_large"] = 0.5 * scales["scale_large"] + 0.5 * enhanced
         fused = self.fpn(scales)
+        if self.rag is not None:
+            small = fused["fused_small"]
+            b, h, w, c = small.shape
+            tokens = self.rag(small.reshape(b, h * w, c)).reshape(b, h, w, c)
+            fused["fused_small"] = small.float() + torch.tanh(self.rag_gate) * tokens.float()
         out: Dict[str, Any] = {}
         if task in ("detection", "multi_task"):
             out["detection"] = self._head("detection_head")(fused)

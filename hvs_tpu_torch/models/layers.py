@@ -420,12 +420,11 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
     hand each its projection in ``h_res_given`` for one forward (see
     ``HybridVisionSystem.forward``); a layer called on its own projects its
     own. In train mode dropout (``dropout_rate``) follows both GELUs and
-    LN2, as in JAX, and autograd differentiates the chain. The products
-    ``x @ H_res`` and ``y @ H_post`` are rounded to ``dtype``, their sum and
-    LN2 are not (fp32), as XLA compiles JAX's layer; a deterministic forward
-    without autograd at a fused site takes kernel C, which rounds the sum
-    too, as the reference's Pallas kernel does. With
-    ``monitor`` the layer leaves its telemetry
+    LN2, as in JAX, and autograd differentiates the chain; a deterministic
+    forward without autograd at a fused site takes kernel C. In every branch
+    and block the products ``x @ H_res`` and ``y @ H_post`` are rounded to
+    ``dtype`` and their sum and LN2 are not (fp32), as XLA compiles JAX's
+    layer and its Pallas kernels. With ``monitor`` the layer leaves its telemetry
     (``signal_ratio``, ``ds_error``, ``row_sum_error``, ``col_sum_error``;
     detached tensors) in ``self.metrics`` after each forward, as the JAX
     layer sows it into the ``stability`` collection.
@@ -538,7 +537,8 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
         return self._serve_chain(x_in)
 
     def _serve_chain(self, x_in: torch.Tensor) -> torch.Tensor:
-        """The unfused bf16 serve chain; records its int8 sites when calibrating."""
+        """The unfused bf16 serve chain; records its int8 sites when calibrating.
+        The products are rounded to dtype, their sum and LN2 are fp32."""
         dt = self.dtype
         y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt)
         self.record("y1_scale", y)
@@ -549,7 +549,8 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
         self.record("x_scale", x_in)
         y = y @ self.h_post
         res = x_in @ self.h_res
-        return _layernorm(res + y, self.norm_post_scale, self.norm_post_bias).to(dt)
+        return _layernorm(res.float() + y.float(), self.norm_post_scale,
+                          self.norm_post_bias).to(dt)
 
     def _int8_chain(self, x_in: torch.Tensor) -> torch.Tensor:
         """JAX's ``int8_chain``: every product int8 by int8 into int32."""
@@ -565,7 +566,10 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
         y = gelu(product(y, "a1_scale", "w2") + self.mlp_out_bias.to(dt))
         y = product(y, "a2_scale", "h_post")
         res = product(x_in, "x_scale", "h_res")
-        return _layernorm(res + y, self.norm_post_scale, self.norm_post_bias).to(dt)
+        # Each product is rounded to dtype, the sum is not: XLA keeps the
+        # jitted JAX chain's sum in fp32 into LN2.
+        return _layernorm(res.float() + y.float(), self.norm_post_scale,
+                          self.norm_post_bias).to(dt)
 
     def _train_branch(self, x_in: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

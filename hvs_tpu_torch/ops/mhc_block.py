@@ -11,7 +11,9 @@ use. Neither has a backward: training differentiates the plain chain.
 Per token row: LN1 (fp32 statistics, eps 1e-6) -> ``@ W1_folded + b1`` -> GELU
 (tanh) -> ``@ W2 + b2`` -> GELU -> ``@ H_post``; plus ``x @ H_res``; add; LN2.
 bf16 operands, fp32 accumulation, a round to bf16 after LN1, after each
-product, each bias add, each GELU and the residual add. The kernel's GELU
+product, each bias add and each GELU; the residual sum and LN2 stay in fp32
+(as XLA compiles the JAX layer and its Pallas kernels) and the output is
+rounded once. The kernel's GELU
 takes the hardware tanh (``tanh.approx.f32``, relative error <= 2^-10.9),
 the plain version's the exact one.
 
@@ -40,10 +42,12 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 SUPPORTED_WIDTHS = (32, 64, 128, 256, 512)
-# Token rows per block and threads per block of each width, as
-# csrc/mhc_block.cu's Config<d> sets them.
+# Token rows per block, threads per block, and the weight ring (rows per
+# streamed chunk, chunks) of each width, as csrc/mhc_block.cu's Config<d>
+# sets them.
 ROW_TILE = {32: 128, 64: 128, 128: 64, 256: 64, 512: 32}
 THREADS = 256
+RING = {32: (32, 3), 64: (64, 3), 128: (64, 3), 256: (32, 2), 512: (16, 2)}
 
 # Kernel launches in this process (CUDA tensors only): ``mhc_block`` (serve
 # mode) and ``mhc_block_unfolded``.
@@ -93,7 +97,7 @@ def _chain(x, y, w1, b1, w2, b2, h_post, h_res, ln2_scale, ln2_bias) -> torch.Te
     y = F.gelu(_mm(y, w2) + b2.to(bf), approximate="tanh")
     y = _mm(y, h_post)
     res = _mm(x, h_res)
-    return layernorm(res + y, ln2_scale, ln2_bias).to(x.dtype)
+    return layernorm(res.float() + y.float(), ln2_scale, ln2_bias).to(x.dtype)
 
 
 # The kernels' operands after x, in the order of their C entry points; the
@@ -133,11 +137,22 @@ def _check(x, names, args, addresses: bool = True) -> None:
             )
 
 
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block at width ``d``, as the source's
+    ``Layout<d>::kSmemBytes``: the bf16 x and intermediate tiles and the
+    weight ring (rows padded by 8 elements), or the fp32 residual sum that
+    covers them at the end, whichever is larger."""
+    bm, ld = ROW_TILE[d], d + 8
+    kc, stages = RING[d]
+    staged = 2 * bm * ld * 2 + min(d // kc, stages) * kc * ld * 2
+    return max(staged, bm * ld * 4)
+
+
 def launch_plan(n: int, d: int) -> dict:
-    """Row tile, threads and grid (one block per tile) of the launch for ``n``
-    rows of width ``d``."""
+    """Row tile, threads, grid (one block per tile) and dynamic shared memory
+    of the launch for ``n`` rows of width ``d``."""
     bm = ROW_TILE[d]
-    return {"bm": bm, "threads": THREADS, "grid": -(-n // bm)}
+    return {"bm": bm, "threads": THREADS, "grid": -(-n // bm), "smem": smem_bytes(d)}
 
 
 def _launch(entry: str, x: torch.Tensor, names, args,

@@ -17,8 +17,11 @@ card unless ``--device cpu`` is given:
     python -m hvs_tpu_torch.train --synthetic --tiny --steps 2 --device cpu
     python -m hvs_tpu_torch.train --synthetic --steps 50 --epochs 1
 
-Checkpoints go to the config's ``checkpoint_dir`` (``--checkpoint-dir``)
-and the stability report to its ``log_dir`` (``--log-dir``).
+The model is the flagship, or what ``--model-config`` (a ``ModelConfig``
+YAML or JSON, as ``scripts/train.py --model-config`` takes it) describes:
+its ``rag`` block trains the retrieval model. Checkpoints go to the
+config's ``checkpoint_dir`` (``--checkpoint-dir``) and the stability report
+to its ``log_dir`` (``--log-dir``).
 
 Data-parallel over N cards, one process each: ``torchrun --nproc_per_node N
 -m hvs_tpu_torch.train ...``, or the config's ``distributed`` block
@@ -66,6 +69,8 @@ def make_synthetic_loader(batch: int, image_size: int, steps: int, num_classes: 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Train HybridVisionSystem (PyTorch/CUDA port)")
     p.add_argument("--config", default=None, help="training YAML or JSON (TrainingConfig)")
+    p.add_argument("--model-config", default=None,
+                   help="model YAML or JSON (ModelConfig; its rag block enables retrieval)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--learning-rate", type=float, default=None)
@@ -114,6 +119,7 @@ def training_config(args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     args = parse_args(argv)
+    from .config import InferenceConfig
     from .device import pin_matmul_precision
     from .models import HybridVisionSystem
     from .parallel import setup
@@ -148,8 +154,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         print(f"dataset: {len(dm.train_dataset)} train / {len(dm.val_dataset)} val images, "
               f"{num_classes} classes", flush=True)
 
-    model = HybridVisionSystem(num_classes=num_classes, monitor=True, device=device,
-                               seed=args.seed, **(dict(TINY) if args.tiny else {}))
+    if args.model_config:
+        from .export_model import model_config, tiny_configs
+
+        mcfg = model_config(args.model_config, device.type)
+        if args.tiny:
+            tiny_configs(mcfg, InferenceConfig(device=device.type), ds.image_size)
+        mcfg.detection.num_classes = num_classes
+        model = mcfg.build_model(monitor=True, device=device, seed=args.seed)
+    else:
+        model = HybridVisionSystem(num_classes=num_classes, monitor=True, device=device,
+                                   seed=args.seed, **(dict(TINY) if args.tiny else {}))
     trainer = ManifoldConstrainedTrainer(model, tcfg.trainer_config(num_classes=num_classes),
                                          device=device, seed=args.seed, mesh=mesh)
     trainer.init_state()

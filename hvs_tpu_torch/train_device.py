@@ -12,7 +12,9 @@ per image, EMA 0.999, 1000 warm-up steps, chunks of 100 steps), through
 images with random boxes, made with numpy, and N // 4 (at least 4)
 validation images. Runs on the CUDA card unless ``--device cpu`` is given;
 ``--tiny`` takes the tiny smoke model and scales the sizes down (416 → 64,
-640 → 96) with batches of at most 2:
+640 → 96) with batches of at most 2. ``--use-rag`` trains the retrieval
+model, its knowledge base seeded with the benchmark's class names
+(``class_names_for(--num-classes)``), as the JAX script does:
 
     python -m hvs_tpu_torch.train_device --data-root data/shapes640 --num-classes 8
     python -m hvs_tpu_torch.train_device --synthetic 512 --total-steps 2000
@@ -68,7 +70,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--cls-pos-weight", type=float, default=1.0)
     p.add_argument("--num-classes", type=int, default=80)
     p.add_argument("--use-rag", action="store_true",
-                   help="RAG blend (not ported yet: ROADMAP queue 1 item 9)")
+                   help="the retrieval model (knowledge base: the benchmark's class names)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tiny", action="store_true", help="tiny model and sizes (smoke runs)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -100,10 +102,8 @@ def run(args: argparse.Namespace) -> Tuple["ManifoldConstrainedTrainer", Dict[st
     """The whole run of ``main``; returns the trainer (its captured steps
     are ``trainer.chunks``, its validation graph ``trainer.val_chunk``) and
     the summary that ``main`` prints."""
-    if args.use_rag:
-        raise NotImplementedError("--use-rag: the RAG blend is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
     from .data import load_coco_arrays, put_device_data
+    from .data.shapes import class_names_for
     from .device import pin_matmul_precision
     from .models import HybridVisionSystem
     from .parallel import setup
@@ -141,8 +141,11 @@ def run(args: argparse.Namespace) -> Tuple["ManifoldConstrainedTrainer", Dict[st
           f"{len(train[0])} train / {len(val[0])} val images at {train[0].shape[1]}^2) "
           f"in {time.time() - t0:.1f}s", flush=True)
 
+    # --use-rag seeds the knowledge base with the benchmark's own class names.
+    rag = (dict(use_rag=True, rag_classes=class_names_for(args.num_classes))
+           if args.use_rag else {})
     model = HybridVisionSystem(num_classes=args.num_classes, monitor=True, device=device,
-                               seed=args.seed, **(TINY if args.tiny else {}))
+                               seed=args.seed, **(TINY if args.tiny else {}), **rag)
     cfg = TrainerConfig(
         num_classes=args.num_classes, learning_rate=args.learning_rate,
         warmup_steps=args.warmup_steps, total_steps=args.total_steps,

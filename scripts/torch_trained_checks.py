@@ -62,6 +62,8 @@ def parse_args(argv=None):
     p.add_argument("--dump", default=None, help="save the two least-agreeing sites here")
     p.add_argument("--tiny", action="store_true",
                    help="the tiny model of evaluate --tiny (checks of the script)")
+    p.add_argument("--use-rag", action="store_true",
+                   help="the retrieval model (its knowledge base: the dataset's classes)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -210,6 +212,10 @@ def main(argv=None) -> dict:
     device = args.device or "auto"
     mcfg = ModelConfig(device=device)
     mcfg.detection.num_classes = args.num_classes
+    if args.use_rag:
+        from hvs_tpu_torch.data.shapes import class_names_for
+
+        mcfg.rag.enabled, mcfg.rag.class_names = True, class_names_for(args.num_classes)
     if args.tiny:
         mcfg.backbone.stage_channels = (16, 24, 32, 40)
         mcfg.backbone.stage_blocks = (1, 1, 1, 1)

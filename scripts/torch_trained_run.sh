@@ -15,14 +15,21 @@
 # records for the JAX package's rag_off variant: 6,000 steps at 416² only,
 # batch 16, lr 1e-3, warm-up 300, EMA 0.999, 8 classes, validation every
 # 1,000 steps, then evaluate at 416² on the 500 val images from the best
-# checkpoint (STEPS is ignored; no checks, no int8):
+# checkpoint and run the trained-weight checks on it at 416² (STEPS is
+# ignored; no int8). PROTOCOL=r3_rag_gated is the same with --use-rag (the
+# variant rag_learnable_gate of RAG_EVAL_r03.json), evaluated and checked
+# with the retrieval path, and writes the trained gate to OUT/rag_gate.json.
+# With PARENT set to a directory holding another tree of this repository (an
+# earlier commit unpacked with git archive), the checkpoint is also
+# evaluated and checked by that tree's code (OUT/parent_*): the two trees'
+# serve paths on the same weights. The run directory is runs/<PROTOCOL>.
 #
-#   PROTOCOL=r3_rag_off bash scripts/torch_trained_run.sh [OUT]
+#   PROTOCOL=r3_rag_off PARENT=_compare/parent bash scripts/torch_trained_run.sh [OUT]
+#   PROTOCOL=r3_rag_gated bash scripts/torch_trained_run.sh [OUT]
 set -uo pipefail
 OUT=${1:-runs/trained_report}
 STEPS=${2:-10000}
 DATA=data/shapes640
-RUN=runs/trained
 PROTOCOL=${PROTOCOL:-default}
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
@@ -34,23 +41,56 @@ if [ ! -f "$DATA/annotations/instances_val.json" ]; then
     > "$OUT/make_dataset.log" 2>&1 || { stamp dataset_failed; exit 1; }
 fi
 stamp dataset
-if [ "$PROTOCOL" = r3_rag_off ]; then
+if [ "$PROTOCOL" = r3_rag_off ] || [ "$PROTOCOL" = r3_rag_gated ]; then
+  RAG=""
+  [ "$PROTOCOL" = r3_rag_gated ] && RAG=--use-rag
+  RUN=runs/$PROTOCOL
   python -m hvs_tpu_torch.train_device --data-root "$DATA" --num-classes 8 \
     --train-sizes 416 --total-steps 6000 --warmup-steps 300 --learning-rate 1e-3 \
-    --ema-decay 0.999 --batch-416 16 --chunk-steps 100 --val-every-chunks 10 \
+    --ema-decay 0.999 --batch-416 16 --chunk-steps 100 --val-every-chunks 10 $RAG \
     --run-dir "$RUN" > "$OUT/train.log" 2>&1 || { stamp train_failed; tail -50 "$OUT/train.log"; exit 1; }
   stamp trained
   cp "$RUN"/steps.jsonl "$RUN"/chunks.jsonl "$RUN"/stability_report.json "$OUT"/ 2>/dev/null
   python scripts/torch_run_summary.py "$RUN" --window 1000 > "$OUT/summary.json" \
     || { stamp summary_failed; exit 1; }
   cat "$OUT/summary.json"
+  CKPT="$RUN/checkpoints/best"
+  if [ "$PROTOCOL" = r3_rag_gated ]; then
+    python - "$CKPT.pt" > "$OUT/rag_gate.json" <<'PY'
+import json, sys, torch
+ckpt = torch.load(sys.argv[1], map_location="cpu")
+gate = {"params": float(ckpt["params"]["rag_gate"]), "step": ckpt["step"]}
+if ckpt.get("ema_params") is not None:
+    gate["ema_params"] = float(ckpt["ema_params"]["rag_gate"])
+print(json.dumps(gate))
+PY
+    cat "$OUT/rag_gate.json"
+  fi
   python -m hvs_tpu_torch.evaluate --data-root "$DATA" --split val --image-size 416 \
-    --num-classes 8 --checkpoint "$RUN/checkpoints/best" --output "$OUT/eval416.json" \
+    --num-classes 8 --checkpoint "$CKPT" $RAG --output "$OUT/eval416.json" \
     > "$OUT/eval.log" 2>&1 || { stamp eval_failed; tail -50 "$OUT/eval.log"; exit 1; }
   stamp evaluated
   tail -n 3 "$OUT/eval.log"
+  python scripts/torch_trained_checks.py --checkpoint "$CKPT" --data-root "$DATA" \
+    --num-classes 8 --image-size 416 $RAG --output "$OUT/checks.json" \
+    --dump "$OUT/sites.pt" > "$OUT/checks.log" 2>&1
+  echo "checks exit $?" | tee -a "$OUT/times.txt"
+  stamp checked
+  if [ -n "${PARENT:-}" ]; then
+    ABS_CKPT=$(realpath "$CKPT"); ABS_DATA=$(realpath "$DATA"); ABS_OUT=$(realpath "$OUT")
+    (cd "$PARENT" && python -m hvs_tpu_torch.evaluate --data-root "$ABS_DATA" --split val \
+      --image-size 416 --num-classes 8 --checkpoint "$ABS_CKPT" \
+      --output "$ABS_OUT/parent_eval416.json" > "$ABS_OUT/parent_eval.log" 2>&1)
+    echo "parent evaluate exit $?" | tee -a "$OUT/times.txt"
+    (cd "$PARENT" && python scripts/torch_trained_checks.py --checkpoint "$ABS_CKPT" \
+      --data-root "$ABS_DATA" --num-classes 8 --image-size 416 \
+      --output "$ABS_OUT/parent_checks.json" > "$ABS_OUT/parent_checks.log" 2>&1)
+    echo "parent checks exit $?" | tee -a "$OUT/times.txt"
+    stamp parent_checked
+  fi
   exit 0
 fi
+RUN=runs/trained
 python -m hvs_tpu_torch.train_device --data-root "$DATA" --num-classes 8 \
   --total-steps "$STEPS" --run-dir "$RUN" > "$OUT/train.log" 2>&1 \
   || { stamp train_failed; tail -50 "$OUT/train.log"; exit 1; }

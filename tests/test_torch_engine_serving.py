@@ -394,9 +394,9 @@ def test_soft_and_matrix_nms_raise(method):
 
 
 # use_segmentation, use_depth and vit.enabled=False were ported with the
-# multi-task model, and quantization.enabled with int8 serving: their cases
-# now check that the config builds them (the ids keep the ROADMAP item they
-# were ported under); RAG still raises.
+# multi-task model, quantization.enabled with int8 serving and rag.enabled
+# with the retrieval model: each case now checks that the config builds them
+# (the ids keep the ROADMAP item they were ported under).
 @pytest.mark.parametrize("field,item", [
     ("quantization", "item 8"), ("rag", "item 9"), ("use_segmentation", "item 9"),
     ("use_depth", "item 9"), ("vit", "item 9")])
@@ -427,8 +427,12 @@ def test_parts_not_ported_raise(field, item):
         with pytest.raises(ValueError, match="requires calibrated scales"):
             InferenceEngine(cfg, port_inference_config())
         return
-    with pytest.raises(NotImplementedError, match=item):
-        cfg.build_model(production=True)
+    # rag: the knowledge module on the small scale behind its zero gate, its
+    # mHC layer a kernel-A site, the knowledge base COCO's (80 + 5 facts).
+    model = cfg.build_model(production=True)
+    assert model.rag is not None and float(model.rag_gate.detach()) == 0.0
+    assert model.rag.mhc_fuse.fused and tuple(model.rag.kb.shape) == (85, 128)
+    assert "rag.kb" not in model.state_dict()  # a constant, in no checkpoint
 
 
 def test_config_device_and_dtype(tmp_path):

@@ -215,8 +215,10 @@ def test_evaluate_synthetic_self_check_matches_the_jax_script():
     want = _jax_script().synthetic_self_check(SimpleNamespace(images=6))
     assert port["mAP@0.5"] == want["mAP@0.5"] == 1.0
     _close_results(port, want, tol=0.0)
+    # The script's flags, plus --device and --use-rag (the counterpart of
+    # scripts/accuracy_sweep.py's, for a checkpoint trained with retrieval).
     assert vars(port_eval.parse_args([])) == dict(
-        vars(_jax_script_args()), device=None)
+        vars(_jax_script_args()), device=None, use_rag=False)
 
 
 def _jax_script_args():

@@ -64,6 +64,48 @@ def test_mhc_block_kernel_matches_plain_version(d, n):
     assert np.mean(np.abs(a - b)) < MAX_MEAN_ABS
 
 
+def _ill_conditioned_inputs(n, d, seed):
+    """The residual sum ill-conditioned, as chip_smoke.py's ILL_ROWS rows:
+    x = 3 ± 0.3, a near-uniform H_res and a small H_post."""
+    r = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dtype)
+
+    bf = torch.bfloat16
+    x = t(3.0 + 0.3 * r.standard_normal((n, d)), bf)
+    mats = [t(r.standard_normal((d, d)) / math.sqrt(d), bf) for _ in range(2)]
+    h_post = t(0.05 * r.standard_normal((d, d)) / math.sqrt(d), bf)
+    h_res = sinkhorn_log(t(0.1 * r.standard_normal((d, d))), 20).to(bf)
+    vecs = [t(0.01 * r.standard_normal(d)) for _ in range(2)]
+    ln = [t(1 + 0.1 * r.standard_normal(d)), t(0.1 * r.standard_normal(d)),
+          t(1 + 0.1 * r.standard_normal(d)), t(0.1 * r.standard_normal(d))]
+    return x, [mats[0], vecs[0], mats[1], vecs[1], h_post, h_res.contiguous()] + ln
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unfolded", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 512])
+def test_mhc_block_kernels_sum_the_residual_in_fp32(d, unfolded):
+    """Kernels A and C against their plain versions where the residual sum
+    is ill-conditioned: the sum and LN2 in fp32 on both sides (a kernel that
+    rounds the sum reads corr ~0.97 here)."""
+    _need_card()
+    x, args = _ill_conditioned_inputs(4096, d, seed=d)
+    if unfolded:
+        args = [torch.sigmoid(torch.eye(d, device="cuda") * 6.0 - 3.0).to(torch.bfloat16)] + args
+        out = mhc_mod.mhc_block_unfolded(x, *args)
+        ref = mhc_mod.mhc_block_unfolded_plain(x, *args)
+    else:
+        out, ref = mhc_mod.mhc_block(x, *args), mhc_mod.mhc_block_plain(x, *args)
+    torch.cuda.synchronize()
+    a = out.float().cpu().numpy().ravel()
+    b = ref.float().cpu().numpy().ravel()
+    assert np.isfinite(a).all()
+    assert np.corrcoef(a, b)[0, 1] > MIN_CORR
+    assert np.mean(np.abs(a - b)) < MAX_MEAN_ABS
+
+
 @pytest.mark.gpu
 def test_mhc_block_wrapper_raises_instead_of_falling_back():
     if not torch.cuda.is_available():
@@ -409,6 +451,24 @@ def _tiny_card_engine(seed=0, variables=None):
     return InferenceEngine(mc, ic, variables=variables, rng_seed=seed)
 
 
+def _tiny_rag_card_engine(buckets=(4,)):
+    """``_tiny_card_engine``'s model with ``rag.enabled`` (the shapes
+    classes) and its gate open: the knowledge module's mHC layer (d = 256)
+    is one more kernel-A site."""
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+    from hvs_tpu_torch.data.shapes import SHAPE_CLASSES
+    from hvs_tpu_torch.inference import InferenceEngine
+
+    base = _tiny_card_engine()
+    mc, ic = base.model_config, base.config
+    mc.rag.enabled, mc.rag.class_names = True, SHAPE_CLASSES
+    ic.performance.batch_buckets = buckets
+    engine = InferenceEngine(mc, ic)
+    with torch.no_grad():
+        engine.model.rag_gate.fill_(0.5)
+    return engine, base.kernel_sites
+
+
 def _frames(seed, n, h=48, w=64):
     return list(np.random.default_rng(seed).integers(0, 256, (n, h, w, 3), dtype=np.uint8))
 
@@ -428,6 +488,28 @@ def test_engine_graph_replay_equals_eager(raw):
         torch.cuda.synchronize()
     assert entry.graph is not None
     assert out[:, 0, 6].sum() > 0  # detections to compare
+    assert torch.equal(out, eager.cpu())
+
+
+@pytest.mark.gpu
+def test_rag_engine_bucket_4_graph_replays_as_eager():
+    """A retrieval model's bucket-4 graph (top-k and gather of the knowledge
+    base inside it) replays bitwise as its eager serve function, with kernel
+    A at one more site than the same model without retrieval."""
+    _need_card()
+    engine, plain_sites = _tiny_rag_card_engine()
+    assert engine.kernel_sites == plain_sites + 1 and engine.model.rag.mhc_fuse.fused
+    before = mhc_mod.launches
+    entry = engine._serve_fn(4)
+    assert mhc_mod.launches > before  # captured with the kernel
+    frames = _frames(2, 4, 64, 64)
+    with engine._serve_lock, torch.cuda.stream(engine._stream):
+        entry.stage(frames, engine._stream)
+        out, done = entry.run(engine._stream)
+        eager = entry.serve_eager(entry.static_in)
+        torch.cuda.synchronize()
+    assert entry.graph is not None
+    assert out[:, 0, 6].sum() > 0
     assert torch.equal(out, eager.cpu())
 
 

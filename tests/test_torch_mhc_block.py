@@ -285,6 +285,23 @@ def test_row_tile_matches_the_kernel_source(d):
 
 
 @pytest.mark.parametrize("d", mhc_mod.SUPPORTED_WIDTHS)
+def test_shared_memory_matches_the_kernel_source_and_fits(d):
+    """The wrapper's ring per width is Config<d>'s; the block's shared memory
+    (the fp32 residual sum included) stays within one block's 227 KB and
+    lets kMinBlocks blocks share an SM (228 KB, 1 KB reserved per block)."""
+    m = re.search(r"struct Config<%d> \{(?:\s*//[^\n]*)*\s*static constexpr int BM = \d+, "
+                  r"kThreads = \d+, kMinBlocks = (\d+), WARPS_M = \d+, KC = (\d+),\s*"
+                  r"kStages = (\d+);" % d, _SOURCE.read_text())
+    assert m, f"no Config<{d}> in {_SOURCE.name}"
+    min_blocks, kc, stages = int(m[1]), int(m[2]), int(m[3])
+    assert mhc_mod.RING[d] == (kc, stages)
+    smem = mhc_mod.launch_plan(1, d)["smem"]
+    assert smem == mhc_mod.smem_bytes(d) <= 232448
+    assert min_blocks * (smem + 1024) <= 228 * 1024
+    assert mhc_mod.ROW_TILE[d] * (d + 8) * 4 <= smem  # the fp32 sum fits
+
+
+@pytest.mark.parametrize("d", mhc_mod.SUPPORTED_WIDTHS)
 def test_launch_plan_covers_every_row_exactly_once(d):
     for n in _SPREAD:
         plan = mhc_mod.launch_plan(n, d)

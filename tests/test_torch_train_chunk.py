@@ -426,5 +426,11 @@ def test_train_device_raises_for_what_is_not_ported(tmp_path):
     with pytest.raises(FileNotFoundError, match="instances_train.json"):
         # --data-root is read (load_coco_arrays); an absent dataset raises
         main(["--data-root", str(tmp_path / "absent"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--synthetic", "8", "--use-rag", "--device", "cpu"])
+    # --use-rag (ported): the retrieval model trains, its knowledge base the
+    # benchmark's classes (8 + 5 facts).
+    summary = main(["--synthetic", "8", "--use-rag", "--num-classes", "8", "--tiny", "--device",
+                    "cpu", "--total-steps", "2", "--chunk-steps", "2", "--val-every-chunks",
+                    "1", "--run-dir", str(tmp_path / "rag")])
+    assert summary["steps"] == 2 and np.isfinite(summary["best_val_loss"])
+    ckpt = torch.load(tmp_path / "rag" / "checkpoints" / "final.pt", map_location="cpu")
+    assert "rag_gate" in ckpt["params"] and "rag.mhc_fuse.H_res_raw" in ckpt["params"]
