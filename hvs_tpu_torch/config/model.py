@@ -6,8 +6,10 @@ defaults. ``ModelConfig.build_model`` builds the port's
 method passes (``vit.enabled``, ``use_segmentation`` and ``use_depth``
 included). ``mhc.use_pallas`` is kept for file compatibility and has no
 effect: on the card every eligible mHC site runs the Hopper kernel, on the
-CPU its plain version. Parts of the model the port does not have yet (RAG,
-int8) raise ``NotImplementedError`` naming the ROADMAP item that adds them.
+CPU its plain version. ``rag.enabled`` builds the retrieval model, and
+``production`` with ``quantization.enabled`` the int8 serve model.
+``vit.use_manifold_attention`` is read by no ``build_model``, as in JAX: the
+manifold-attention encoder is built directly (``models.HybridVisionEncoder``).
 """
 
 from __future__ import annotations

@@ -149,13 +149,17 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// GELU, tanh form, with the hardware tanh (tanh.approx.f32, relative error
-// <= 2^-10.9 before the bf16 rounding; PERF.md has its effect per shape).
+// GELU, tanh form, with the exact fp32 tanh (tanhf), its argument and product
+// in the order of PyTorch's CUDA gelu(approximate="tanh"), so that the kernel
+// and its plain version round the same GELU values to bf16. Where LN2 has a
+// large gain (H_post near 1), the hardware tanh's 2^-10.9 relative error
+// moved the block's output far from the plain version's (PERF.md).
 __device__ __forceinline__ float gelu_tanh(float v) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  float t;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(k * (v + 0.044715f * (v * v * v))));
-  return v * (0.5f * (1.0f + t));
+  const float k_beta = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float k_kappa = 0.044715f;
+  const float cube = v * v * v;
+  const float inner = k_beta * (v + k_kappa * cube);
+  return 0.5f * v * (1.0f + tanhf(inner));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -8,7 +8,7 @@ paths through ``QuantConv``, ``models/layers.py``).
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -135,6 +135,7 @@ class HybridVisionBackbone(QuantSites, nn.Module):
         super().__init__()
         self.dtype = dtype
         self.act_quant = act_quant
+        self.stage_channels = tuple(stage_channels)
         self.stem1 = Conv(3, base_channels, (3, 3), (2, 2), use_bias=False, dtype=dtype)
         self.GroupNorm_0 = group_norm(base_channels, dtype)
         conv = QuantConv if act_quant else partial(Conv, use_bias=False)
@@ -154,6 +155,24 @@ class HybridVisionBackbone(QuantSites, nn.Module):
                 in_ch = ch
             self.stages.append(names)
         self._init_quant(("stem2_scale",), ("stem2_scale",) if act_quant else ())
+
+    def get_output_channels(self) -> Dict[str, int]:
+        """Channels of each output scale."""
+        return {name: self.stage_channels[i] for i, name in self.SCALE_NAMES.items()}
+
+    @staticmethod
+    def compute_flops(input_size: Tuple[int, int] = (416, 416)) -> int:
+        """JAX's rough count of the flagship backbone's convolution FLOPs at
+        ``input_size``, from its fixed architecture (stem, then 2/3/4/2
+        bottlenecks at 64/128/256/512 channels), whatever this instance's
+        widths."""
+        h, w = input_size
+        flops = 2 * (h // 2) * (w // 2) * 3 * 32 * 9
+        flops += 2 * (h // 4) * (w // 4) * 32 * 64 * 9
+        for s, c, n in zip((4, 8, 16, 32), (64, 128, 256, 512), (2, 3, 4, 2)):
+            mid = c // 2
+            flops += (h // s) * (w // s) * (c * mid + mid * mid * 9 + mid * c) * 2 * n
+        return flops
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = F.silu(self.GroupNorm_0(self.stem1(x.to(self.dtype))))

@@ -314,3 +314,22 @@ def detect(model: HybridVisionSystem, images: torch.Tensor, score_threshold: flo
     det = postprocess_detections(out["detection"], score_threshold, iou_threshold,
                                  max_detections, pre_nms_top_k, nms_method)
     return det, out
+
+
+def collect_stability_metrics(stability: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """JAX's summary of a forward's per-layer telemetry (``out["stability"]``
+    of a model built with ``monitor``): ``num_layers``, the mean and max over
+    layers of ``signal_ratio``, ``ds_error`` and ``max_eigenvalue`` (those
+    the layers report) and ``per_layer``, keyed by the flax path of each
+    layer (``backbone/stage1_block0/mhc``) in the order of those paths."""
+    per_layer = {name.replace(".", "/"): metrics
+                 for name, metrics in sorted(stability.items(),
+                                             key=lambda kv: kv[0].replace(".", "/"))}
+    summary: Dict[str, Any] = {"num_layers": len(per_layer)}
+    for metric in ("signal_ratio", "ds_error", "max_eigenvalue"):
+        vals = [float(v[metric]) for v in per_layer.values() if metric in v]
+        if vals:
+            summary[f"{metric}_mean"] = sum(vals) / len(vals)
+            summary[f"{metric}_max"] = max(vals)
+    summary["per_layer"] = per_layer
+    return summary

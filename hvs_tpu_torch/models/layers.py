@@ -1,6 +1,7 @@
 """Core layers: mHC (serve and training branches), Dense, Conv,
-ConvTranspose, their int8 twins ``QuantDense`` and ``QuantConv``, the norms,
-SqueezeExcite, attention, dropout.
+ConvTranspose, their int8 twins ``QuantDense`` and ``QuantConv``, the norms
+(LayerNorm, GroupNorm, RMSNorm), SqueezeExcite, attention (dense, and with mHC
+projections), dropout.
 
 Counterpart of ``hvs_tpu/models/layers.py``. Public layouts follow the JAX
 package: feature maps are NHWC, dense kernels are [d_in, d_out] applied as
@@ -350,6 +351,26 @@ class GroupNorm(nn.Module):
         return (x32 * s.reshape(shape) + t.reshape(shape)).to(self.dtype)
 
 
+class RMSNorm(nn.Module):
+    """Root-mean-square norm over the last axis: fp32 statistics,
+    ``x * rsqrt(mean(x²) + eps) * scale`` with an fp32 ``scale``, cast to
+    ``dtype``."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
+                 epsilon: float = 1e-6):
+        super().__init__()
+        self.dtype, self.epsilon = dtype, epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+
+    def reset_parameters(self, g: Generator) -> None:
+        nn.init.ones_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(var + self.epsilon) * self.scale).to(self.dtype)
+
+
 def group_norm(channels: int, dtype: torch.dtype) -> GroupNorm:
     """GroupNorm with the largest group count <= 8 that divides ``channels``."""
     groups = 8
@@ -637,6 +658,25 @@ class SqueezeExcite(nn.Module):
         return x * g
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+           dtype: torch.dtype, dropout: Optional[nn.Module] = None) -> torch.Tensor:
+    """Multi-head attention of projected queries [B, Tq, D] over keys and
+    values [B, Tk, D], as the JAX layers compute it: the products in the
+    inputs' dtype, the scaled logits and softmax in fp32, the weights cast to
+    ``dtype`` (then ``dropout``); returns [B, Tq, D]."""
+    b, tq, d = q.shape
+    head_dim = d // num_heads
+
+    def split(a):
+        return a.reshape(b, a.shape[1], num_heads, head_dim).transpose(1, 2)
+
+    logits = (split(q) @ split(k).transpose(-1, -2)).float() / math.sqrt(head_dim)
+    weights = torch.softmax(logits, dim=-1).to(dtype)
+    if dropout is not None:
+        weights = dropout(weights)
+    return (weights @ split(v)).transpose(1, 2).reshape(b, tq, d)
+
+
 class DenseAttention(QuantSites, nn.Module):
     """Multi-head self-attention: dense QKV, matmuls in ``dtype``, softmax in
     fp32 (explicit products, so the roundings follow the JAX layer), dropout
@@ -665,28 +705,59 @@ class DenseAttention(QuantSites, nn.Module):
         return layer(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, _ = x.shape
-        head_dim = self.dim // self.num_heads
-        qkv = self._project(self.qkv, x, "qkv_in_scale").reshape(b, t, 3, self.num_heads,
-                                                                  head_dim)
-        q, k, v = (a.transpose(1, 2) for a in qkv.unbind(dim=2))
-        logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(head_dim)
-        attn = self.dropout(torch.softmax(logits, dim=-1).to(self.dtype))
-        out = (attn @ v).transpose(1, 2).reshape(b, t, self.dim)
+        q, k, v = self._project(self.qkv, x, "qkv_in_scale").chunk(3, dim=-1)
+        out = attend(q, k, v, self.num_heads, self.dtype, self.dropout)
         return self._project(self.proj, out, "proj_in_scale")
 
 
+class MultiHeadManifoldAttention(nn.Module):
+    """Multi-head self-attention whose Q, K, V and output projections are mHC
+    layers (``mhc_q``, ``mhc_k``, ``mhc_v``, ``mhc_out``; ``expansion_rate``
+    2 and ``mlp_ratio`` 1 by default), attending as ``DenseAttention``
+    (``attend``; dropout on the weights in train mode). The mHC options ``mhc`` (``sk_iters``,
+    ``precomputed_constraints``, ...) go to the four layers; ``monitor`` does
+    not, as JAX's layer passes none. Their widths are [d, 2d] and [2d, 2d],
+    so no fused block serves them; their H_res projections ([d, d]) take
+    kernel B on the card."""
+
+    def __init__(self, dim: int, num_heads: int = 8, expansion_rate: int = 2,
+                 mlp_ratio: int = 1, dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.1, **mhc):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
+        mhc.pop("monitor", None)
+        self.num_heads, self.dtype = num_heads, dtype
+        for name in ("mhc_q", "mhc_k", "mhc_v", "mhc_out"):
+            self.add_module(name, ManifoldHyperConnection(
+                dim, expansion_rate, mlp_ratio, dtype=dtype, dropout_rate=dropout_rate, **mhc))
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = attend(self.mhc_q(x), self.mhc_k(x), self.mhc_v(x), self.num_heads, self.dtype,
+                     self.dropout)
+        return self.mhc_out(out)
+
+
 class MHCTransformerBlock(nn.Module):
-    """Pre-norm block: ``x + DenseAttention(LN(x))``, then an mHC layer as FFN;
-    ``dropout_rate`` and ``act_quant`` go to both."""
+    """Pre-norm block: ``x + attention(LN(x))``, then an mHC layer as FFN;
+    ``dropout_rate`` goes to both. The attention is ``DenseAttention`` (with
+    ``act_quant``), or with ``use_manifold_attention``
+    ``MultiHeadManifoldAttention`` (always float, as in JAX); ``act_quant``
+    also goes to the FFN."""
 
     def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.1, act_quant: bool = False, **mhc):
+                 dropout_rate: float = 0.1, act_quant: bool = False,
+                 use_manifold_attention: bool = False, **mhc):
         super().__init__()
         self.dtype = dtype
         self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
-        self.attn = DenseAttention(dim, num_heads, dtype=dtype, dropout_rate=dropout_rate,
-                                   act_quant=act_quant)
+        if use_manifold_attention:
+            self.attn = MultiHeadManifoldAttention(dim, num_heads, dtype=dtype,
+                                                   dropout_rate=dropout_rate, **mhc)
+        else:
+            self.attn = DenseAttention(dim, num_heads, dtype=dtype, dropout_rate=dropout_rate,
+                                       act_quant=act_quant)
         self.mhc_ffn = ManifoldHyperConnection(dim, expansion_rate=1, mlp_ratio=2, dtype=dtype,
                                                dropout_rate=dropout_rate, act_quant=act_quant,
                                                quant_sites=True, **mhc)

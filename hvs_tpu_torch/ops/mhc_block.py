@@ -14,8 +14,9 @@ bf16 operands, fp32 accumulation, a round to bf16 after LN1, after each
 product, each bias add and each GELU; the residual sum and LN2 stay in fp32
 (as XLA compiles the JAX layer and its Pallas kernels) and the output is
 rounded once. The kernel's GELU
-takes the hardware tanh (``tanh.approx.f32``, relative error <= 2^-10.9),
-the plain version's the exact one.
+takes the exact fp32 tanh in the order of PyTorch's CUDA
+``gelu(approximate="tanh")``, so it rounds the GELU to bf16 as the plain
+version does in nearly every element.
 
 The unfolded mode rounds ``LN1(x) @ H_pre`` to bf16 before ``@ W1``.
 

@@ -2,11 +2,16 @@
 wrapper (forward and backward), the grouped call over matrices of mixed
 widths, and the plain version.
 
-Counterpart of ``hvs_tpu/ops/sinkhorn.py`` (``sinkhorn_log``,
-``doubly_stochastic_error``) and replacement of the TPU kernel
+Counterpart of ``hvs_tpu/ops/sinkhorn.py`` (every function there) and
+replacement of the TPU kernel
 ``hvs_tpu/ops/pallas/sinkhorn_pallas.py::sinkhorn_log_pallas``. The CUDA
 source is ``hvs_tpu_torch/csrc/sinkhorn.cu``; it is built with nvcc at first
-use.
+use. ``project_to_doubly_stochastic`` (``"log"``),
+``sinkhorn_with_diagnostics`` and ``ops/manifold.py::birkhoff_project`` take
+any float dtype, as JAX's do: they project in fp32 through ``sinkhorn_log``
+(the kernel on a CUDA tensor, so n <= ``MAX_KERNEL_N`` there) and return the
+input dtype. ``sinkhorn_knopp``, the multiplicative form, has no TPU kernel
+behind it and stays plain PyTorch.
 
 The log-domain loop runs in fp32 with a final row update, so row sums are
 exact to fp32 and column sums converge geometrically with ``n_iters``. On the
@@ -296,3 +301,62 @@ def doubly_stochastic_error(matrix: torch.Tensor) -> torch.Tensor:
     col_err = (m.sum(dim=-2) - 1.0).abs().amax(dim=-1)
     neg_err = torch.clamp(-m, min=0.0).amax(dim=(-1, -2))
     return torch.maximum(torch.maximum(row_err, col_err), neg_err)
+
+
+def sinkhorn_log_fp32(logits: torch.Tensor, n_iters: int = 20, tau: float = 1.0) -> torch.Tensor:
+    """``sinkhorn_log`` for any float dtype, as JAX's: the projection in fp32
+    (contiguous, so a CUDA tensor takes the kernel) and the result in the
+    input dtype. Raises on the card above ``MAX_KERNEL_N``."""
+    return sinkhorn_log(logits.float().contiguous(), n_iters, tau).to(logits.dtype)
+
+
+def sinkhorn_knopp(matrix: torch.Tensor, n_iters: int = 20, tau: float = 1.0,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """Multiplicative Sinkhorn-Knopp: ``softmax(M / tau) * n``, then
+    ``n_iters`` rounds of a row and a column division (each sum + ``eps``),
+    in fp32; returns the input dtype."""
+    x = matrix.float() / tau
+    p = torch.softmax(x, dim=-1) * x.shape[-1]
+    for _ in range(n_iters):
+        p = p / (p.sum(dim=-1, keepdim=True) + eps)
+        p = p / (p.sum(dim=-2, keepdim=True) + eps)
+    return p.to(matrix.dtype)
+
+
+def project_to_doubly_stochastic(matrix: torch.Tensor, n_iters: int = 20, tau: float = 1.0,
+                                 method: str = "log") -> torch.Tensor:
+    """``"log"``: ``sinkhorn_log_fp32`` (kernel B on the card);
+    ``"multiplicative"``: ``sinkhorn_knopp``."""
+    if method == "log":
+        return sinkhorn_log_fp32(matrix, n_iters, tau)
+    if method == "multiplicative":
+        return sinkhorn_knopp(matrix, n_iters, tau)
+    raise ValueError(f"unknown sinkhorn method: {method!r}")
+
+
+def sinkhorn_regularization_loss(raw_matrix: torch.Tensor, n_iters: int = 20,
+                                 target_weight: float = 1.0,
+                                 negativity_weight: float = 1.0) -> torch.Tensor:
+    """Soft doubly stochastic penalty on an unconstrained matrix: the mean
+    squared deviation of row and column sums from 1, plus the mean squared
+    negative part (``n_iters`` is unused, as in JAX)."""
+    del n_iters
+    m = raw_matrix.float()
+    row = ((m.sum(dim=-1) - 1.0) ** 2).mean()
+    col = ((m.sum(dim=-2) - 1.0) ** 2).mean()
+    neg = (torch.relu(-m) ** 2).mean()
+    return target_weight * (row + col) + negativity_weight * neg
+
+
+def sinkhorn_with_diagnostics(logits: torch.Tensor, n_iters: int = 20, tau: float = 1.0
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The projection (``sinkhorn_log_fp32``) and its convergence: the
+    ``doubly_stochastic_error`` per matrix, the largest row and column sum
+    errors and the smallest entry over all matrices."""
+    p = sinkhorn_log_fp32(logits, n_iters, tau)
+    return p, {
+        "ds_error": doubly_stochastic_error(p),
+        "row_sum_error": (p.sum(dim=-1) - 1.0).abs().amax(),
+        "col_sum_error": (p.sum(dim=-2) - 1.0).abs().amax(),
+        "min_entry": p.amin(),
+    }

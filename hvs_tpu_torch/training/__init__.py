@@ -7,7 +7,8 @@ from .losses import (LossWeights, bce_with_smoothing, build_targets, focal_bce,
                      iter_h_res_leaves, manifold_regularization_loss, mhc_yolo_loss,
                      multi_task_loss)
 from .multitask import MultiTaskChunk, MultiTaskEval
-from .optimizer import ManifoldAwareOptimizer, is_mhc_path, partition_label
+from .optimizer import (ManifoldAwareOptimizer, doubly_stochastic_projection, is_mhc_path,
+                        partition_label)
 from .schedule import (ManifoldAwareScheduler, PlateauSchedulerWithReset,
                        cosine_annealing_with_warmup)
 from .stability import (StabilityMonitor, StabilityThresholds, TrainingStabilityMetrics,
@@ -19,7 +20,7 @@ __all__ = [
     "LossWeights", "build_targets", "focal_bce", "bce_with_smoothing", "mhc_yolo_loss",
     "iter_h_res_leaves", "manifold_regularization_loss", "multi_task_loss",
     "MultiTaskChunk", "MultiTaskEval", "ManifoldAwareOptimizer",
-    "is_mhc_path", "partition_label", "cosine_annealing_with_warmup",
+    "doubly_stochastic_projection", "is_mhc_path", "partition_label", "cosine_annealing_with_warmup",
     "PlateauSchedulerWithReset", "ManifoldAwareScheduler", "StabilityThresholds",
     "StabilityMonitor", "TrainingStabilityMetrics", "make_eig_telemetry", "TrainerConfig",
     "TrainState", "global_norm", "prepare_images", "train_step", "step_on_device", "eval_step",

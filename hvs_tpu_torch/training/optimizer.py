@@ -2,7 +2,9 @@
 parameters.
 
 Counterpart of ``hvs_tpu/training/optimizer.py::make_optimizer`` (and
-``is_mhc_path``, ``tangent_precondition``, ``periodic_sinkhorn_projection``).
+``is_mhc_path``, ``mhc_partition`` as ``partition_label``,
+``tangent_precondition``, ``periodic_sinkhorn_projection``, and the
+standalone ``doubly_stochastic_projection``).
 It updates exactly as that ``optax.multi_transform`` does:
 
   * partition by path: every parameter under a scope named ``mhc*`` or named
@@ -47,7 +49,7 @@ from typing import Callable, Dict, List, Union
 import torch
 
 from ..ops.manifold import birkhoff_tangent_project
-from ..ops.sinkhorn import sinkhorn_log_many
+from ..ops.sinkhorn import sinkhorn_log, sinkhorn_log_many
 
 MHC_PARAM_NAMES = ("H_pre_raw", "H_post_raw", "H_res_raw")
 ADAM_EPS = 1e-8      # optax.adamw's default
@@ -213,3 +215,23 @@ class ManifoldAwareOptimizer:
             own = getattr(self, key)
             for name, value in state[key].items():
                 own[name].copy_(value)
+
+
+def doubly_stochastic_projection(matrix: Tensor, method: str = "sinkhorn",
+                                 n_iters: int = 20) -> Tensor:
+    """JAX's standalone projection, in fp32: ``"sinkhorn"`` (``sinkhorn_log``;
+    kernel B on a contiguous CUDA matrix), ``"softmax"`` (a row softmax, then 3
+    rounds of column and row divisions) or ``"exponential"`` (the Sinkhorn
+    projection of log(exp(M - max M) + 1e-9))."""
+    m = matrix.float().contiguous()
+    if method == "sinkhorn":
+        return sinkhorn_log(m, n_iters)
+    if method == "softmax":
+        p = torch.softmax(m, dim=-1)
+        for _ in range(3):
+            p = p / (p.sum(dim=-2, keepdim=True) + 1e-9)
+            p = p / (p.sum(dim=-1, keepdim=True) + 1e-9)
+        return p
+    if method == "exponential":
+        return sinkhorn_log(torch.log(torch.exp(m - m.amax()) + 1e-9), n_iters)
+    raise ValueError(f"unknown projection method: {method!r}")

@@ -11,8 +11,8 @@ Sinkhorn projection of 0.1·noise, so near uniform):
     inputs of ``chip_smoke.py``'s ``kernel_ill_conditioned`` rows);
 
 prints the correlation of the chain with itself when only the GELU's tanh
-is perturbed by a relative 2^-12 (about what the kernel's hardware tanh
-differs by), and of the chain against the same chain with the sum rounded
+is perturbed by a relative 2^-12 (about what the hardware tanh,
+``tanh.approx.f32``, differs by), and of the chain against the same chain with the sum rounded
 to bf16 before LN2. A kernel-vs-plain check separates a rounded sum from a
 sound kernel only where the first stays near 1 and the second does not.
 

@@ -3,6 +3,7 @@
     python3 scripts/torch_train_profile.py [--batch 8] [--image 416] [--iters 3] [--trace out.json]
     python3 scripts/torch_train_profile.py --chunked [--batch 16] [--image 416] [--iters 10]
     python3 scripts/torch_train_profile.py --multitask [--batch 8] [--image 320] [--iters 10]
+    python3 scripts/torch_train_profile.py --manifold-attention [--batch 16] [--image 640]
 
 Builds the full-width flagship ``HybridVisionSystem`` (telemetry on, the JAX
 dropout rates, bf16, 8 classes), trains it with ``ManifoldConstrainedTrainer``
@@ -15,7 +16,12 @@ images in card memory), then of its captured validation batch
 (``ValChunk``). With ``--multitask`` they are replays of the multi-task
 run's captured step and evaluation batch (``python -m
 hvs_tpu_torch.train_multitask``'s set-up: the flagship with both dense
-heads, 8 classes, synthetic dense images in card memory). Prints, for
+heads, 8 classes, synthetic dense images in card memory). With
+``--manifold-attention`` they are eager train steps of
+``HybridVisionEncoder(use_manifold_attention=True)`` at the flagship's ViT
+widths on the scale_large map of an ``--image``² batch (``chip_smoke.py``'s
+phase ``manifold_attention``: the manifold regulariser and
+``ManifoldAwareOptimizer``), and no validation. Prints, for
 each, the JSON lines of ``torch_serve_profile.py`` (wall and device ms,
 idle share, device ms by kernel category, top kernels) beside the card's
 name and power limit. Exits non-zero without a CUDA card.
@@ -46,12 +52,17 @@ def main() -> None:
                     help="profile replays of train_chunked's captured step")
     ap.add_argument("--multitask", action="store_true",
                     help="profile replays of the multi-task run's captured step")
+    ap.add_argument("--manifold-attention", action="store_true",
+                    help="profile eager train steps of the manifold-attention encoder")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         raise SystemExit(1)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
+    if args.manifold_attention:
+        profile_manifold_attention(args, card)
+        return
     if args.multitask:
         from hvs_tpu_torch.train_multitask import parse_args, prepare
 
@@ -103,6 +114,50 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
     summarize(prof, args.iters, wall_ms, card, {**head, "path": "validation"}, "batch")
+
+
+def profile_manifold_attention(args, card: str) -> None:
+    """Eager train steps of the manifold-attention encoder (31 mHC layers):
+    forward, the manifold regulariser, the backward and the optimizer
+    (projection every 5 steps), after 3 warm-up steps."""
+    from hvs_tpu_torch.device import pin_matmul_precision
+    from hvs_tpu_torch.models import HybridVisionEncoder
+    from hvs_tpu_torch.models.layers import init_weights
+    from hvs_tpu_torch.training import ManifoldAwareOptimizer, manifold_regularization_loss
+
+    pin_matmul_precision()
+    enc = HybridVisionEncoder(512, 256, 6, 8, use_manifold_attention=True)
+    init_weights(enc, 0)
+    enc = enc.cuda().train()
+    grid = args.image // 32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (args.batch, grid, grid, 512)
+    feat = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    target = torch.randn(shape, device="cuda", generator=g)
+    params = dict(enc.named_parameters())
+    tx = ManifoldAwareOptimizer(params, 1e-4, project_every=5)
+
+    def step():
+        loss = (enc(feat).float() - target).square().mean()
+        reg, _ = manifold_regularization_loss(params)
+        grads = torch.autograd.grad(loss + 0.01 * reg, list(params.values()))
+        tx.step(dict(zip(params, grads)))
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    summarize(prof, args.iters, wall_ms, card,
+              {"batch": args.batch, "image": args.image, "path": "manifold_attention_step"},
+              "step")
 
 
 def profile_chunked(trainer, args, card: str) -> None:

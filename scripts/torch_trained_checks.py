@@ -17,7 +17,10 @@
    the function's conditioning, not the kernel. ``--dump`` saves the two
    sites that agree least (inputs and operands) for study off the card.
 3. Serve parity: the serve model's raw head outputs on one image, on the
-   card (kernels) against the CPU (plain versions); and on the card, the
+   card (kernels) against the CPU (plain versions), and each of the two
+   against a forward of the same model in fp64 on the CPU (its norms'
+   statistics in fp32): where both packages lie as far from it, their
+   disagreement is the model's conditioning in bf16; and on the card, the
    bf16 serve model against the fp32 one, and each at batch 4 against the
    same images one at a time (raw head outputs).
 
@@ -275,21 +278,30 @@ def main(argv=None) -> dict:
     kernels = kernel_checks(engine, train_model, images, args.dump)
     del train_model
 
-    # 3. Serve parity, card against CPU, on one image.
-    parity = None
+    # 3. Serve parity, card against CPU, on one image, and each against fp64.
+    parity = parity_fp64 = None
     if engine.device.type == "cuda":
-        cpu_model = ModelConfig(**{**vars(mcfg), "device": "cpu"}).build_model(
-            production=True).eval()
-        with torch.no_grad():
-            for name, p in cpu_model.named_parameters():
-                p.copy_(params[name].cpu())
-        load_constraints(cpu_model, compute_constraints(nest(
-            {k: v for k, v in cpu_model.named_parameters()}), mcfg.mhc.sinkhorn_iterations))
+        def cpu_serve_model(dtype=None):
+            cfg = ModelConfig(**{**vars(mcfg), "device": "cpu"})
+            if dtype is not None:
+                cfg.dtype = lambda: dtype
+            model = cfg.build_model(production=True).eval()
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(params[name].cpu())
+            load_constraints(model, compute_constraints(nest(
+                {k: v for k, v in model.named_parameters()}), mcfg.mhc.sinkhorn_iterations))
+            return model
+
+        cpu_model, fp64_model = cpu_serve_model(), cpu_serve_model(torch.float64)
         with torch.inference_mode():
             card_raw = engine.model(images[:1])["detection"]["raw"]
             cpu_raw = cpu_model(images[:1].cpu())["detection"]["raw"]
+            fp64_raw = fp64_model(images[:1].cpu())["detection"]["raw"]
+        del cpu_model, fp64_model
         parity = compare_raw(card_raw, cpu_raw)
-        del cpu_model
+        parity_fp64 = {"card_vs_fp64": compare_raw(card_raw, fp64_raw),
+                       "cpu_vs_fp64": compare_raw(cpu_raw, fp64_raw)}
     fp32_model = ModelConfig(**{**vars(mcfg), "precision": "fp32"}).build_model(
         production=True).eval()
     with torch.no_grad():
@@ -324,7 +336,10 @@ def main(argv=None) -> dict:
               "worst_kernel_mean_abs": {k: max((r["mean_abs"] for r in kernels
                                                 if r["kernel"] == k), default=None)
                                         for k in ("A", "C")},
-              "serve_parity": parity, "precision": precision, "failures": failures}
+              "sites_under_min_corr": {k: sum(r["corr"] <= KERNEL_MIN_CORR for r in kernels
+                                              if r["kernel"] == k) for k in ("A", "C")},
+              "serve_parity": parity, "serve_parity_fp64": parity_fp64,
+              "precision": precision, "failures": failures}
     with open(args.output, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps(report))

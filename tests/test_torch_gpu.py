@@ -15,11 +15,15 @@ from hvs_tpu_torch.ops import mhc_block as mhc_mod
 from hvs_tpu_torch.ops import sinkhorn as sink_mod
 from hvs_tpu_torch.ops.sinkhorn import sinkhorn_log
 
-# The kernel and its plain version round at the same points but sum in
-# different orders (LN2 can amplify a flipped rounding) and the kernel's GELU
-# takes the hardware tanh. The limits sit between what sound builds read and
+# The kernel and its plain version round at the same points (the GELU with
+# the exact tanh on both sides) but sum in different orders (LN2 can amplify
+# a flipped rounding). The limits sit between what sound builds read and
 # what a build without the GELU reads (chip_smoke.py's KERNEL_MIN_CORR).
 MIN_CORR, MAX_MEAN_ABS = 0.9999, 5e-3
+# chip_smoke.py's GELU_FP64_MARGIN: on inputs ill-conditioned in their GELUs
+# the kernel's corr to the fp64 chain may fall short of the plain version's
+# by at most this much.
+GELU_FP64_MARGIN = 1e-3
 
 
 def _need_card():
@@ -104,6 +108,80 @@ def test_mhc_block_kernels_sum_the_residual_in_fp32(d, unfolded):
     assert np.isfinite(a).all()
     assert np.corrcoef(a, b)[0, 1] > MIN_CORR
     assert np.mean(np.abs(a - b)) < MAX_MEAN_ABS
+
+
+def _chain64(x, w1, b1, w2, b2, h_post, h_res, ln1s, ln1b, ln2s, ln2b, h_pre=None):
+    """The mHC block in fp64, rounding nowhere."""
+    import torch.nn.functional as F
+
+    def ln(v, scale, bias):
+        mu = v.mean(-1, keepdim=True)
+        var = (v - mu).square().mean(-1, keepdim=True)
+        return (v - mu) / torch.sqrt(var + 1e-6) * scale.double() + bias.double()
+
+    x = x.double()
+    y = ln(x, ln1s, ln1b)
+    if h_pre is not None:
+        y = y @ h_pre.double()
+    y = F.gelu(y @ w1.double() + b1.double(), approximate="tanh")
+    y = F.gelu(y @ w2.double() + b2.double(), approximate="tanh")
+    return ln(x @ h_res.double() + y @ h_post.double(), ln2s, ln2b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unfolded", [False, True])
+def test_mhc_block_kernels_on_gelu_conditioned_inputs(unfolded):
+    """chip_smoke.py's kernel_gelu_conditioned inputs at d = 256: H_post
+    near 1 (2·sigmoid(0.01·noise)), so LN2 amplifies each GELU's last bit.
+    The kernels (exact tanh) lie no farther from the fp64 chain than their
+    plain versions, and far closer to them than the hardware tanh left them
+    (corr 0.95 there; 0.996-0.997 with the exact tanh, the fp32 summation
+    order's flips: under 0.9999, so the row gates on fp64)."""
+    _need_card()
+    d = 256
+    x, args = _ill_conditioned_inputs(4096, d, seed=d)
+    r = np.random.default_rng(d + 7)
+    args[4] = torch.from_numpy((2.0 / (1.0 + np.exp(-0.01 * r.standard_normal((d, d)))))
+                               .astype(np.float32)).to("cuda", torch.bfloat16)
+    h_pre = None
+    if unfolded:
+        h_pre = torch.sigmoid(torch.eye(d, device="cuda") * 6.0 - 3.0).to(torch.bfloat16)
+        out = mhc_mod.mhc_block_unfolded(x, h_pre, *args)
+        ref = mhc_mod.mhc_block_unfolded_plain(x, h_pre, *args)
+    else:
+        out, ref = mhc_mod.mhc_block(x, *args), mhc_mod.mhc_block_plain(x, *args)
+    exact = _chain64(x, *args, h_pre=h_pre).cpu().numpy().ravel()
+    a = out.float().cpu().numpy().ravel()
+    b = ref.float().cpu().numpy().ravel()
+    assert np.isfinite(a).all()
+    assert np.corrcoef(a, exact)[0, 1] >= np.corrcoef(b, exact)[0, 1] - GELU_FP64_MARGIN
+    assert np.corrcoef(a, b)[0, 1] > 0.99
+
+
+@pytest.mark.gpu
+def test_manifold_attention_encoder_serves_with_kernels_a_and_b():
+    """A manifold-attention encoder's serve forward on the card: B once per
+    mHC layer at load (4 per block in the attention, the FFN, the fusion:
+    11 at depth 2), A once per forward at mhc_fuse (d = 512), finite."""
+    _need_card()
+    from hvs_tpu_torch.models import (HybridVisionEncoder, compute_constraints,
+                                      load_constraints, param_tree)
+    from hvs_tpu_torch.models.layers import init_weights
+
+    enc = HybridVisionEncoder(512, 64, 2, 4, use_manifold_attention=True, dropout_rate=0.0,
+                              precomputed_constraints=True)
+    init_weights(enc, 0)
+    enc = enc.cuda().eval()
+    before = sink_mod.launches_forward
+    assert load_constraints(enc, compute_constraints(param_tree(enc))) == 11
+    assert sink_mod.launches_forward == before + 11
+    feat = torch.randn(2, 5, 5, 512, device="cuda", dtype=torch.bfloat16)
+    before = mhc_mod.launches
+    with torch.inference_mode():
+        out = enc(feat)
+    torch.cuda.synchronize()
+    assert mhc_mod.launches == before + 1
+    assert out.shape == feat.shape and bool(torch.isfinite(out.float()).all())
 
 
 @pytest.mark.gpu
