@@ -56,6 +56,15 @@ Phases, each of which fails the run with a non-zero exit:
      them; the swap, refused for the failing one, against a fresh engine on
      the seed-1 weights); the health checks (device memory from
      ``torch.cuda.mem_get_info``);
+     bundle: every provider's cloud bundle generated and parsed; the file
+     set that ``Dockerfile.inference``'s build stage copies, staged in a
+     temp directory, where ``python -m hvs_tpu_torch.build`` builds the
+     kernels (build s); ``entrypoint.sh api`` from that copy serving the
+     flagship at 640² from a checkpoint (startup s to the first 200 on
+     ``/health``), 4 720x1280 JPEGs through ``/detect`` against an
+     in-process engine, ``entrypoint.sh healthcheck`` (the probe: A and B
+     once each against their plain versions), SIGTERM (shutdown s), and the
+     deploy tool's ``docker``, ``k8s`` and ``edge`` dry runs;
   7. infer: ``python -m hvs_tpu_torch.infer`` in-process (``infer.main``)
      on one 720x1280 JPEG, a directory of 8, a 24-frame MJPG clip and the
      synthetic camera, from a checkpoint the port trainer saved with EMA
@@ -1464,6 +1473,265 @@ def phase_deployment(card: str) -> dict:
                                 abs_tol=1e-3):
         fail(f"deployment health: {row}")
     return {"mhc_block_exported": program_launches, "sinkhorn_per_reload": b_launches}
+
+
+# ---------------------------------------------------------------------------
+# Deployment bundles: the image's file set, its entrypoint and probe
+
+BUNDLE_FRAMES = 4
+BUNDLE_RAW_HW = (720, 1280)
+BUNDLE_STARTUP_TIMEOUT_S = 300
+# No generated or shipped deployment file of the port names the TPU stack.
+BUNDLE_FORBIDDEN = r"jax|libtpu|google\.com/tpu|gke-tpu|tpu-"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bundle_files_check(workdir: str) -> dict:
+    """Every provider's bundle generated and each file parsed; the serving
+    manifests ask for one nvidia.com/gpu on an H100 node."""
+    import re
+
+    import yaml
+
+    from hvs_tpu_torch.deployment import cloud_codegen
+
+    files, bad = [], []
+    for provider in cloud_codegen.PROVIDERS:
+        files += cloud_codegen.generate(provider, f"{workdir}/bundles")
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        try:
+            if path.endswith(".yaml"):
+                list(yaml.safe_load_all(text))
+            elif path.endswith(".py"):
+                compile(text, path, "exec")
+            elif path.endswith(".sh"):
+                subprocess.run(["bash", "-n", path], check=True, capture_output=True)
+        except Exception as e:  # reported below
+            bad.append(f"{path}: {e}")
+        if re.search(BUNDLE_FORBIDDEN, text, re.IGNORECASE):
+            bad.append(f"{path} names the TPU stack")
+    with open(f"{workdir}/bundles/gke-gpu/deployment.yaml") as f:
+        pod = yaml.safe_load(f)["spec"]["template"]["spec"]
+    container = pod["containers"][0]
+    row = {"phase": "bundle_files", "providers": len(cloud_codegen.PROVIDERS),
+           "files": len(files), "bad": bad,
+           "gpu_limit": container["resources"]["limits"].get("nvidia.com/gpu"),
+           "node_selector": pod["nodeSelector"],
+           "startup_probe": container.get("startupProbe")}
+    print(json.dumps(row), flush=True)
+    if bad or row["gpu_limit"] != "1" or "h100" not in str(pod["nodeSelector"]) \
+            or not row["startup_probe"]:
+        fail(f"bundle files: {row}")
+    return row
+
+
+def dry_runs_check() -> dict:
+    """``docker``, ``k8s`` and ``edge --host localhost`` of the deploy tool
+    with ``--dry-run``: their printed commands."""
+    import io
+
+    from hvs_tpu_torch import deploy
+
+    printed = {}
+    for name, argv in (("docker", ["docker", "--dry-run"]), ("k8s", ["k8s", "--dry-run"]),
+                       ("edge", ["edge", "--host", "localhost", "--dry-run"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = deploy.main(argv)
+        printed[name] = [line[2:] for line in out.getvalue().splitlines() if line.startswith("$ ")]
+        if rc != 0:
+            fail(f"bundle: deploy {name} --dry-run exit {rc}: {printed[name]}")
+    edge = printed["edge"]
+    checks = {
+        "docker_builds_the_image": any(c.startswith("docker build -f") and
+                                       c.split()[3].endswith("Dockerfile.inference")
+                                       for c in printed["docker"]),
+        "k8s_applies_every_manifest": sum(c.startswith("kubectl apply") for c in printed["k8s"])
+        == 6 and printed["k8s"][-1].startswith("kubectl rollout status"),
+        "edge_checks_the_card_first": bool(edge) and "compute_cap" in edge[0]
+        and any(c.startswith("scp") for c in edge[1:]),
+        "edge_runs_infer": any("hvs_tpu_torch.infer --source 0" in c for c in edge)}
+    row = {"phase": "bundle_dry_run", "commands": printed, **checks}
+    print(json.dumps(row), flush=True)
+    if not all(checks.values()):
+        fail(f"bundle dry runs: {row}")
+    return row
+
+
+def phase_bundle(card: str) -> dict:
+    """The deployment bundle on the card: every provider's bundle generated
+    and parsed; exactly the file set that ``Dockerfile.inference``'s build
+    stage copies, staged in a temp directory, where ``python -m
+    hvs_tpu_torch.build`` builds the kernels with nothing on ``PYTHONPATH``
+    but the copy; from that copy, ``entrypoint.sh api`` serving the flagship
+    at 640² from a checkpoint of ``conditioned_params(0)`` (seconds to the
+    first 200 on ``/health``), 4 JPEG frames of 720x1280 POSTed to
+    ``/detect``, each held against ``engine.infer`` of an in-process engine
+    on the same checkpoint (``same_detections``' limits, as phase
+    ``deployment``), ``entrypoint.sh healthcheck`` (exit 0 and its JSON
+    line), SIGTERM to the server (seconds to its exit), and the deploy
+    tool's dry runs. Kernel launches in this process: the in-process
+    engine's load and replays and one in-process probe (A 1, B 1)."""
+    import base64
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+
+    import cv2
+
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+    from hvs_tpu_torch.deployment import image_files, probe
+    from hvs_tpu_torch.inference import InferenceEngine
+    from hvs_tpu_torch.inference.preprocessing import decode_jpeg
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="hvs_bundle_")
+    server = log = None
+    try:
+        bundle_files_check(workdir)
+
+        # The image's file set, and the image's build step run in it.
+        staged = image_files.stage(dest=f"{workdir}/image")
+        app = staged["workdir"]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = app
+        t0 = time.perf_counter()
+        built = subprocess.run([sys.executable, "-m", "hvs_tpu_torch.build"], cwd=app, env=env,
+                               capture_output=True, text=True, timeout=900)
+        build_s = time.perf_counter() - t0
+        libraries = [json.loads(line) for line in built.stdout.splitlines()
+                     if line.startswith("{") and '"library"' in line]
+        row = {"phase": "bundle_build", "copied": [os.path.relpath(p, workdir)
+                                                   for p in staged["written"]],
+               "exit": built.returncode, "build_s": build_s,
+               "per_source_s": {os.path.basename(r["source"]): r["build_s"] for r in libraries},
+               "in_copy": all(r["library"].startswith(app) for r in libraries),
+               "card": card}
+        print(json.dumps(row), flush=True)
+        if built.returncode != 0 or len(libraries) != 2 or not row["in_copy"]:
+            fail(f"bundle build: {row}; {built.stderr[-2000:]}")
+
+        # The served subprocess, from the copy, on a checkpoint of seeded weights.
+        params = conditioned_params(0)
+        checkpoint = f"{workdir}/flagship.pt"
+        torch.save({"params": {k: v.cpu() for k, v in params.items()}}, checkpoint)
+        del params
+        run_dir = f"{workdir}/run"
+        os.makedirs(run_dir)
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        log = open(f"{workdir}/server.log", "w")
+        t_start = time.perf_counter()
+        server = subprocess.Popen(
+            ["sh", f"{workdir}/image/entrypoint.sh", "api", "--checkpoint", checkpoint,
+             "--image-size", str(IMAGE)], cwd=run_dir, env=dict(env, PORT=str(port)),
+            stdout=log, stderr=subprocess.STDOUT)
+
+        # Meanwhile, the in-process engine on the same checkpoint.
+        zero_counts()
+        cfg = InferenceConfig()
+        cfg.preprocessing.image_size = IMAGE
+        cfg.performance.batch_buckets = (1,)
+        cfg.checkpoint_path = checkpoint
+        engine = InferenceEngine(ModelConfig(), cfg)
+        b_at_load = sink_mod.launches_forward
+        r = np.random.default_rng(0)
+        frames = r.integers(0, 256, (BUNDLE_FRAMES, *BUNDLE_RAW_HW, 3), dtype=np.uint8)
+        blobs = [cv2.imencode(".jpg", f)[1].tobytes() for f in frames]
+        want = [engine.infer(decode_jpeg(b, IMAGE)) for b in blobs]
+        if sum(len(w) for w in want) == 0:
+            fail("bundle: no detections on the frames; the comparisons are vacuous")
+
+        startup_s = None
+        while time.perf_counter() - t_start < BUNDLE_STARTUP_TIMEOUT_S:
+            if server.poll() is not None:
+                break
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as resp:
+                    if resp.status == 200:
+                        startup_s = time.perf_counter() - t_start
+                        health = json.loads(resp.read())
+                        break
+            except OSError:
+                time.sleep(0.25)
+        if startup_s is None:
+            log.flush()
+            with open(f"{workdir}/server.log") as f:
+                tail = f.read()[-3000:]
+            fail(f"bundle: the entrypoint's api server did not answer /health within "
+                 f"{BUNDLE_STARTUP_TIMEOUT_S} s (exit {server.poll()}): {tail}")
+        detect_ms, mismatched = [], []
+        for i, blob in enumerate(blobs):
+            t0 = time.perf_counter()
+            body = _post(url + "/detect", {"image_base64": base64.b64encode(blob).decode()})
+            detect_ms.append((time.perf_counter() - t0) * 1e3)
+            if not same_detections(_Response.rest(body), want[i]) \
+                    or body["image_size"] != list(BUNDLE_RAW_HW):
+                mismatched.append(i)
+
+        # The probe as the container runs it, then once in this process.
+        t0 = time.perf_counter()
+        checked = subprocess.run(["sh", f"{workdir}/image/entrypoint.sh", "healthcheck"],
+                                 cwd=run_dir, env=env, capture_output=True, text=True,
+                                 timeout=300)
+        probe_s = time.perf_counter() - t0
+        lines = [line for line in checked.stdout.splitlines() if line.startswith("{")]
+        probe_report = json.loads(lines[-1]) if lines else {}
+        a0, b0, c0 = mhc_mod.launches, sink_mod.launches_forward, mhc_mod.launches_unfolded
+        in_process = probe.run()
+        torch.cuda.synchronize()
+        probe_launches = {"mhc_block": mhc_mod.launches - a0,
+                          "sinkhorn_forward": sink_mod.launches_forward - b0}
+
+        t0 = time.perf_counter()
+        server.send_signal(signal.SIGTERM)
+        server_rc = server.wait(timeout=120)
+        shutdown_s = time.perf_counter() - t0
+        server = None
+
+        launches = {"mhc_block": sum(engine.replays.values()) * KERNEL_SITES
+                    + probe_launches["mhc_block"],
+                    "sinkhorn_forward": b_at_load + probe_launches["sinkhorn_forward"],
+                    "sinkhorn_backward": sink_mod.launches_backward,
+                    "mhc_block_unfolded": mhc_mod.launches_unfolded - c0}
+        row = {"phase": "bundle_server", "startup_s": startup_s, "health": health,
+               "detect_ms": detect_ms, "detect_ms_p50": float(np.percentile(detect_ms, 50)),
+               "detections": sum(len(w) for w in want), "mismatched": mismatched,
+               "healthcheck_exit": checked.returncode, "healthcheck": probe_report,
+               "healthcheck_s": probe_s, "probe_in_process": in_process,
+               "probe_launches": probe_launches, "shutdown_s": shutdown_s,
+               "server_exit": server_rc, "engine_load_s": engine.load_seconds,
+               "launches": launches, "card": card}
+        print(json.dumps(row), flush=True)
+        if mismatched or checked.returncode != 0 or probe_report.get("status") != "healthy" \
+                or probe_launches != {"mhc_block": 1, "sinkhorn_forward": 1} \
+                or b_at_load != len(SINKHORN_MIX) or launches["mhc_block_unfolded"] != 0 \
+                or server_rc not in (0, -signal.SIGTERM):
+            fail(f"bundle server: {row}")
+        del engine
+
+        dry_runs_check()
+        print(json.dumps({"phase": "bundle", "seconds": time.perf_counter() - t_phase,
+                          "build_s": build_s, "startup_s": startup_s, "shutdown_s": shutdown_s,
+                          "card": card}), flush=True)
+        return launches
+    finally:
+        if server is not None:
+            server.kill()
+            server.wait()
+        if log is not None:
+            log.close()
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4110,6 +4378,7 @@ def main() -> None:
     entry_point_phase(phase_parity, defaults, card)
     entry_point_phase(phase_engine, defaults, card)
     deployment = entry_point_phase(phase_deployment, defaults, card)
+    bundle = entry_point_phase(phase_bundle, defaults, card)
     infer = entry_point_phase(phase_infer, defaults, card)
     train_launches = entry_point_phase(phase_train, defaults, card)
     chunked_launches = entry_point_phase(phase_train_chunked, defaults, card)
@@ -4141,6 +4410,7 @@ def main() -> None:
         k["launches_trajectory"] = trajectory_launches[k["name"]]
         k["launches_ddp"] = ddp_launches[k["name"]]
         k["launches_manifold_attention"] = manifold_attention[k["name"]]
+        k["launches_bundle"] = bundle[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,4 +9,5 @@ anything of ``hvs_tpu``.
 
 from .device import resolve_device
 
+__version__ = "0.1.0"
 __all__ = ["resolve_device"]

@@ -5,6 +5,13 @@ interface, loaded with ``ctypes``. The library lands in ``_build/`` beside
 this file (listed in ``.gitignore``), under a name that carries a hash of the
 source and the flags, so an edited source is rebuilt and never mistaken for
 an old build. Importing this module builds nothing and needs no ``nvcc``.
+
+    python -m hvs_tpu_torch.build
+
+builds every source ahead of use (a container image's build step, so that
+its runtime needs no ``nvcc`` and no write access to the package), prints
+each library's path and build seconds, and exits non-zero if ``nvcc`` is
+missing or a build fails.
 """
 
 from __future__ import annotations
@@ -14,10 +21,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -97,3 +105,32 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def sources() -> List[str]:
+    """The name of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    import argparse
+    import json
+
+    argparse.ArgumentParser(description="Build every CUDA kernel of the package").parse_args(argv)
+    names = sources()
+    t0 = time.perf_counter()
+    try:
+        paths = build(names)
+    except RuntimeError as e:
+        print(f"build failed: {e}", file=sys.stderr)
+        return 1
+    for name in names:
+        print(json.dumps({"source": str(CSRC_DIR / f"{name}.cu"), "library": str(paths[name]),
+                          "build_s": build_seconds.get(name, 0.0)}))
+    print(json.dumps({"built": len(build_seconds), "current": len(names) - len(build_seconds),
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,12 @@
 """Deployment: REST and gRPC servers, export, the model repository, health
-checks (counterpart of ``hvs_tpu/deployment``, without the cloud bundle).
+checks, cloud bundles for H100 hosts (counterpart of ``hvs_tpu/deployment``),
+and the container and cluster files (``container/``, ``kubernetes/``) with
+the container's health probe (``probe``).
 
 Names are imported on first use, so ``import hvs_tpu_torch.deployment`` and
 its framework-free modules (``service``, ``model_server``,
-``health_check``) work where aiohttp, grpc, protobuf, pydantic, cv2,
-psutil and prometheus_client are not installed.
+``health_check``, ``cloud_codegen``, ``probe``) work where aiohttp, grpc,
+protobuf, pydantic, cv2, psutil and prometheus_client are not installed.
 """
 
 from importlib import import_module
@@ -29,13 +31,16 @@ _EXPORTS = {
     "ModelHealthChecker": "health_check",
     "SystemHealthChecker": "health_check",
     "APIChecker": "health_check",
+    "CloudDeployConfig": "cloud_codegen",
+    "generate_cloud_bundle": "cloud_codegen:generate",
 }
 
 __all__ = list(_EXPORTS)
 
 
 def __getattr__(name):
-    module = _EXPORTS.get(name)
-    if module is None:
+    target = _EXPORTS.get(name)
+    if target is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    return getattr(import_module(f".{module}", __name__), name)
+    module, _, attr = target.partition(":")
+    return getattr(import_module(f".{module}", __name__), attr or name)

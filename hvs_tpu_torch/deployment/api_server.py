@@ -11,6 +11,8 @@ Counterpart of ``hvs_tpu/deployment/api_server.py``, with the same routes:
                              without prometheus_client)
   * GET  /models, POST /models/switch   hot model swap
   * GET  /stream/{camera_id}  MJPEG live-detection stream
+  * GET  /ping, POST /invocations   /health and /detect under the names a
+                             SageMaker endpoint calls (not in the reference)
 
 Request counting and latency middleware, CORS headers, a 429 before the
 body is read when the micro-batcher's queue is full, inference in a thread
@@ -115,6 +117,9 @@ class VisionAPIServer:
         self.app.router.add_post("/detect", self.handle_detect)
         self.app.router.add_post("/detect/batch", self.handle_detect_batch)
         self.app.router.add_get("/health", self.handle_health)
+        # SageMaker's container contract: health at /ping, requests at /invocations.
+        self.app.router.add_get("/ping", self.handle_health)
+        self.app.router.add_post("/invocations", self.handle_detect)
         self.app.router.add_get("/metrics", self.handle_metrics)
         self.app.router.add_get("/models", self.handle_models)
         self.app.router.add_post("/models/switch", self.handle_model_switch)

@@ -1,13 +1,14 @@
 """The port's export surface against the JAX package's.
 
-Every public name of ``hvs_tpu.models``, ``hvs_tpu.ops`` and
-``hvs_tpu.training`` (their ``__all__``) has either the same name in the
-port's package or an entry in ``OTHER_FORMS``: the port's counterpart under
-another form (imported here, so a renamed or removed counterpart fails), or a
-reason it is not ported, from ROADMAP's "Not queued" list.
+Every public name of every subpackage of ``hvs_tpu`` (its ``__all__``) has
+either the same name in the port's package or an entry in ``OTHER_FORMS``:
+the port's counterpart under another form (imported here, so a renamed or
+removed counterpart fails), or a reason it is not ported, from ROADMAP's
+"Not queued" list. The root's public names and subpackages likewise.
 """
 
 import importlib
+import importlib.util
 
 import pytest
 
@@ -30,6 +31,20 @@ OTHER_FORMS = {
         "make_val_chunk": ("training.chunk.ValChunk",
                            "a captured CUDA graph of the validation pass"),
     },
+    "hvs_tpu.config": {
+        "detect_device": ("device.resolve_device",
+                          "raises without a card rather than answering 'cpu'"),
+    },
+    "hvs_tpu.data": {
+        "sample_batch": ("data.device_pipeline.draw_augment",
+                         "draw_augment draws the batch, apply_augment gathers and warps it"),
+    },
+    "hvs_tpu.parallel": {
+        "batch_sharding": ("parallel.mesh.shard_batch",
+                           "a process takes its rows of the batch; no sharding object"),
+        "replicated": ("parallel.mesh.shard_batch",
+                       "each process holds the whole model; only the batch is split"),
+    },
 }
 # Not ported, with ROADMAP's reason ("Not queued"); none is in these packages'
 # __all__ today, and a name listed here must not have a port name.
@@ -37,9 +52,18 @@ NOT_QUEUED = {
     "savedmodel": "jax2tf export; a torch -> TF path would need ONNX",
     "aot": "a CUDA graph does not persist across processes; the .pt2 program does",
     "compile": "ModelProfiler.compile and the compile cache have no counterpart outside XLA",
+    "enable_compile_cache": "JAX's persistent compilation cache has no counterpart outside XLA",
+}
+# JAX subpackages the port has under another form.
+OTHER_SUBPACKAGES = {
+    "native": ("ops.nms.batched_nms",
+               "the C++ host helpers (letterbox, greedy NMS, IoU) are torch code on the card "
+               "(ops/nms.py, ops/boxes.py, inference/preprocessing.py); the tests keep "
+               "JAX's greedy NMS as their oracle"),
 }
 
-PACKAGES = ["models", "ops", "training"]
+PACKAGES = ["models", "ops", "training", "config", "data", "deployment", "inference",
+            "parallel", "utils"]
 
 
 def _resolve(dotted: str):
@@ -90,3 +114,26 @@ def test_port_all_names_exist_and_kinds_match(package):
 def test_other_forms_name_only_jax_exports():
     for package, entries in OTHER_FORMS.items():
         assert set(entries) <= set(importlib.import_module(package).__all__)
+
+
+def test_root_names_and_subpackages_have_port_counterparts():
+    import pkgutil
+
+    import hvs_tpu
+    import hvs_tpu_torch
+
+    public = [n for n in vars(hvs_tpu) if not n.startswith("_") or n == "__version__"]
+    public = [n for n in public if not hasattr(getattr(hvs_tpu, n), "__path__")
+              and not type(getattr(hvs_tpu, n)).__name__ == "module"]
+    assert "__version__" in public
+    for name in public:
+        assert hasattr(hvs_tpu_torch, name), name
+    assert hvs_tpu_torch.__version__ == hvs_tpu.__version__
+    for sub in pkgutil.iter_modules(hvs_tpu.__path__):
+        if not sub.ispkg:
+            continue
+        if sub.name in OTHER_SUBPACKAGES:
+            assert _resolve(OTHER_SUBPACKAGES[sub.name][0]) is not None
+        else:
+            assert importlib.util.find_spec(f"hvs_tpu_torch.{sub.name}") is not None, sub.name
+    assert set(OTHER_SUBPACKAGES) <= {m.name for m in pkgutil.iter_modules(hvs_tpu.__path__)}

@@ -1201,3 +1201,19 @@ def test_infer_cli_on_the_card(tmp_path):
     assert np.array_equal(np.asarray(got["classes"]), det.classes)
     with open(run.results_file) as f:
         assert set(json.load(f)) == {"results", "performance"}
+
+
+@pytest.mark.gpu
+def test_probe_is_healthy_on_the_card_and_launches_a_and_b_once():
+    from hvs_tpu_torch import build
+    from hvs_tpu_torch.deployment import probe
+
+    _need_card()
+    build.build(build.sources())
+    a0, b0 = mhc_mod.launches, sink_mod.launches_forward
+    report = probe.run()
+    assert report["capability"] == [9, 0]
+    assert set(report["libraries"]) == set(build.sources())
+    assert report["a_corr"] > MIN_CORR and report["memory_in_use"] < probe.MEMORY_LIMIT
+    assert (mhc_mod.launches - a0, sink_mod.launches_forward - b0) == (1, 1)
+    assert probe.main([]) == 0
