@@ -106,6 +106,19 @@ Phases, each of which fails the run with a non-zero exit:
      against the step without a process group from the same state, with the
      step's ms with and without the all-reduce, and a captured validation
      pass;
+     tp: tensor parallelism, two processes spawned on the one card over
+     gloo (a 1 x 2 mesh, each holding its blocks of the rule-matched
+     parameters): the ``train`` phase's flagship at 416² batch 8 trained
+     4 steps (a projection at step 4) and validated over 2 batches through
+     ``ManifoldConstrainedTrainer.train``, against the same run in this
+     process (step 1 at the bf16 train-parity limits, the later steps at
+     the trajectory limits), then 4 steps in fp32, conditioned as the
+     train_parity step (dropout off, H_res near a scaled identity), held
+     step by step; B
+     per step and C per validation batch (on gathered weights) counted on
+     each process; the checkpoint reloaded bit-exact into one process and
+     served by ``Detector`` at 640² batch 1 (A at its 18 sites against its
+     plain version); ms per step of two processes sharing the card;
  11. multitask: ``python -m hvs_tpu_torch.train_multitask``'s run at its
      defaults (the flagship with the segmentation and depth heads, 8
      classes, 320², batch 8) on 800 synthetic dense images: its set-up
@@ -356,6 +369,36 @@ TRAJ_GRAD_NORM_RATIO = 1.80
 # store), against the same step without a process group; 64 seeded 640²
 # images, validation over 16 at 640² batch 4.
 DDP_IMAGE, DDP_BATCH, DDP_IMAGES, DDP_VAL_IMAGES, DDP_VAL_BATCH = 416, 16, 64, 16, 4
+# The tp phase: the train phase's model and batches (416², batch 8, 8
+# classes, bf16, telemetry and dropout on) trained through
+# ManifoldConstrainedTrainer.train by TP_MODEL processes that share the card
+# over gloo (a 1 x TP_MODEL mesh), against the same steps in one process from
+# the same weights and generator: TP_STEPS steps at the peak rate (no
+# warm-up), step TP_PROJECT_EVERY a projection step, validation over
+# TP_VAL_BATCHES batches. The checkpoint is then served at 640² batch 1. The
+# same steps in fp32 (no validation) follow, uncounted.
+TP_MODEL, TP_STEPS, TP_PROJECT_EVERY, TP_VAL_BATCHES = 2, 4, 4, 2
+TP_TIMEOUT_S = 600  # the workers' deadline, after which they are killed
+# (run, dtype, validation batches): the counted bf16 run at the train phase's
+# weights (init scale, dropout on), then fp32 conditioned as train_parity's
+# step (dropout off, H_res near a scaled identity; ``condition``).
+TP_RUNS = (("tp", torch.bfloat16, TP_VAL_BATCHES), ("tp32", torch.float32, 0))
+# The limits. Step 1 starts both runs from the same weights, batch and
+# dropout masks: the train-parity limits of its dtype (TRAIN_PARITY). Later
+# steps start from weights up to 2·lr apart per element per step (Adam's
+# first steps are about ±lr per element, and a gradient at rounding noise
+# flips its sign), and in bf16 the mHC layers at their init scale amplify a
+# last-bit change (H_post near 1; GELU_FP64_MARGIN's comment): on the card
+# step 1 read 1.3 % / 1.9 % (loss / grad norm) and steps 2-4 up to 7 % / 40 %,
+# where the CPU's fp32 run of the same steps agreed within 3e-5 / 1e-4. So
+# in bf16 the later steps are held as train_trajectory holds the card
+# against the CPU: the run's mean loss within TRAJ_LOSS_WINDOW_RTOL and its
+# largest grad norm after step 1 within TRAJ_GRAD_NORM_RATIO either way;
+# in fp32, conditioned as train_parity's step, every step is held at the
+# fp32 train-parity limits (at the init scale with dropout on, fp32 read
+# 3.7e-4 at step 1 and 2.7 % by step 3 on the card). In both, the
+# mHC partitions' update cosine above its limit, and every parameter within
+# the most two AdamW runs can part in TP_STEPS steps (tp_param_limit).
 
 
 def fail(msg: str) -> None:
@@ -3179,6 +3222,370 @@ def phase_ddp(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: two processes sharing the card
+
+
+def condition(model) -> None:
+    """Dropout off and each H_res_raw 6·I + N(0, 1) from a fixed seed, as
+    ``train_step_pair`` conditions the train_parity step: the residual sum
+    then carries the spread LN2 needs, so rounding is not amplified."""
+    from hvs_tpu_torch.models.layers import Dropout, ManifoldHyperConnection
+
+    r = np.random.default_rng(2)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+            if isinstance(m, ManifoldHyperConnection):
+                d = m.dim
+                m.H_res_raw.copy_(torch.from_numpy(
+                    (6.0 * np.eye(d) + r.standard_normal((d, d))).astype(np.float32)))
+
+
+def tp_run(workdir: str, name: str, mesh=None, device=None, dtype=torch.bfloat16,
+           val_batches: int = TP_VAL_BATCHES, conditioned: bool = False):
+    """The tp phase's training run (``TP_*``): the flagship in ``dtype``
+    built from seed 0, trained through ``ManifoldConstrainedTrainer.train``
+    with ``hvs_tpu_torch.train``'s synthetic batches (validation over
+    ``val_batches``, none at 0), checkpoints under ``workdir/name``;
+    ``conditioned``: dropout off and every H_res_raw near a scaled identity,
+    as the train_parity phase conditions its step. Counters are zeroed just
+    before ``train`` and read just after. Returns (the run's row, the
+    trainer, the whole parameters before training on the CPU)."""
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.parallel import held_fraction
+    from hvs_tpu_torch.train import make_synthetic_loader
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+
+    log_path = f"{workdir}/{name}.jsonl"
+    config = TrainerConfig(num_classes=TRAIN_CLASSES, max_boxes=TRAIN_BOXES, warmup_steps=0,
+                           project_every=TP_PROJECT_EVERY, stability_check_every=TP_STEPS,
+                           backbone_lr_factor=0.1, checkpoint_dir=f"{workdir}/{name}",
+                           metrics_log=log_path)
+    model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=0, device=device,
+                               dtype=dtype)
+    if conditioned:
+        condition(model)
+    start = {k: v.detach().float().cpu().clone() for k, v in model.named_parameters()}
+    trainer = ManifoldConstrainedTrainer(model, config, device=device, seed=0, mesh=mesh)
+    trainer.init_state()
+    train_fn = make_synthetic_loader(TRAIN_BATCH, TRAIN_IMAGE, TP_STEPS, TRAIN_CLASSES,
+                                     TRAIN_BOXES, seed=0)
+    val_fn = make_synthetic_loader(TRAIN_BATCH, TRAIN_IMAGE, val_batches, TRAIN_CLASSES,
+                                   TRAIN_BOXES, seed=1) if val_batches else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(train_fn, val_fn, epochs=1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    trainer.close()
+    log = []
+    if trainer.is_writer:
+        with open(log_path) as f:
+            log = [json.loads(line) for line in f]
+    row = {"launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "wall_s": wall_s, "step_ms": [(b["time"] - a["time"]) * 1e3
+                                         for a, b in zip(log, log[1:])],
+           "loss": [r["loss"] for r in log], "grad_norm": [r["grad_norm"] for r in log],
+           "val_loss": result["history"]["val_loss"], "steps": trainer.state.step,
+           "lr": config.learning_rate,
+           "held": held_fraction(model, trainer.mesh) if trainer.sharded else None}
+    return row, trainer, start
+
+
+def tp_worker(rank: int, port: int, workdir: str) -> None:
+    """One process of the tp phase's mesh (``torch.multiprocessing``
+    spawns it): joins the others on card 0 over gloo through
+    ``parallel.setup``, trains (``tp_run``: the counted bf16 run ``tp``, then
+    ``tp32`` in fp32), writes each run's row to ``workdir/<run>_rank<rank>.json``
+    and, from the first process, the whole parameters gathered over the
+    model group to ``workdir/<run>_final.pt``."""
+    import torch.distributed as dist
+
+    from hvs_tpu_torch.config.training import DistributedConfig
+    from hvs_tpu_torch.parallel import gather_parameters, setup
+
+    mesh, device = setup("cuda:0", DistributedConfig(
+        enabled=True, coordinator_address=f"127.0.0.1:{port}", num_processes=TP_MODEL,
+        process_id=rank), n_model=TP_MODEL, backend="gloo")
+    try:
+        for name, dtype, val in TP_RUNS:
+            row, trainer, _ = tp_run(workdir, name, mesh, device, dtype, val,
+                                     conditioned=dtype == torch.float32)
+            whole = gather_parameters(trainer.model)
+            row.update(backend=dist.get_backend(), mesh=mesh.shape,
+                       model_rank=mesh.model_rank, device=str(device),
+                       sharded_params=len(trainer.sharded))
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in whole.items()}, f"{workdir}/{name}_final.pt")
+            with open(f"{workdir}/{name}_rank{rank}.json", "w") as f:
+                json.dump(row, f)
+            del trainer, whole
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_serve_sites(det, images) -> tuple:
+    """One forward of ``det`` on ``images`` with its kernel-A launches
+    counted (zeroed just before, read just after), and each fused site's
+    input and operands as the serve branch hands them to the kernel."""
+    from hvs_tpu_torch.models.layers import ManifoldHyperConnection
+
+    sites, hooks = [], []
+
+    def keep(module, args):
+        dt = module.dtype
+        sites.append((module.dim, args[0].to(dt).reshape(-1, module.dim).contiguous().clone(),
+                      (module.w1_folded, module.mlp_in_bias, module.mlp_out_kernel.to(dt),
+                       module.mlp_out_bias, module.h_post, module.h_res, module.norm_pre_scale,
+                       module.norm_pre_bias, module.norm_post_scale, module.norm_post_bias)))
+
+    for m in det.model.modules():
+        if isinstance(m, ManifoldHyperConnection) and m.fused:
+            hooks.append(m.register_forward_pre_hook(keep))
+    zero_counts()
+    try:
+        out = det(images)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, kernel_counts(), sites
+
+
+def tp_param_limit(lr: float, steps: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most one element can differ between two AdamW runs after
+    ``steps`` steps from one start: step t moves it by lr·|m̂/√v̂|, at most
+    lr·sqrt(Σ w_i² / u_i) over the weights w and u that the bias-corrected
+    moments give the step's gradients (Cauchy-Schwarz; 1 at t = 1, 1.007 at
+    t = 4), the two runs in opposite directions."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        total += math.sqrt(sum(a * a / c for a, c in zip(w, u)))
+    return 2 * lr * total + 1e-6
+
+
+def tp_agreement(one: dict, tp: dict, start: dict, one_final: dict, tp_final: dict,
+                 dtype: str) -> dict:
+    """How far the sharded run ``tp`` lies from the one-process run ``one``
+    of the same steps, and whether within the limits of ``dtype``
+    (``TP_MODEL``'s comment)."""
+    from hvs_tpu_torch.training.optimizer import partition_label
+
+    tol = TRAIN_PARITY[dtype]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(tp["loss"], one["loss"])]
+    grad_rel = [abs(a - b) / b for a, b in zip(tp["grad_norm"], one["grad_norm"])]
+    mhc = [k for k in start if partition_label(k, 0.1).startswith("mhc")]
+    # In fp64: over ~10^7 entries an fp32 sum reads cosines above 1 by 1e-3.
+    upd = {side: torch.cat([(p[k].double() - start[k].double()).flatten() for k in mhc])
+           for side, p in (("tp", tp_final), ("one", one_final))}
+    upd_cos = float((upd["tp"] * upd["one"]).sum()
+                    / (upd["tp"].norm() * upd["one"].norm() + 1e-30))
+    max_dp = max(float((tp_final[k].float() - one_final[k]).abs().max()) for k in start)
+    limit = tp_param_limit(one["lr"], TP_STEPS)
+    mean_loss_rel = abs(np.mean(tp["loss"]) - np.mean(one["loss"])) / abs(np.mean(one["loss"]))
+    grad_max_ratio = max(tp["grad_norm"][1:]) / max(one["grad_norm"][1:])
+    if dtype == "float32":
+        steps_ok = all(r <= tol["loss_rtol"] for r in loss_rel) \
+            and all(r <= tol["grad_norm_rtol"] for r in grad_rel)
+    else:
+        steps_ok = (loss_rel[0] <= tol["loss_rtol"] and grad_rel[0] <= tol["grad_norm_rtol"]
+                    and mean_loss_rel <= TRAJ_LOSS_WINDOW_RTOL
+                    and 1 / TRAJ_GRAD_NORM_RATIO <= grad_max_ratio <= TRAJ_GRAD_NORM_RATIO)
+    ok = (steps_ok and len(loss_rel) == TP_STEPS and upd_cos > tol["mhc_update_min_cos"]
+          and max_dp <= limit and np.isfinite(tp["loss"] + tp["grad_norm"]).all())
+    return {"dtype": dtype, "loss_tp": tp["loss"], "loss_one": one["loss"],
+            "loss_rel_diff": loss_rel, "grad_norm_tp": tp["grad_norm"],
+            "grad_norm_one": one["grad_norm"], "grad_norm_rel_diff": grad_rel,
+            "mean_loss_rel_diff": mean_loss_rel, "grad_norm_max_ratio_after_step_1":
+            grad_max_ratio, "mhc_update_cos": upd_cos, "param_max_abs_diff": max_dp,
+            "param_limit": limit, "ok": bool(ok)}
+
+
+def phase_tp(card: str) -> dict:
+    """Tensor parallelism on the card: ``TP_MODEL`` processes (spawned)
+    share card 0 over gloo, a 1 x ``TP_MODEL`` mesh that splits the
+    rule-matched parameters, and train the flagship (``tp_run``) in bf16,
+    then in fp32, against the same runs in this process
+    (``tp_agreement``); kernel B at the train phase's launches per step on
+    every process and C at 18 per validation batch on the gathered weights;
+    the checkpoint (one-process layout) equal to the gathered parameters and
+    reloaded bit-exact into a one-process trainer, then served
+    (``tp_serve``). Returns the first process's launches in the bf16 run
+    plus the serving's."""
+    import gc
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as tmp_mp
+
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig
+
+    runs = TP_RUNS
+    workdir = tempfile.mkdtemp(prefix="hvs_tp_smoke_")
+    one, ranks, start, one_final, tp_final = {}, {}, {}, {}, {}
+    try:
+        for name, dtype, val in runs:
+            one[name], trainer, start[name] = tp_run(workdir, f"one_{name}", dtype=dtype,
+                                                     val_batches=val,
+                                                     conditioned=dtype == torch.float32)
+            one_final[name] = {k: v.detach().float().cpu().clone()
+                               for k, v in trainer.params().items()}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = tmp_mp.start_processes(tp_worker, args=(port, workdir), nprocs=TP_MODEL,
+                                     join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > TP_TIMEOUT_S:
+                    fail(f"tp: the {TP_MODEL} processes did not finish in {TP_TIMEOUT_S} s")
+        except tmp_mp.ProcessException as e:
+            fail(f"tp: a process of the mesh failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        spawn_s = time.perf_counter() - t0
+        for name, _, _ in runs:
+            ranks[name] = []
+            for r in range(TP_MODEL):
+                with open(f"{workdir}/{name}_rank{r}.json") as f:
+                    ranks[name].append(json.load(f))
+            tp_final[name] = torch.load(f"{workdir}/{name}_final.pt")
+
+        # The checkpoint: the gathered parameters, reloaded bit-exact.
+        ckpt = torch.load(f"{workdir}/tp/best.pt", map_location="cuda")
+        saved_equal = set(ckpt["params"]) == set(tp_final["tp"]) and all(
+            torch.equal(ckpt["params"][k].cpu(), v) for k, v in tp_final["tp"].items())
+        reload = ManifoldConstrainedTrainer(
+            HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=1),
+            TrainerConfig(num_classes=TRAIN_CLASSES, checkpoint_dir=f"{workdir}/reload"))
+        reload.init_state()
+        reload.load_checkpoint(f"{workdir}/tp/best")
+        opt = reload.tx.state_dict()
+        reloaded_equal = (
+            all(torch.equal(p.detach(), ckpt["params"][k]) for k, p in reload.params().items())
+            and all(torch.equal(opt[g][k], ckpt["opt_state"][g][k])
+                    for g in ("mu", "nu", "trace") for k in opt[g])
+            and reload.state.step == ckpt["step"] == TP_STEPS)
+        del reload
+        gc.collect()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    agree = {name: tp_agreement(one[name], ranks[name][0], start[name], one_final[name],
+                                tp_final[name], str(dtype).split(".")[-1])
+             for name, dtype, _ in runs}
+    r0, o = ranks["tp"][0], one["tp"]
+    val_rel = abs(r0["val_loss"][-1] - o["val_loss"][-1]) / abs(o["val_loss"][-1])
+    n_widths = len(set(SINKHORN_MIX))
+    want = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES * TP_VAL_BATCHES,
+            "sinkhorn_forward": (3 * TP_STEPS + TP_VAL_BATCHES) * n_widths,
+            "sinkhorn_backward": 2 * n_widths * TP_STEPS}
+    row = {"phase": "tp", "mesh": r0["mesh"], "backend": r0["backend"],
+           "devices": [r["device"] for r in ranks["tp"]], "image": TRAIN_IMAGE,
+           "batch": TRAIN_BATCH, "classes": TRAIN_CLASSES, "steps": TP_STEPS,
+           "projection_steps": TP_STEPS // TP_PROJECT_EVERY, "bf16": agree["tp"],
+           "fp32": agree["tp32"], "val_loss_tp": r0["val_loss"], "val_loss_one": o["val_loss"],
+           "val_loss_rel_diff": val_rel,
+           "sharded_fraction": r0["held"], "sharded_params": r0["sharded_params"],
+           "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks["tp"]],
+           "peak_mem_gb_one": o["peak_mem_gb"],
+           "launches_per_rank": [r["launches"] for r in ranks["tp"]], "launches_one": o["launches"],
+           "ms_per_step_median": {f"{name}_{side}": float(np.median(run["step_ms"]))
+                                  for name, _, _ in runs
+                                  for side, run in (("sharded", ranks[name][0]),
+                                                    ("one", one[name]))},
+           "step_ms_tp": r0["step_ms"], "step_ms_one": o["step_ms"],
+           "wall_s": {"tp": r0["wall_s"], "one": o["wall_s"]},
+           "timing_note": f"{TP_MODEL} processes sharing one card over host-staged gloo "
+                          "collectives: not a tensor-parallel speed",
+           "spawn_s": spawn_s, "checkpoint_equals_gathered": saved_equal,
+           "reloaded_bit_exact": reloaded_equal, "card": card}
+    print(json.dumps(row), flush=True)
+    if not (agree["tp"]["ok"] and agree["tp32"]["ok"]
+            and val_rel <= TRAIN_PARITY["bfloat16"]["loss_rtol"]
+            and np.isfinite(r0["val_loss"]).all()):
+        fail(f"tp: the sharded runs disagree with one process: {row}")
+    if any(r["launches"] != want for r in ranks["tp"]) or o["launches"] != want:
+        fail(f"tp: launches per rank {row['launches_per_rank']}, one process "
+             f"{o['launches']}, expected {want}")
+    if not (r0["backend"] == "gloo" and r0["mesh"] == {"data": 1, "model": TP_MODEL}
+            and all(r["device"] == "cuda:0" for r in ranks["tp"]) and r0["sharded_params"] > 0
+            and all(r["held"] == r0["held"] for r in ranks["tp"])
+            and r0["held"]["held_bytes"] == r0["held"]["replicated_bytes"]
+            + r0["held"]["sharded_bytes"] // TP_MODEL):
+        fail(f"tp: the mesh or the held blocks are not as set up: {row}")
+    if not (saved_equal and reloaded_equal):
+        fail("tp: the checkpoint is not the gathered state or does not reload bit-exact")
+    served = tp_serve(ckpt["params"], card)
+    return {k: r0["launches"][k] + served[k] for k in served}
+
+
+@torch.no_grad()
+def tp_serve(params: dict, card: str) -> dict:
+    """The tp phase's checkpoint served by ``Detector`` at 640² batch 1:
+    B once per matrix at load, A at its 18 sites, each held against its
+    plain version on the site's inputs and weights, gated on an fp64
+    evaluation (the weights are near their init, where the GELUs are
+    ill-conditioned; ``GELU_FP64_MARGIN``). Returns the launches of the
+    load and the forward."""
+    from hvs_tpu_torch.inference import Detector
+    from hvs_tpu_torch.models import ProductionHybridVision
+
+    model = ProductionHybridVision(num_classes=TRAIN_CLASSES, seed=0)
+    for k, p in model.named_parameters():
+        p.copy_(params[k])
+    zero_counts()
+    det = Detector(model)
+    torch.cuda.synchronize()
+    load_counts = kernel_counts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand((1, IMAGE, IMAGE, 3), generator=gen, device="cuda")
+    (boxes, scores, _), serve_counts, sites = tp_serve_sites(det, images)
+    site_rows = []
+    for d, x, args in sites:
+        out, ref = mhc_mod.mhc_block(x, *args), mhc_mod.mhc_block_plain(x, *args)
+        torch.cuda.synchronize()
+        exact = mhc_chain64(x, *args).flatten().cpu().numpy()
+        a, b = out.float().flatten().cpu().numpy(), ref.float().flatten().cpu().numpy()
+        site_rows.append({
+            "n": x.shape[0], "d": d, "corr": float(np.corrcoef(a, b)[0, 1]),
+            "mean_abs_err": float(np.mean(np.abs(a - b))),
+            "kernel_vs_fp64_corr": float(np.corrcoef(a, exact)[0, 1]),
+            "plain_vs_fp64_corr": float(np.corrcoef(b, exact)[0, 1]),
+            "finite": bool(np.isfinite(a).all())})
+    row = {"phase": "tp_serve", "image": IMAGE, "batch": 1, "load_launches": load_counts,
+           "launches": serve_counts, "detections": int((scores > 0).sum()),
+           "sites": site_rows, "card": card}
+    print(json.dumps(row), flush=True)
+    if serve_counts["mhc_block"] != KERNEL_SITES or len(site_rows) != KERNEL_SITES \
+            or load_counts["sinkhorn_forward"] != len(SINKHORN_MIX) \
+            or not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        fail(f"tp: serving the checkpoint: A {serve_counts}, B at load {load_counts}")
+    for s in site_rows:
+        if not (s["finite"] and s["kernel_vs_fp64_corr"]
+                >= s["plain_vs_fp64_corr"] - GELU_FP64_MARGIN):
+            fail(f"tp: kernel A at a served site lies farther from the fp64 chain than its "
+                 f"plain version: {s}")
+    return {k: serve_counts[k] + load_counts[k] for k in serve_counts}
+
+
+# ---------------------------------------------------------------------------
 # The multi-task model and the lightweight variant
 
 
@@ -4385,6 +4792,7 @@ def main() -> None:
     entry_point_phase(phase_train_parity, defaults, card)
     trajectory_launches = entry_point_phase(phase_train_trajectory, defaults, card)
     ddp_launches = entry_point_phase(phase_ddp, defaults, card)
+    tp_launches = entry_point_phase(phase_tp, defaults, card)
     multitask_launches = entry_point_phase(phase_multitask, defaults, card)
     light = entry_point_phase(phase_lightweight, defaults, card, sm_clock_hz)
     data = entry_point_phase(phase_data, defaults, card)
@@ -4409,6 +4817,7 @@ def main() -> None:
         k["launches_infer"] = infer.get(k["name"], 0)
         k["launches_trajectory"] = trajectory_launches[k["name"]]
         k["launches_ddp"] = ddp_launches[k["name"]]
+        k["launches_tp"] = tp_launches[k["name"]]
         k["launches_manifold_attention"] = manifold_attention[k["name"]]
         k["launches_bundle"] = bundle[k["name"]]
     print(card)

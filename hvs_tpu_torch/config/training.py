@@ -91,11 +91,12 @@ class LossConfig:
 
 @dataclass
 class DistributedConfig:
-    """Multi-process data parallelism, one process per card: ``enabled``
-    joins ``num_processes`` processes at ``coordinator_address`` as
+    """Multi-process data and tensor parallelism: ``enabled`` joins
+    ``num_processes`` processes at ``coordinator_address`` as
     ``process_id`` (else torchrun's environment, if any, is read);
-    ``data_parallel`` (-1: all processes) and ``model_parallel`` size the
-    mesh (``parallel.setup`` reads it)."""
+    ``data_parallel`` (-1: all processes) and ``model_parallel`` (the
+    processes that split the rule-matched parameters) size the mesh
+    (``parallel.setup`` reads it)."""
 
     enabled: bool = False
     data_parallel: int = -1  # -1 = all devices

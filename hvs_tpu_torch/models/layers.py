@@ -34,7 +34,7 @@ chain in place of the fused block.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +45,7 @@ from ..ops.mhc_block import SUPPORTED_WIDTHS, layernorm as _layernorm, mhc_block
 from ..ops.quant import calib_maxabs, conv_int8_prepared, matmul_int8_prepared, \
     prepare_conv_weight, prepare_dense_weight, quantize_tensor
 from ..ops.sinkhorn import doubly_stochastic_error, sinkhorn_log
+from ..parallel.tensor import column_parallel, gather, row_parallel, split
 
 Generator = Optional[torch.Generator]
 
@@ -84,7 +85,17 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias`` in ``dtype``; kernel [in, out]."""
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in ``dtype``; kernel [in, out].
+
+    With its kernel sharded (``parallel.tensor.shard_parameters``) over
+    columns it computes its block of the outputs and gathers them; over rows
+    it multiplies its block of the input by its rows, sums the partials over
+    the model group and adds the bias once. Input and output are replicated
+    either way."""
+
+    tp_shardable = ("kernel",)
+    tp_dims: Dict[str, int] = {}  # the sharded parameters' split axes
+    tp_mesh = None
 
     def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -97,7 +108,15 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+        dt = self.dtype
+        axis = self.tp_dims.get("kernel")
+        if axis is None:
+            return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        if axis == 1:
+            return gather(column_parallel(x.to(dt), self.kernel.to(dt), self.bias.to(dt),
+                                          self.tp_mesh), self.tp_mesh)
+        return row_parallel(split(x.to(dt), self.tp_mesh), self.kernel.to(dt),
+                            self.tp_mesh) + self.bias.to(dt)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -392,20 +411,27 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout`` in train mode: keep each element with probability
     1 - rate and scale it by 1/(1 - rate), in the input dtype. It draws from
     ``generator`` (``set_dropout_generator``), or torch's default generator
-    when none is set; the bits differ from JAX's for any seed."""
+    when none is set; the bits differ from JAX's for any seed. ``shard=(k,
+    m)`` marks ``x`` as block ``k`` of ``m`` along its last axis: the mask is
+    drawn at the whole width and ``x`` takes its block, so the processes of a
+    model group draw what one process draws."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Generator = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        k, m = shard or (0, 1)
+        n = x.shape[-1]
+        mask = torch.rand(x.shape[:-1] + (n * m,), generator=self.generator,
+                          device=x.device)[..., k * n:(k + 1) * n] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -458,7 +484,25 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
     ``quant_sites`` the layer records those four sites while calibrating
     (the backbone's, the ViT's and the ViT fusion's layers, as in JAX);
     while calibrating every layer runs the unfused bf16 chain.
+
+    Tensor parallelism (``parallel.tensor.shard_parameters`` with the
+    default rules: H_pre and ``mlp_in`` split over columns, ``mlp_out`` and
+    H_post over rows): the training branch runs ``LN1(x) @ H_pre``
+    column-parallel, gathers it, ``@ mlp_in`` column-parallel with its block
+    of the bias, GELU, ``@ mlp_out`` row-parallel, the bias, GELU, and its
+    block of that ``@ H_post`` row-parallel; the row-parallel sums are fp32,
+    rounded once. ``x @ H_res`` (H_res stays whole) and LN2 are replicated.
+    Dropout on a block takes its block of the whole-width mask. The
+    deterministic forward at a fused site gathers the four matrices and runs
+    kernel C on them, as XLA runs a custom call it cannot partition on whole
+    operands. Any other split of the four matrices gathers each on use.
     """
+
+    tp_shardable = ("H_pre_raw", "H_post_raw", "mlp_in_kernel", "mlp_out_kernel")
+    # The split axes of the sharded chain: column-parallel in, row-parallel out.
+    TP_CHAIN = {"H_pre_raw": 1, "mlp_in_kernel": 1, "mlp_out_kernel": 0, "H_post_raw": 0}
+    tp_dims: Dict[str, int] = {}
+    tp_mesh = None
 
     def __init__(self, dim: int, expansion_rate: int = 2, mlp_ratio: int = 2,
                  dtype: torch.dtype = torch.bfloat16, *, sk_iters: int = 20, tau: float = 1.0,
@@ -592,34 +636,47 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
         return _layernorm(res.float() + y.float(), self.norm_post_scale,
                           self.norm_post_bias).to(dt)
 
+    def _whole(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` whole: gathered over the model group when this
+        process holds a block of it."""
+        p = getattr(self, name)
+        axis = self.tp_dims.get(name)
+        return p if axis is None else gather(p, self.tp_mesh, axis)
+
     def _train_branch(self, x_in: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        h_pre = torch.sigmoid(self.H_pre_raw).to(dt)
-        h_post = (2.0 * torch.sigmoid(self.H_post_raw)).to(dt)
         h_res32 = self.h_res_given
         if h_res32 is None:
             h_res32 = sinkhorn_log(self.H_res_raw, self.sk_iters, self.tau)
         h_res = h_res32.to(dt)
-        w1, w2 = self.mlp_in_kernel.to(dt), self.mlp_out_kernel.to(dt)
-        if self.fused and not self.training and not torch.is_grad_enabled():
-            # A deterministic forward with nothing to differentiate: the
-            # unfolded block (it has no backward, here or in JAX).
-            out = mhc_block_unfolded(
-                x_in.reshape(-1, self.dim), h_pre, w1, self.mlp_in_bias, w2, self.mlp_out_bias,
-                h_post, h_res, self.norm_pre_scale, self.norm_pre_bias,
-                self.norm_post_scale, self.norm_post_bias,
-            ).reshape(x_in.shape)
+        deterministic = not self.training and not torch.is_grad_enabled()
+        if self.tp_dims == self.TP_CHAIN and not (self.fused and deterministic):
+            out = self._sharded_chain(x_in, h_res)
         else:
-            y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt) @ h_pre
-            y = self.dropout(gelu(y @ w1 + self.mlp_in_bias.to(dt)))
-            y = self.dropout(gelu(y @ w2 + self.mlp_out_bias.to(dt)))
-            # As XLA compiles JAX's step: each product rounded to bf16, their
-            # sum and LN2 in fp32. At a near-uniform H_res or H_post the sum's
-            # spread across channels lies under one bf16 step of its mean, so
-            # rounding the sum as well leaves LN2 normalising rounding noise.
-            out = _layernorm((x_in @ h_res).float() + (y @ h_post).float(),
-                             self.norm_post_scale, self.norm_post_bias).to(dt)
-            out = self.dropout(out)
+            h_pre = torch.sigmoid(self._whole("H_pre_raw")).to(dt)
+            h_post = (2.0 * torch.sigmoid(self._whole("H_post_raw"))).to(dt)
+            w1 = self._whole("mlp_in_kernel").to(dt)
+            w2 = self._whole("mlp_out_kernel").to(dt)
+            if self.fused and deterministic:
+                # A deterministic forward with nothing to differentiate: the
+                # unfolded block (it has no backward, here or in JAX).
+                out = mhc_block_unfolded(
+                    x_in.reshape(-1, self.dim), h_pre, w1, self.mlp_in_bias, w2,
+                    self.mlp_out_bias, h_post, h_res, self.norm_pre_scale, self.norm_pre_bias,
+                    self.norm_post_scale, self.norm_post_bias,
+                ).reshape(x_in.shape)
+            else:
+                y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt) @ h_pre
+                y = self.dropout(gelu(y @ w1 + self.mlp_in_bias.to(dt)))
+                y = self.dropout(gelu(y @ w2 + self.mlp_out_bias.to(dt)))
+                # As XLA compiles JAX's step: each product rounded to bf16,
+                # their sum and LN2 in fp32. At a near-uniform H_res or H_post
+                # the sum's spread across channels lies under one bf16 step of
+                # its mean, so rounding the sum as well leaves LN2 normalising
+                # rounding noise.
+                out = _layernorm((x_in @ h_res).float() + (y @ h_post).float(),
+                                 self.norm_post_scale, self.norm_post_bias).to(dt)
+                out = self.dropout(out)
         if self.monitor:
             with torch.no_grad():
                 in_norm = torch.linalg.vector_norm(x_in.float(), dim=-1).mean()
@@ -632,6 +689,21 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
                     "col_sum_error": (h.sum(dim=-2) - 1.0).abs().amax(),
                 }
         return out
+
+    def _sharded_chain(self, x_in: torch.Tensor, h_res: torch.Tensor) -> torch.Tensor:
+        """The training chain on this process's blocks (``TP_CHAIN``)."""
+        dt, mesh = self.dtype, self.tp_mesh
+        shard = (mesh.model_rank, mesh.model)
+        y = _layernorm(x_in, self.norm_pre_scale, self.norm_pre_bias).to(dt)
+        y = gather(column_parallel(y, torch.sigmoid(self.H_pre_raw).to(dt), None, mesh), mesh)
+        y = column_parallel(y, self.mlp_in_kernel.to(dt), self.mlp_in_bias.to(dt), mesh)
+        y = self.dropout(gelu(y), shard)
+        y = row_parallel(y, self.mlp_out_kernel.to(dt), mesh)
+        y = self.dropout(gelu(y + self.mlp_out_bias.to(dt)))
+        y = row_parallel(split(y, mesh), (2.0 * torch.sigmoid(self.H_post_raw)).to(dt), mesh)
+        out = _layernorm((x_in @ h_res).float() + y.float(), self.norm_post_scale,
+                         self.norm_post_bias).to(dt)
+        return self.dropout(out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,24 @@
-"""Data parallelism over ``torch.distributed``: one process per card, the
-batch split over the ``data`` axis, the gradients summed across processes.
+"""The ``('data', 'model')`` mesh over ``torch.distributed`` processes.
 
 Counterpart of ``hvs_tpu/parallel/mesh.py`` (``initialize_distributed``,
 ``make_mesh``, ``shard_batch``, ``DEFAULT_PARAM_RULES``,
 ``param_sharding``, ``sharded_fraction``). JAX describes the placement as a
-``('data', 'model')`` mesh and lets XLA insert the all-reduce; here a
-``Mesh`` records the two sizes and this process's place on the ``data``
-axis, each process holds its slice of the global batch, and the trainer
-all-reduces the loss's normalisers and the gradients itself
-(``training/trainer.py::step_on_device``). ``initialize_distributed`` joins
-the processes: NCCL between cards, gloo on the CPU. ``setup`` is what the
-entry points call: it joins, then returns the mesh and this process's
-device.
+mesh and lets XLA insert the collectives; here a ``Mesh`` records the two
+sizes, this process's place on each axis and the process group of each:
+the processes of one ``data`` group each hold a slice of the global batch
+and sum their gradients and the loss's normalisers
+(``training/trainer.py::step_on_device``); the processes of one ``model``
+group each hold a block of every parameter that the rule table shards and
+together compute the one-process step (``tensor.py``, the sharded routes of
+``models/layers.py``). The processes are ranked as JAX lays the devices out
+(``reshape(n_data, n_model)``): process ``r`` is at data index
+``r // n_model`` and model index ``r % n_model``.
 
-Tensor parallelism (``model > 1``) is described (the rule table, the
-sharded fraction) but not executed: the trainer raises for it (ROADMAP
-queue 1 item 6b).
+``initialize_distributed`` joins the processes: NCCL between cards, gloo
+on the CPU, or the backend the caller names. Processes that share one card
+name that card and gloo explicitly (NCCL refuses two processes on one
+device). ``setup`` is what the entry points call: it joins, then returns
+the mesh and this process's device.
 """
 
 from __future__ import annotations
@@ -34,18 +37,22 @@ from ..device import DeviceLike, resolve_device
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
-                           device: DeviceLike = None) -> torch.device:
+                           device: DeviceLike = None,
+                           backend: Optional[str] = None) -> torch.device:
     """Join ``num_processes`` processes into the default process group, as
     ``jax.distributed.initialize`` does: ``coordinator_address``
     (``host:port``) is the rendezvous (``tcp://host:port``), ``process_id``
     this process's rank. Absent arguments come from ``torchrun``'s
     environment (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).
-    With one process it joins nothing, as JAX's does. The backend is NCCL
-    when ``device`` is the card and gloo on the CPU.
+    With one process it joins nothing, as JAX's does. ``backend`` is
+    ``"nccl"`` or ``"gloo"``; by default NCCL when ``device`` is the card and
+    gloo on the CPU.
 
-    Returns this process's device: on the card, card ``LOCAL_RANK`` (else
-    ``rank % device_count``) when the processes are joined, which it also
-    makes the current card; otherwise ``device`` resolved."""
+    Returns this process's device: on the card, the card ``device`` names
+    (``"cuda:0"``: every process on that card, which needs ``backend="gloo"``)
+    or else card ``LOCAL_RANK`` (else ``rank % device_count``) when the
+    processes are joined, which it also makes the current card; otherwise
+    ``device`` resolved."""
     env = os.environ
     if num_processes is None and "WORLD_SIZE" in env:
         num_processes = int(env["WORLD_SIZE"])
@@ -53,37 +60,48 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         process_id = int(env["RANK"])
     if coordinator_address is None and "MASTER_ADDR" in env:
         coordinator_address = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
+    named_card = device is not None and torch.device(device).index is not None
     dev = resolve_device(device)
     if num_processes is None or num_processes <= 1 or dist.is_initialized():
         return dev
     if coordinator_address is None or process_id is None:
         raise ValueError(f"{num_processes} processes need a coordinator address and this "
                          f"process's id (or torchrun's environment)")
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(env.get("LOCAL_RANK",
-                                               process_id % torch.cuda.device_count())))
+        if not named_card:
+            index = int(env.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
+            if index >= torch.cuda.device_count():
+                raise ValueError(
+                    f"process {process_id} would take card {index} of "
+                    f"{torch.cuda.device_count()}: processes that share a card name it "
+                    f"(device='cuda:0') and the gloo backend")
+            dev = torch.device("cuda", index)
         torch.cuda.set_device(dev)
     address = coordinator_address if "://" in coordinator_address \
         else f"tcp://{coordinator_address}"
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=address,
-                            world_size=num_processes, rank=process_id)
+    dist.init_process_group(backend, init_method=address, world_size=num_processes,
+                            rank=process_id)
     return dev
 
 
-def setup(device: DeviceLike = None, config: Any = None, n_model: Optional[int] = None
-          ) -> Tuple["Mesh", torch.device]:
+def setup(device: DeviceLike = None, config: Any = None, n_model: Optional[int] = None,
+          backend: Optional[str] = None) -> Tuple["Mesh", torch.device]:
     """What a training entry point does first: join the processes, then
     build the mesh. ``config`` is a ``DistributedConfig`` (or None): when
     ``enabled`` its ``coordinator_address``, ``num_processes`` and
     ``process_id`` join the processes, else torchrun's environment does (if
     any); its ``data_parallel`` (-1: all processes) and ``model_parallel``
-    size the mesh, ``n_model`` overriding the latter. Returns ``(mesh,
-    device)``: the device is this process's (``initialize_distributed``),
-    which every tensor of the run must go to."""
+    size the mesh, ``n_model`` overriding the latter. ``device`` and
+    ``backend`` go to ``initialize_distributed``. Returns ``(mesh,
+    device)``: the device is this process's, which every tensor of the run
+    must go to."""
     join = config is not None and config.enabled
     device = initialize_distributed(config.coordinator_address if join else None,
                                     config.num_processes if join else None,
-                                    config.process_id if join else None, device=device)
+                                    config.process_id if join else None, device=device,
+                                    backend=backend)
     n_data = getattr(config, "data_parallel", -1)
     if n_model is None:
         n_model = getattr(config, "model_parallel", 1)
@@ -92,25 +110,45 @@ def setup(device: DeviceLike = None, config: Any = None, n_model: Optional[int] 
 
 @dataclass(frozen=True)
 class Mesh:
-    """A ``('data', 'model')`` mesh of processes (one card each): ``data``
-    processes split the batch, ``model`` would split the parameters.
-    ``rank`` is this process's index along ``data``; ``group`` the process
-    group the data axis sums over (None: a mesh of one process, nothing to
-    sum)."""
+    """A ``('data', 'model')`` mesh of processes: ``data`` processes split
+    the batch, ``model`` processes split the rule-matched parameters.
+    ``rank`` and ``model_rank`` are this process's indices along the two
+    axes; ``group`` (also ``data_group``) is the process group the data axis
+    sums over and ``model_group`` the one the model axis gathers and sums
+    over, each None where that axis runs no collectives (one process along
+    it, or no process group). Pure data parallelism sums over the whole
+    group (``dist.group.WORLD``)."""
 
     data: int
     model: int = 1
     rank: int = 0
     group: Any = None
+    model_rank: int = 0
+    model_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
         return {"data": self.data, "model": self.model}
 
     @property
+    def data_group(self) -> Any:
+        return self.group
+
+    @property
     def distributed(self) -> bool:
         """Whether the data axis runs collectives (a process group is set)."""
         return self.group is not None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the model axis runs collectives: the parameters that the
+        rule table matches are split over ``model_group``."""
+        return self.model_group is not None
+
+    @property
+    def process_index(self) -> int:
+        """This process's rank in the whole mesh."""
+        return self.rank * self.model + self.model_rank
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the processes of the data axis, differentiably
@@ -139,10 +177,15 @@ class _AllSum(torch.autograd.Function):
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices: Optional[Sequence[Any]] = None) -> Mesh:
     """A ``('data', 'model')`` mesh over ``devices`` (default: the processes
-    of the initialised process group, one card each, or this process alone).
-    Pure data parallelism by default (``n_model=1``). Raises
-    ``AssertionError`` when the sizes do not cover the devices, as JAX's
-    does."""
+    of the initialised process group, or this process alone). Pure data
+    parallelism by default (``n_model=1``). Raises ``AssertionError`` when
+    the sizes do not cover the devices, as JAX's does.
+
+    Under a process group with ``n_model > 1`` every process creates every
+    data group (the processes ``k, k + n_model, ...``) and then every model
+    group (``i·n_model ... i·n_model + n_model - 1``), in that order, and
+    keeps the two it belongs to (``dist.new_group`` must be called by every
+    process for every group)."""
     joined = dist.is_available() and dist.is_initialized()
     if devices is None:
         devices = list(range(dist.get_world_size() if joined else 1))
@@ -151,9 +194,22 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
         n_data = len(devices) // n_model
     assert n_data * n_model == len(devices), \
         f"mesh {n_data}x{n_model} != {len(devices)} devices"
-    rank = dist.get_rank() if joined else 0
-    return Mesh(n_data, n_model, rank // n_model if joined else 0,
-                dist.group.WORLD if joined else None)
+    if not joined:
+        return Mesh(n_data, n_model)
+    r = dist.get_rank()
+    data_index, model_index = divmod(r, n_model)
+    if n_model == 1:
+        return Mesh(n_data, 1, data_index, dist.group.WORLD)
+    data_group = model_group = None
+    for k in range(n_model):
+        g = dist.new_group([k + i * n_model for i in range(n_data)])
+        if k == model_index and n_data > 1:
+            data_group = g
+    for i in range(n_data):
+        g = dist.new_group([i * n_model + k for k in range(n_model)])
+        if i == data_index:
+            model_group = g
+    return Mesh(n_data, n_model, data_index, data_group, model_index, model_group)
 
 
 def shard_batch(mesh: Mesh, batch: Dict[str, Any], device: DeviceLike = None

@@ -29,7 +29,17 @@ Data-parallel over N cards, one process each: ``torchrun --nproc_per_node N
 ``parallel.setup``). Every process reads the same batches of
 ``batch_size`` and takes its slice (the global batch is split, as the JAX
 trainer's ``shard_batch`` splits it); the first writes the files.
-``--n-model`` above 1 (tensor parallelism) raises.
+
+Tensor parallelism: ``--n-model M`` makes the mesh ``(N / M) x M``; the M
+processes of a model group take the same slice of the batch and each holds
+its block of every parameter that the rule table shards
+(``parallel/tensor.py``). On the CPU:
+
+    torchrun --nproc_per_node 2 -m hvs_tpu_torch.train --synthetic --tiny --device cpu --n-model 2
+
+Processes that share one card name it and the gloo backend (NCCL refuses
+two processes on one device): ``--device cuda:0 --backend gloo``. Across
+cards the default backend is NCCL, one card per process.
 """
 
 from __future__ import annotations
@@ -89,8 +99,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--log-dir", default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--n-model", type=int, default=None,
-                   help="tensor-parallel size (default: the config's model_parallel, 1); "
-                        "above 1 raises: not executed by the port")
+                   help="tensor-parallel size (default: the config's model_parallel, 1)")
+    p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend (default: nccl on cards, gloo on the CPU; "
+                        "gloo with --device cuda:0 for processes that share one card)")
     return p.parse_args(argv)
 
 
@@ -127,9 +139,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
 
     tcfg = training_config(args)
     pin_matmul_precision()
-    # The distributed block (or torchrun's environment): one process per card,
-    # joined before anything takes a device.
-    mesh, device = setup(tcfg.device, tcfg.distributed, n_model=args.n_model)
+    # The distributed block (or torchrun's environment): one process per card
+    # (or each on the card --device names), joined before anything takes a device.
+    mesh, device = setup(args.device or tcfg.device, tcfg.distributed, n_model=args.n_model,
+                         backend=args.backend)
     ds = tcfg.dataset
     if args.synthetic:
         num_classes = args.num_classes if args.num_classes is not None else 80
@@ -180,7 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         trainer.monitor.save_report(report)
     summary = {"device": str(trainer.device), "mesh": mesh.shape, "steps": trainer.state.step,
                "seconds": time.perf_counter() - t0,
-               "params": sum(p.numel() for p in model.parameters()),
+               "params": sum(p.numel() * (mesh.model if n in trainer.sharded else 1)
+                             for n, p in model.named_parameters()),
                "num_classes": num_classes,
                "train_loss": result["history"]["train_loss"],
                "best_val_loss": result["best_val_loss"], "stability_report": report}

@@ -54,6 +54,17 @@ Tensor = torch.Tensor
 WARMUP_STEPS = 2  # eager steps before a capture (kernels loaded, constants cached)
 
 
+def _refuse_sharded(trainer: "ManifoldConstrainedTrainer") -> None:
+    """A CUDA graph cannot capture the collectives of the sharded layers
+    (gloo's in particular): tensor parallelism trains through the eager
+    ``train`` loop."""
+    if trainer.mesh.model > 1:
+        raise NotImplementedError(
+            f"the captured train and validation steps under tensor parallelism (a mesh with "
+            f"model={trainer.mesh.model}) are not written (ROADMAP item 6b's remainder); "
+            f"train through ManifoldConstrainedTrainer.train")
+
+
 def kernel_counts() -> Dict[str, int]:
     """The package's kernel launch counters."""
     return {"mhc_block": _mhc_mod.launches, "mhc_block_unfolded": _mhc_mod.launches_unfolded,
@@ -106,6 +117,7 @@ class TrainChunk:
     def __init__(self, trainer: "ManifoldConstrainedTrainer", data: DeviceData, out_size: int,
                  batch_size: int, chunk_steps: int, aug: AugmentConfig = AugmentConfig(),
                  pool=None):
+        _refuse_sharded(trainer)
         self.trainer = trainer
         self.data, self.out_size, self.batch_size = data, out_size, batch_size
         self.chunk_steps, self.aug = chunk_steps, aug
@@ -227,6 +239,7 @@ class ValChunk:
 
     def __init__(self, trainer: "ManifoldConstrainedTrainer", data, batch_size: int,
                  out_size: int, n_batches: int, pool=None):
+        _refuse_sharded(trainer)
         if n_batches < 1:
             raise ValueError(f"validation needs at least one batch of {batch_size} images, "
                              f"got {data.images.shape[0]} images")

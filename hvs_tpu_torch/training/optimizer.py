@@ -40,11 +40,19 @@ partitions in one grouped Sinkhorn call, one launch per width) on every
 step and selects it with ``torch.where`` on projection steps: 5 forward
 launches of kernel B per step at the flagship's widths. The updates are
 identical to projecting only on those steps.
+
+Tensor parallelism: ``sharded`` names the tensors that this process holds
+as blocks (``parallel.tensor.shard_parameters``). A partition's global norm
+then adds the blocks' squared norms over the mesh's model group to the
+replicated tensors' (counted once), so every process clips by the norm of
+the whole parameters. The updates are elementwise and apply to the blocks as
+they are; the tangent preconditioning and the projection take the square
+``H_res_raw`` only, which no rule shards (the constructor refuses one).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Union
+from typing import Callable, Collection, Dict, List, Optional, Union
 
 import torch
 
@@ -81,17 +89,30 @@ def _is_square_h_res(name: str, t: Tensor) -> bool:
     return name.rsplit(".", 1)[-1] == "H_res_raw" and t.dim() == 2 and t.shape[0] == t.shape[1]
 
 
-def global_norm(tensors: List[Tensor]) -> Tensor:
+def global_norm(tensors: List[Tensor], blocks: Optional[List[bool]] = None,
+                mesh=None) -> Tensor:
     """The fp32 norm of all of ``tensors`` together: one norm per tensor
-    (``torch._foreach_norm``), then the norm of those."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    (``torch._foreach_norm``), then the norm of those. Where ``blocks``
+    marks a tensor as this process's block of a tensor split over the
+    ``mesh``'s model group, the squares of the marked norms are summed over
+    that group first (every process of it must call this at once)."""
+    norms = torch.stack(torch._foreach_norm([t.float() for t in tensors]))
+    if not blocks or not any(blocks):
+        return torch.linalg.vector_norm(norms)
+    import torch.distributed as dist
+
+    marked = torch.tensor(blocks, device=norms.device)
+    sq = norms.square()
+    split = torch.where(marked, sq, 0.0).sum()
+    dist.all_reduce(split, group=mesh.model_group)
+    return torch.sqrt(torch.where(marked, 0.0, sq).sum() + split)
 
 
-def clip_by_global_norm(grads: List[Tensor], max_norm: float) -> List[Tensor]:
+def clip_by_global_norm(grads: List[Tensor], max_norm: float,
+                        blocks: Optional[List[bool]] = None, mesh=None) -> List[Tensor]:
     """optax ``clip_by_global_norm``: ``g / norm · max_norm`` unless the global
-    norm is below ``max_norm``."""
-    norm = global_norm(grads)
+    norm is below ``max_norm``; ``blocks`` and ``mesh`` as ``global_norm``."""
+    norm = global_norm(grads, blocks, mesh)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     return torch._foreach_mul(grads, factor)
 
@@ -113,8 +134,14 @@ class ManifoldAwareOptimizer:
                  weight_decay: float = 0.01, mhc_lr_factor: float = 0.5,
                  clip_regular: float = 1.0, clip_mhc: float = 0.5, b1: float = 0.9,
                  b2: float = 0.999, project_every: int = 100, sk_iters: int = 20,
-                 use_projection: bool = True, backbone_lr_factor: float = 1.0):
+                 use_projection: bool = True, backbone_lr_factor: float = 1.0,
+                 sharded: Collection[str] = (), mesh=None):
         self.params = params
+        self.sharded, self.mesh = frozenset(sharded), mesh
+        projected = [n for n in self.sharded if _is_square_h_res(n, params[n])]
+        if projected:
+            raise ValueError(f"{projected}: the tangent preconditioning and the Sinkhorn "
+                             f"projection take whole square H_res_raw matrices only")
         self.learning_rate = learning_rate
         self.weight_decay, self.b1, self.b2 = weight_decay, b1, b2
         self.project_every, self.sk_iters = project_every, sk_iters
@@ -142,6 +169,13 @@ class ManifoldAwareOptimizer:
                 else:
                     self.trace[name] = zero
 
+    def global_norm(self, grads: Dict[str, Tensor]) -> Tensor:
+        """The global norm of the gradients of the whole parameters."""
+        return global_norm(list(grads.values()), self._blocks(grads), self.mesh)
+
+    def _blocks(self, names) -> List[bool]:
+        return [n in self.sharded for n in names]
+
     def lr(self, count: Union[int, Tensor]) -> Union[float, Tensor]:
         """The schedule at ``count`` (a float when it is constant)."""
         lr = self.learning_rate
@@ -158,7 +192,8 @@ class ManifoldAwareOptimizer:
         proposed: Dict[str, Tensor] = {}  # p + u of the H_res_raw to project
         for label, names in self.groups.items():
             adamw, clip, factor = self.chains[label]
-            clipped = clip_by_global_norm([grads[n].float() for n in names], clip)
+            clipped = clip_by_global_norm([grads[n].float() for n in names], clip,
+                                          self._blocks(names), self.mesh)
             step_size = -(lr * factor)
             params = [self.params[n] for n in names]
             if adamw:

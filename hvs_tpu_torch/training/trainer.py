@@ -17,7 +17,10 @@ checks (window maxima between checks in ``train_epoch``, chunk maxima in
 early stopping and checkpoints (``torch.save``).
 
 The model and every tensor of the state live on one device: the CUDA card
-unless ``device="cpu"`` is passed.
+unless ``device="cpu"`` is passed. Over a ``(data x model)`` mesh of
+processes the data axis splits the batch and the model axis splits the
+rule-matched parameters (``parallel/tensor.py``); checkpoints hold whole
+tensors either way.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ from ..data.device_pipeline import AugmentConfig, DeviceData, normalize
 from ..device import DeviceLike, pin_matmul_precision, resolve_device
 from ..models.layers import set_dropout_generator
 from ..parallel.mesh import Mesh, shard_batch
+from ..parallel.tensor import gather_tensors, shard_parameters, shard_tensors
 from .losses import build_targets, manifold_regularization_loss, mhc_yolo_loss, \
     multi_task_loss
-from .optimizer import ManifoldAwareOptimizer, global_norm
+from .optimizer import ManifoldAwareOptimizer, global_norm  # noqa: F401 (re-exported)
 from .schedule import (ManifoldAwareScheduler, PlateauSchedulerWithReset,
                        cosine_annealing_with_warmup)
 from .stability import StabilityMonitor, StabilityThresholds
@@ -206,7 +210,7 @@ def step_on_device(model: nn.Module, tx: ManifoldAwareOptimizer, config: Trainer
     if dp:
         grads = _sum_gradients(grads, mesh)
 
-    grad_norm = global_norm(grads.values())
+    grad_norm = tx.global_norm(grads)
     lr = tx.lr(tx.count)
     if not isinstance(lr, Tensor):
         lr = torch.full((), lr, dtype=torch.float32, device=loss.device)
@@ -284,18 +288,27 @@ class ManifoldConstrainedTrainer:
     the first process's parameters, each step takes this process's share of
     the global batch (``step_on_device``), the process at rank r draws from
     the stream ``seed + r``, and the first process alone writes the metrics
-    log and the checkpoints, which every process can load. A mesh with
-    ``model > 1`` (tensor parallelism) raises ``NotImplementedError``.
+    log and the checkpoints, which every process can load.
+
+    A mesh with ``model > 1`` (tensor parallelism; its processes joined):
+    ``init_state`` broadcasts the first process's parameters and then keeps
+    this process's block of each rule-matched one
+    (``parallel.tensor.shard_parameters``); the processes of a model group
+    take the same batch and draw from the same stream (``seed`` plus the
+    data rank), so their dropout masks agree, and compute one step together.
+    Checkpoints gather the parameters, the EMA and the optimizer's moments
+    into the one-process layout, and loading one keeps this process's
+    blocks. The captured loops (``train_chunked``, the multi-task chunks)
+    cannot capture the collectives of the sharded layers and raise.
     """
 
     def __init__(self, model: nn.Module, config: TrainerConfig = TrainerConfig(),
                  device: DeviceLike = None, seed: int = 0, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else Mesh(data=1)
-        if self.mesh.model > 1:
-            raise NotImplementedError(
-                f"tensor parallelism (a mesh with model={self.mesh.model}) is not executed "
-                f"by the port: ROADMAP queue 1 item 6b")
+        if self.mesh.model > 1 and not self.mesh.sharded:
+            raise ValueError(f"a mesh with model={self.mesh.model} needs its processes joined "
+                             f"(parallel.setup): it has no model group")
         pin_matmul_precision()  # process-wide: fp32 accumulation, as the reference
         self.model = model.to(self.device)
         self.config = config
@@ -319,6 +332,8 @@ class ManifoldConstrainedTrainer:
                                                      config.total_steps)
         self.tx: Optional[ManifoldAwareOptimizer] = None
         self.state: Optional[TrainState] = None
+        # The split axis of each parameter held as a block (tensor parallelism).
+        self.sharded: Dict[str, int] = {}
 
     def params(self) -> Dict[str, Tensor]:
         return dict(self.model.named_parameters())
@@ -330,17 +345,24 @@ class ManifoldConstrainedTrainer:
         batch the JAX trainer needs for ``init`` is not used)."""
         del sample_batch
         c = self.config
-        if self.mesh.distributed:
+        if self.mesh.distributed or self.mesh.sharded:
             import torch.distributed as dist
 
             with torch.no_grad():
-                for p in self.params().values():
-                    dist.broadcast(p.data, src=0, group=self.mesh.group)
+                if not self.sharded:  # whole parameters, from the first process to all
+                    for p in self.params().values():
+                        dist.broadcast(p.data, src=0)
+                elif self.mesh.distributed:  # blocks, from the first of each data group
+                    src = dist.get_global_rank(self.mesh.group, 0)
+                    for p in self.params().values():
+                        dist.broadcast(p.data, src=src, group=self.mesh.group)
+            if self.mesh.sharded and not self.sharded:
+                self.sharded = shard_parameters(self.model, self.mesh)
         self.tx = ManifoldAwareOptimizer(
             self.params(), self.schedule, weight_decay=c.weight_decay,
             mhc_lr_factor=c.mhc_lr_factor, clip_regular=c.clip_regular, clip_mhc=c.clip_mhc,
             project_every=c.project_every, sk_iters=c.sk_iters,
-            backbone_lr_factor=c.backbone_lr_factor)
+            backbone_lr_factor=c.backbone_lr_factor, sharded=self.sharded, mesh=self.mesh)
         ema = ({k: v.detach().clone() for k, v in self.params().items()}
                if c.ema_decay > 0.0 else None)
         self.state = TrainState(step=0, lr_scale=1.0, ema_params=ema)
@@ -373,7 +395,7 @@ class ManifoldConstrainedTrainer:
     @property
     def is_writer(self) -> bool:
         """Whether this process writes logs and checkpoints (the first)."""
-        return self.mesh.rank == 0
+        return self.mesh.process_index == 0
 
     # ------------------------------------------------------------------
     def train_epoch(self, loader: Iterable, epoch: int) -> Dict[str, float]:
@@ -611,43 +633,64 @@ class ManifoldConstrainedTrainer:
             return name
         return os.path.abspath(os.path.join(self.config.checkpoint_dir, name))
 
+    def _whole(self, tensors: Optional[Dict[str, Tensor]]) -> Optional[Dict[str, Tensor]]:
+        """Tensors keyed by parameter name in the one-process layout: the
+        blocks gathered over the model group (every process of it calls)."""
+        if tensors is None or not self.sharded:
+            return tensors
+        return gather_tensors(tensors, self.sharded, self.mesh)
+
+    def _blocks(self, tensors: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """This process's blocks of tensors in the one-process layout."""
+        return shard_tensors(tensors, self.sharded, self.mesh) if self.sharded else tensors
+
     def save_checkpoint(self, name: str) -> str:
         """The full train state (parameters, optimizer state, step, lr_scale,
-        EMA) with ``torch.save``, and the history beside it as JSON. Under
-        data parallelism the first process writes (the state is the same on
-        every process) and the others wait until it has."""
+        EMA) with ``torch.save``, and the history beside it as JSON, in the
+        one-process layout. Over several processes the first writes (the
+        whole state is the same on every process once the blocks are
+        gathered) and the others wait until it has."""
         path = self._path(name)
-        if self.mesh.distributed and not self.is_writer:
+        opt = self.tx.state_dict()
+        state = {"params": self._whole({k: v.detach() for k, v in self.params().items()}),
+                 "opt_state": {"count": opt["count"],
+                               **{k: self._whole(opt[k]) for k in ("mu", "nu", "trace")}},
+                 "step": self.state.step, "lr_scale": self.state.lr_scale,
+                 "ema_params": self._whole(self.state.ema_params)}
+        joined = self.mesh.distributed or self.mesh.sharded
+        if joined and not self.is_writer:
             self._barrier()
             return path
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save({"params": {k: v.detach() for k, v in self.params().items()},
-                    "opt_state": self.tx.state_dict(), "step": self.state.step,
-                    "lr_scale": self.state.lr_scale, "ema_params": self.state.ema_params},
-                   path + ".pt")
+        torch.save(state, path + ".pt")
         with open(path + ".history.json", "w") as f:
             json.dump(self.history, f)
-        if self.mesh.distributed:
+        if joined:
             self._barrier()
         return path
 
     def _barrier(self) -> None:
         import torch.distributed as dist
 
-        dist.barrier(group=self.mesh.group)
+        dist.barrier()
 
     def load_checkpoint(self, name_or_path: str) -> None:
         """Restore a state written by ``save_checkpoint`` onto the live model
-        and optimizer (``init_state`` first)."""
+        and optimizer (``init_state`` first); a process of a model group
+        keeps its blocks."""
         assert self.state is not None, "init_state before load_checkpoint"
         path = self._path(name_or_path)
         ckpt = torch.load(path + ".pt", map_location=self.device)
         with torch.no_grad():
+            params = self._blocks(ckpt["params"])
             for name, p in self.params().items():
-                p.copy_(ckpt["params"][name])
-        self.tx.load_state_dict(ckpt["opt_state"])
+                p.copy_(params[name])
+        opt = ckpt["opt_state"]
+        self.tx.load_state_dict({"count": opt["count"],
+                                 **{k: self._blocks(opt[k]) for k in ("mu", "nu", "trace")}})
         ema = ckpt.get("ema_params")
         if ema is not None and self.state.ema_params is not None:
+            ema = self._blocks(ema)
             for name, e in self.state.ema_params.items():
                 e.copy_(ema[name])
         self.state.step = int(ckpt["step"])

@@ -1217,3 +1217,38 @@ def test_probe_is_healthy_on_the_card_and_launches_a_and_b_once():
     assert report["a_corr"] > MIN_CORR and report["memory_in_use"] < probe.MEMORY_LIMIT
     assert (mhc_mod.launches - a0, sink_mod.launches_forward - b0) == (1, 1)
     assert probe.main([]) == 0
+
+
+@pytest.mark.gpu
+def test_two_processes_share_the_card_in_a_tensor_parallel_step(tmp_path):
+    """``python -m hvs_tpu_torch.train --n-model 2`` under torchrun with both
+    processes on card 0 over gloo (NCCL refuses two processes on one
+    device): a 1 x 2 mesh trains the tiny model for two steps, each process
+    on ``cuda:0``, and writes a checkpoint in the one-process layout."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    _need_card()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_port", str(port), "-m", "hvs_tpu_torch.train", "--synthetic", "--tiny",
+           "--device", "cuda:0", "--backend", "gloo", "--n-model", "2", "--steps", "2",
+           "--epochs", "1", "--num-classes", "8", "--checkpoint-dir", str(tmp_path / "ckpt"),
+           "--log-dir", str(tmp_path / "logs")]
+    out = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1"),
+                         cwd=tmp_path, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    decoder, text = json.JSONDecoder(), out.stdout
+    summaries = [decoder.raw_decode(text, i)[0] for i in range(len(text))
+                 if text.startswith('{"device"', i)]
+    assert len(summaries) == 2
+    assert all(s["device"] == "cuda:0" and s["mesh"] == {"data": 1, "model": 2}
+               and s["steps"] == 2 and np.isfinite(s["train_loss"]).all() for s in summaries)
+    best = torch.load(tmp_path / "ckpt" / "best.pt", map_location="cpu")
+    assert all(torch.isfinite(v).all() for v in best["params"].values())

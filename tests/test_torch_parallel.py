@@ -162,14 +162,6 @@ def test_sharded_loader_indices_match_jax_shard_view(n, shards):
     assert isinstance(first["i"], torch.Tensor) and int(first["i"][0, 0]) == 0
 
 
-def test_tensor_parallel_mesh_raises():
-    model = HybridVisionSystem(num_classes=NUM_CLASSES, dtype=torch.float32, device="cpu",
-                               **TINY)
-    with pytest.raises(NotImplementedError, match="6b"):
-        ManifoldConstrainedTrainer(model, TrainerConfig(num_classes=NUM_CLASSES), device="cpu",
-                                   mesh=make_mesh(n_data=1, n_model=2, devices=range(2)))
-
-
 def test_setup_joins_before_it_takes_the_card(monkeypatch):
     """Under torchrun on two cards, the process of rank 1 joins an NCCL group
     and gets card 1 (``LOCAL_RANK``), made current before the group is
