@@ -168,7 +168,16 @@ Phases, each of which fails the run with a non-zero exit:
      10 eager training steps (B per mHC layer forward and backward, the
      regulariser's and the optimizer's grouped projections), the serve
      encoder (B 31 at load, A 1 per forward) against the CPU, and a
-     deterministic forward (C 1).
+     deterministic forward (C 1);
+ 17. bench (after ``data``, on its work directory): the measurement and
+     accuracy entry points run as a user runs them, each a subprocess
+     (``phase_bench``): ``bench`` at its defaults and int8 on conditioned
+     weights (one line with ``bench.py``'s keys, the replay equal to an
+     eager call, A 18 per forward, B 25 at load), ``benchmark`` (its three
+     files, memory by batch), ``accuracy_sweep`` of phase ``data``'s
+     checkpoint (its 640² entry equal to that phase's ``evaluate``),
+     ``summarize_run`` of that run (equal to ``torch_run_summary.py``), and
+     ``serve_bench`` closed, rated (nothing shed) and overload (some shed).
 Phase 2's Sinkhorn part also runs the public projections that launch B
 (``project_to_doubly_stochastic``, ``birkhoff_project``,
 ``sinkhorn_with_diagnostics``) and the Stiefel and SPD functions on the card
@@ -177,7 +186,9 @@ The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
 entry point (3-15) and fails unless they are pinned after it (phase 16
-builds the encoder directly and pins them as those entry points do); the plain
+builds the encoder directly and pins them as those entry points do; phase
+17's entry points run in processes of their own, each from torch's own
+flags); the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -3814,8 +3825,10 @@ def add_replayed(launches: dict, *graphs) -> None:
             launches[k] += g.launches.get(k, 0) * g.replays
 
 
-def phase_data(card: str) -> dict:
-    """The data and evaluation layer, through the entry points, at full width:
+def phase_data(card: str, workdir: str = None) -> dict:
+    """The data and evaluation layer, through the entry points, at full width,
+    in ``workdir`` (kept for a later phase when given, else a temp directory
+    removed at the end):
       1. generate (``python -m hvs_tpu_torch.make_shapes_dataset``) a shapes
          dataset at 640², 8 classes, seed 0, and a dense one at 320²; hold
          each split's JSON against its files and one image regenerated alone;
@@ -3831,7 +3844,8 @@ def phase_data(card: str) -> dict:
          ``train_device`` checkpoint: A at 18 per replay, each image's
          detections bitwise equal to ``engine.infer`` of its frame, the
          evaluator's numbers equal to a recomputation from them, and the
-         ``--synthetic`` self-check at 1.0.
+         ``--synthetic`` self-check at 1.0; the report written to
+         ``evaluation.json``.
     Returns the launches of the path (counted launches of the eager run,
     each captured graph's launches times its replays)."""
     import gc
@@ -3854,7 +3868,8 @@ def phase_data(card: str) -> dict:
     want_val = {"mhc_block": 0, "mhc_block_unfolded": KERNEL_SITES,
                 "sinkhorn_forward": n_widths, "sinkhorn_backward": 0}
     launches = {k: 0 for k in want_step}
-    workdir = tempfile.mkdtemp(prefix="hvs_data_smoke_")
+    keep = workdir is not None
+    workdir = workdir or tempfile.mkdtemp(prefix="hvs_data_smoke_")
     root, dense_root = f"{workdir}/shapes640", f"{workdir}/shapes320_dense"
     try:
         # 1. Generate.
@@ -4023,6 +4038,8 @@ def phase_data(card: str) -> dict:
             str(DATA_IMAGE), "--output", f"{workdir}/evaluation.json"]))
         counts = kernel_counts()
         engine, dets, report = result.engine, result.detections, result.report
+        with open(f"{workdir}/evaluation.json", "w") as f:
+            json.dump(report, f, indent=2, default=float)
         replays = sum(engine.replays.values())
         captures = len(engine.replays)
         # The same frames again on the warm graph (the run's first image
@@ -4068,7 +4085,8 @@ def phase_data(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(workdir, ignore_errors=True)
     return launches
 
 
@@ -4758,6 +4776,257 @@ def phase_manifold_attention(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The measurement and accuracy entry points, run as a user runs them
+
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "batch1_frame_ms"}  # bench.py
+BENCH_QUANT = "1"
+BENCHMARK_BATCHES = (1, SERVE_BATCH)
+BENCHMARK_FILES = ("benchmark.json", "throughput.csv", "benchmark.md")
+BENCHMARK_LINE_KEYS = {"best_throughput_fps", "e2e_p50_ms", "output_dir"}
+SERVE_BENCH_SECONDS = 5
+SERVE_BENCH_BUCKET = 1  # where the engine, not the client's JPEG decode, is the bottleneck
+SERVE_BENCH_REPORT_KEYS = {  # scripts/serve_bench.py's report
+    "mode", "sustained_fps_host_inclusive", "offered_rate_fps", "seconds", "frames",
+    "submitted", "shed_or_rejected", "image_size", "p50_ms", "p95_ms", "p99_ms", "mean_ms",
+    "meets_latency_target", "sla", "overload_policy", "host_letterbox", "path", "engine_stats"}
+SWEEP_RESOLUTIONS = (320, DATA_IMAGE)
+SWEEP_REPORT_KEYS = {"benchmark", "checkpoint", "trained_steps", "headline",
+                     "resolution_sweep", "criteria", "reference"}
+STABILITY_KEYS = {  # scripts/summarize_run.py's output with --chunks and --report
+    "steps", "all_finite", "loss_first_1pct_mean", "loss_last_1pct_mean", "loss_min",
+    "loss_window_means", "grad_norm", "ds_error_max_overall", "lr_scale_final",
+    "lr_scale_min", "steps_per_sec_median", "wall_hours", "diverged",
+    "eigenvalue_telemetry", "ds_error_proj_max_overall", "monitor"}
+ENTRY_TIMEOUT_S = 300
+
+
+def run_entry_point(module: str, args, workdir: str, env: dict = None):
+    """Run ``python -m hvs_tpu_torch.<module> ...`` in a subprocess from
+    ``workdir`` with the checkout on ``PYTHONPATH``; fail unless it exits 0.
+    Returns its stdout, its stderr's last ``kernel_launches`` line (or
+    None) and its wall seconds."""
+    full = dict(os.environ, **(env or {}))
+    full["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", f"hvs_tpu_torch.{module}",
+                             *map(str, args)], cwd=workdir, env=full, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(timeout=ENTRY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"bench: python -m hvs_tpu_torch.{module} ran past {ENTRY_TIMEOUT_S} s")
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench: python -m hvs_tpu_torch.{module} exited {proc.returncode}: {err[-3000:]}")
+    reports = [json.loads(line) for line in err.splitlines()
+               if line.startswith("{") and '"kernel_launches"' in line]
+    return out, reports[-1] if reports else None, wall_s
+
+
+def engine_launches(module: str, report: dict, launches: dict) -> None:
+    """Add an engine entry point's launches: A at its sites per replay, B
+    as counted (at each load and stability report). Fail unless its engines
+    served A at the flagship's 18 sites and A's counter in that process
+    saw each of those sites in every graph it captured: WARMUP_CALLS eager
+    calls and the capture per graph, and no other call of A or C."""
+    from hvs_tpu_torch.inference.engine import WARMUP_CALLS
+
+    counted = report["kernel_launches"]
+    want = KERNEL_SITES * (WARMUP_CALLS + 1) * report["graphs"]
+    if report["kernel_sites"] != KERNEL_SITES or report["graphs"] < 1 \
+            or counted["mhc_block"] != want or counted["mhc_block_unfolded"] != 0:
+        fail(f"bench: python -m hvs_tpu_torch.{module} launched {report}; expected "
+             f"{KERNEL_SITES} kernel-A sites and A counted {want} times over "
+             f"{report['graphs']} graphs")
+    launches["mhc_block"] += report["replays"] * KERNEL_SITES
+    launches["sinkhorn_forward"] += report["kernel_launches"]["sinkhorn_forward"]
+
+
+def phase_bench(card: str, data_dir: str) -> dict:
+    """The JAX package's measurement and accuracy entry points in the port,
+    each run as ``python -m hvs_tpu_torch.<module>`` in a subprocess:
+      1. ``bench`` at its defaults (the flagship at 640², random init), then
+         with ``HVS_BENCH_QUANT=1`` on a checkpoint of ``conditioned_params``
+         (``HVS_BENCH_CHECKPOINT``): one line with ``bench.py``'s keys and a
+         value above 0, the captured replay equal to an eager call (on
+         detections in the int8 run), kernel A at 18 launches per forward
+         and B at 25 at the load;
+      2. ``benchmark --batches 1 16 --iters 10 --sustained-s 3``: its three
+         files, a row per batch with the card's memory above 0;
+      3. ``accuracy_sweep`` of phase ``data``'s ``train_device`` checkpoint
+         on its 640² val split (``data_dir``) at 320² and 640²: the report
+         with ``scripts/accuracy_sweep.py``'s keys, the 640² entry equal to
+         that phase's ``evaluate`` (the same weights and images), and
+         ``summarize_run`` on that run's logs: ``scripts/summarize_run.py``'s
+         keys, and the numbers ``scripts/torch_run_summary.py`` gives;
+      4. ``serve_bench --seconds 5 --bucket 1`` closed, then rated at half
+         the closed run's frames/s (nothing shed or rejected), then overload
+         at three times it with ``--policy shed_oldest`` (some shed, every
+         accepted request completed); the reports with
+         ``scripts/serve_bench.py``'s keys. At its default bucket (16) the
+         one thread that decodes and submits the JPEGs is slower than the
+         engine, so no rate it offers overloads it; at bucket 1 the engine
+         is the bottleneck.
+    The entry points run one after another, so each has the card alone.
+    Returns the kernels' launches over the entry points: A per forward times
+    the eager calls and replays of ``bench``, each engine's replays times
+    its 18 sites (once A's counter in that process agrees with the graphs it
+    captured), and B as each process counted it."""
+    import gc
+    import importlib.util
+    import shutil
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the subprocesses
+    t_phase = time.perf_counter()
+    launches = {"mhc_block": 0, "sinkhorn_forward": 0, "sinkhorn_backward": 0,
+                "mhc_block_unfolded": 0}
+    walls = {}
+    workdir = tempfile.mkdtemp(prefix="hvs_bench_smoke_")
+    try:
+        # 1. bench, at the defaults and int8 on conditioned weights.
+        checkpoint = f"{workdir}/conditioned.pt"
+        torch.save({"params": {k: v.cpu() for k, v in conditioned_params(0).items()}},
+                   checkpoint)
+        for name, env in (("default", {}), ("int8", {"HVS_BENCH_QUANT": BENCH_QUANT,
+                                                     "HVS_BENCH_CHECKPOINT": checkpoint})):
+            out, report, walls[f"bench_{name}"] = run_entry_point("bench", [], workdir, env)
+            lines = out.strip().splitlines()
+            line = json.loads(lines[-1])
+            want_keys = BENCH_LINE_KEYS | ({"checkpoint"} if name == "int8" else set())
+            row = {"phase": "bench_headline", "run": name, "line": line, "lines": len(lines),
+                   **report, "wall_s": walls[f"bench_{name}"], "card": card}
+            print(json.dumps(row), flush=True)
+            if len(lines) != 1 or set(line) != want_keys or not line["value"] > 0 \
+                    or not report["replay_equals_eager"] \
+                    or report["mhc_block_per_forward"] != KERNEL_SITES \
+                    or report["graphs"] != 2 or report["mhc_block_counted"] \
+                    != KERNEL_SITES * (report["eager_forwards"] + report["graphs"]) \
+                    or report["sinkhorn_at_load"] != len(SINKHORN_MIX) \
+                    or (name == "int8" and report["detections_compared"] == 0):
+                fail(f"bench: python -m hvs_tpu_torch.bench ({name}): {row}")
+            for k in launches:
+                launches[k] += report["kernel_launches"][k]
+
+        # 2. benchmark.
+        out_dir = f"{workdir}/benchmark_results"
+        out, report, walls["benchmark"] = run_entry_point("benchmark", [
+            "--batches", *BENCHMARK_BATCHES, "--iters", 10, "--sustained-s", 3,
+            "--output", out_dir], workdir)
+        line = json.loads(out.strip().splitlines()[-1])
+        with open(f"{out_dir}/benchmark.json") as f:
+            results = json.load(f)
+        sweep = results.get("throughput", {})
+        row = {"phase": "bench_benchmark", "line": line, "throughput": sweep,
+               "end_to_end": results.get("end_to_end"),
+               "sustained_fps": results.get("sustained", {}).get("fps"),
+               "files": sorted(os.listdir(out_dir)), "replays": report["replays"],
+               "graphs": report["graphs"],
+               "mhc_block_counted": report["kernel_launches"]["mhc_block"],
+               "wall_s": walls["benchmark"], "card": card}
+        print(json.dumps(row), flush=True)
+        if set(line) != BENCHMARK_LINE_KEYS or not set(BENCHMARK_FILES) <= set(row["files"]) \
+                or set(sweep) != {str(b) for b in BENCHMARK_BATCHES} \
+                or not all(r["device_mem_mb"] > 0 and r["throughput_fps"] > 0
+                           for r in sweep.values()) or not row["sustained_fps"]:
+            fail(f"bench: python -m hvs_tpu_torch.benchmark: {row}")
+        engine_launches("benchmark", report, launches)
+
+        # 3. The sweep against phase data's evaluate; the run summary.
+        root, run_dir = f"{data_dir}/shapes640", f"{data_dir}/run"
+        sweep_out, stability_out = f"{workdir}/accuracy_sweep.json", f"{workdir}/stability.json"
+        _, report, walls["accuracy_sweep"] = run_entry_point("accuracy_sweep", [
+            "--checkpoint", f"{run_dir}/checkpoints/final", "--data-root", root,
+            "--resolutions", ",".join(map(str, SWEEP_RESOLUTIONS)), "--output", sweep_out],
+            workdir)
+        with open(f"{data_dir}/evaluation.json") as f:
+            evaluated = json.load(f)["accuracy"]
+        with open(sweep_out) as f:
+            got = json.load(f)
+        at = got["resolution_sweep"].get(str(DATA_IMAGE), {})
+        same = {k: at.get(k) == round(v, 4) for k, v in evaluated.items()}
+        row = {"phase": "bench_accuracy_sweep", "resolutions": list(got["resolution_sweep"]),
+               "trained_steps": got["trained_steps"],
+               "sweep": {r: {k: v for k, v in e.items() if k != "per_class_AP@0.5"}
+                         for r, e in got["resolution_sweep"].items()},
+               "evaluate": evaluated, "equal_to_evaluate": same, "replays": report["replays"],
+               "graphs": report["graphs"],
+               "mhc_block_counted": report["kernel_launches"]["mhc_block"],
+               "wall_s": walls["accuracy_sweep"], "card": card}
+        print(json.dumps(row), flush=True)
+        if set(got) != SWEEP_REPORT_KEYS or not all(same.values()) \
+                or row["resolutions"] != [str(r) for r in SWEEP_RESOLUTIONS] \
+                or got["trained_steps"] != DATA_CHUNKS * DATA_CHUNK_STEPS:
+            fail(f"bench: python -m hvs_tpu_torch.accuracy_sweep: {row}")
+        engine_launches("accuracy_sweep", report, launches)
+
+        _, _, walls["summarize_run"] = run_entry_point("summarize_run", [
+            "--steps", f"{run_dir}/steps.jsonl", "--chunks", f"{run_dir}/chunks.jsonl",
+            "--report", f"{run_dir}/stability_report.json", "--output", stability_out], workdir)
+        with open(stability_out) as f:
+            got = json.load(f)
+        spec = importlib.util.spec_from_file_location(
+            "torch_run_summary", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                              "scripts", "torch_run_summary.py"))
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        other = tool.summarize(run_dir)
+        agree = {"grad_norm_p50": got["grad_norm"]["p50"] == other["grad_norm_p50"],
+                 "grad_norm_max": got["grad_norm"]["max"] == other["grad_norm_max"],
+                 "ds_error_max_overall":
+                     got["ds_error_max_overall"] == other["ds_error_max_overall"]}
+        row = {"phase": "bench_summarize_run", "summary": got, "agrees_with_run_summary": agree,
+               "wall_s": walls["summarize_run"], "card": card}
+        print(json.dumps(row), flush=True)
+        if set(got) != STABILITY_KEYS or got["steps"] != DATA_CHUNKS * DATA_CHUNK_STEPS \
+                or not got["all_finite"] or not all(agree.values()):
+            fail(f"bench: python -m hvs_tpu_torch.summarize_run: {row}")
+
+        # 4. serve_bench: closed, rated at half of it, overload at three times.
+        serve = {}
+        for mode in ("closed", "rated", "overload"):
+            extra = []
+            if mode == "rated":
+                extra = ["--rate", serve["closed"]["sustained_fps_host_inclusive"] / 2]
+            elif mode == "overload":
+                extra = ["--rate", serve["closed"]["sustained_fps_host_inclusive"] * 3,
+                         "--policy", "shed_oldest"]
+            output = f"{workdir}/serve_{mode}.json"
+            _, report, walls[f"serve_{mode}"] = run_entry_point("serve_bench", [
+                "--seconds", SERVE_BENCH_SECONDS, "--bucket", SERVE_BENCH_BUCKET, "--mode", mode,
+                *extra, "--output", output], workdir)
+            with open(output) as f:
+                got = json.load(f)
+            serve[mode] = got
+            row = {"phase": "bench_serve", **{k: v for k, v in got.items()
+                                              if k != "engine_stats"},
+                   "batcher": {k: v for k, v in got["engine_stats"].items()
+                               if k.startswith(("batcher_", "service_ms"))},
+                   "replays": report["replays"], "graphs": report["graphs"],
+                   "mhc_block_counted": report["kernel_launches"]["mhc_block"],
+                   "wall_s": walls[f"serve_{mode}"], "card": card}
+            print(json.dumps(row), flush=True)
+            ok = set(got) == SERVE_BENCH_REPORT_KEYS and got["frames"] > 0
+            if mode == "rated":
+                ok &= got["shed_or_rejected"] == 0
+            if mode == "overload":
+                ok &= got["shed_or_rejected"] > 0 \
+                    and got["frames"] + got["shed_or_rejected"] == got["submitted"]
+            if not ok:
+                fail(f"bench: python -m hvs_tpu_torch.serve_bench --mode {mode}: {row}")
+            engine_launches("serve_bench", report, launches)
+
+        print(json.dumps({"phase": "bench", "seconds": time.perf_counter() - t_phase,
+                          "wall_s": walls, "launches": launches, "card": card}), flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
@@ -4795,7 +5064,18 @@ def main() -> None:
     tp_launches = entry_point_phase(phase_tp, defaults, card)
     multitask_launches = entry_point_phase(phase_multitask, defaults, card)
     light = entry_point_phase(phase_lightweight, defaults, card, sm_clock_hz)
-    data = entry_point_phase(phase_data, defaults, card)
+    import shutil
+    import tempfile
+
+    data_dir = tempfile.mkdtemp(prefix="hvs_data_smoke_")
+    try:
+        data = entry_point_phase(phase_data, defaults, card, data_dir)
+        # Its entry points run in processes of their own, each starting from
+        # torch's own flags: this process's flags say nothing of them.
+        set_flags(defaults)
+        bench = phase_bench(card, data_dir)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
     int8 = entry_point_phase(phase_int8, defaults, card)
     rag = entry_point_phase(phase_rag, defaults, card)
     set_flags(defaults)
@@ -4820,6 +5100,7 @@ def main() -> None:
         k["launches_tp"] = tp_launches[k["name"]]
         k["launches_manifold_attention"] = manifold_attention[k["name"]]
         k["launches_bundle"] = bundle[k["name"]]
+        k["launches_bench"] = bench[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

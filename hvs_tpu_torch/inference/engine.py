@@ -114,6 +114,19 @@ class Detections:
         }
 
 
+def checkpoint_params(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """The named weights of a checkpoint of the port's trainer (``<path>``
+    or ``<path>.pt``): its EMA weights when ``use_ema`` is set and it has
+    them, else its weights."""
+    import os
+
+    file = path if os.path.isfile(path) else path + ".pt"
+    ckpt = torch.load(file, map_location="cpu")
+    if use_ema and ckpt.get("ema_params") is not None:
+        return ckpt["ema_params"]
+    return ckpt.get("params", ckpt)
+
+
 class _BucketServe:
     """One bucket's serve function over a fixed uint8 input buffer.
 
@@ -350,14 +363,7 @@ class InferenceEngine:
         them. A checkpoint of the JAX package (an orbax directory or a flax
         msgpack file) is first converted to this format by
         ``scripts/torch_import_checkpoint.py``."""
-        import os
-
-        file = path if os.path.isfile(path) else path + ".pt"
-        ckpt = torch.load(file, map_location="cpu")
-        params = ckpt.get("params", ckpt)
-        if self.config.use_ema and ckpt.get("ema_params") is not None:
-            params = ckpt["ema_params"]
-        return {"params": params}
+        return {"params": checkpoint_params(path, self.config.use_ema)}
 
     def reload(self, variables: Dict[str, Any]) -> None:
         """Hot model swap: new weights of the same structure (and, for an

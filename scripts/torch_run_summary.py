@@ -4,7 +4,9 @@ window means (``--window`` steps each, as ``STABILITY_r03.json``'s
 ``loss_window_means``: 2,500 steps), the first and last 1 % means, the
 largest ``ds_error_max``, the grad norm's median and largest, the
 stability monitor's LR cuts, the chunks' median ms per step (host clock) and their
-validation losses.
+validation losses. The step rows (the last of each step), their finiteness,
+1 % means, loss minimum, grad-norm median and largest, and largest
+``ds_error_max`` are ``python -m hvs_tpu_torch.summarize_run``'s.
 
     python scripts/torch_run_summary.py runs/trained [--window 2500]
 """
@@ -12,8 +14,13 @@ validation losses.
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from hvs_tpu_torch.summarize_run import read_steps, summarize_steps  # noqa: E402
 
 
 def _lr_cuts(run_dir: str):
@@ -26,26 +33,25 @@ def _lr_cuts(run_dir: str):
 
 
 def summarize(run_dir: str, window: int = 2500) -> dict:
-    with open(os.path.join(run_dir, "steps.jsonl")) as f:
-        steps = [json.loads(line) for line in f]
+    steps = read_steps(os.path.join(run_dir, "steps.jsonl"))
+    base = summarize_steps(steps)  # python -m hvs_tpu_torch.summarize_run's numbers
     loss = np.array([s["loss"] for s in steps], np.float64)
-    one_pct = max(1, len(loss) // 100)
     chunks = []
     path = os.path.join(run_dir, "chunks.jsonl")
     if os.path.exists(path):
         with open(path) as f:
             chunks = [json.loads(line) for line in f]
     return {
-        "steps": len(steps),
-        "all_finite": bool(np.isfinite(loss).all()),
+        "steps": base["steps"],
+        "all_finite": base["all_finite"],
         "loss_window_means": [round(float(loss[i:i + window].mean()), 3)
                               for i in range(0, len(loss), window)],
-        "loss_first_1pct_mean": float(loss[:one_pct].mean()),
-        "loss_last_1pct_mean": float(loss[-one_pct:].mean()),
-        "loss_min": float(loss.min()),
-        "ds_error_max_overall": float(max(s["ds_error_max"] for s in steps)),
-        "grad_norm_p50": float(np.median([s["grad_norm"] for s in steps])),
-        "grad_norm_max": float(max(s["grad_norm"] for s in steps)),
+        "loss_first_1pct_mean": base["loss_first_1pct_mean"],
+        "loss_last_1pct_mean": base["loss_last_1pct_mean"],
+        "loss_min": base["loss_min"],
+        "ds_error_max_overall": base["ds_error_max_overall"],
+        "grad_norm_p50": base["grad_norm"]["p50"],
+        "grad_norm_max": base["grad_norm"]["max"],
         "lr_cuts": _lr_cuts(run_dir),
         "ms_per_step_median": float(np.median([1e3 / c["steps_per_sec"] for c in chunks]))
         if chunks else None,

@@ -16,7 +16,13 @@
 # batch 16, lr 1e-3, warm-up 300, EMA 0.999, 8 classes, validation every
 # 1,000 steps, then evaluate at 416² on the 500 val images from the best
 # checkpoint and run the trained-weight checks on it at 416² (STEPS is
-# ignored; no int8). PROTOCOL=r3_rag_gated is the same with --use-rag (the
+# ignored; no int8), and on that checkpoint the measurement entry points:
+# accuracy_sweep at 320/416/512/640, summarize_run, bench
+# (HVS_BENCH_CHECKPOINT), benchmark at 640² on batches 1-16, and
+# serve_bench closed, then rated at half the closed frames/s, then overload
+# at three times it (shed_oldest), with the val JPEGs and the class count
+# read from the checkpoint. PROTOCOL=r3_rag_gated is the same without them,
+# with --use-rag (the
 # variant rag_learnable_gate of RAG_EVAL_r03.json), evaluated and checked
 # with the retrieval path, and writes the trained gate to OUT/rag_gate.json.
 # With PARENT set to a directory holding another tree of this repository (an
@@ -34,6 +40,38 @@ PROTOCOL=${PROTOCOL:-default}
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
 stamp() { echo "$(date +%s) $*" | tee -a "$OUT/times.txt"; }
+
+# The measurement and accuracy entry points on the trained checkpoint (the
+# counterparts of the JAX package's accuracy_sweep.py, summarize_run.py,
+# bench.py, benchmark.py and serve_bench.py), each into OUT.
+measure_on_checkpoint() {
+  local run=$1 ckpt=$2 mode
+  python -m hvs_tpu_torch.accuracy_sweep --checkpoint "$ckpt" --data-root "$DATA" \
+    --output "$OUT/accuracy_sweep.json" > "$OUT/accuracy_sweep.log" 2>&1 \
+    || { stamp sweep_failed; tail -30 "$OUT/accuracy_sweep.log"; return 1; }
+  stamp swept
+  python -m hvs_tpu_torch.summarize_run --steps "$run/steps.jsonl" --chunks "$run/chunks.jsonl" \
+    --report "$run/stability_report.json" --output "$OUT/stability.json" > /dev/null \
+    || { stamp summarize_failed; return 1; }
+  HVS_BENCH_CHECKPOINT="$ckpt" python -m hvs_tpu_torch.bench > "$OUT/bench.json" \
+    2> "$OUT/bench.log" || { stamp bench_failed; tail -30 "$OUT/bench.log"; return 1; }
+  cat "$OUT/bench.json"
+  stamp benched
+  python -m hvs_tpu_torch.benchmark --checkpoint "$ckpt" --image-size 640 \
+    --batches 1 2 4 8 16 --output "$OUT/benchmark" > "$OUT/benchmark.log" 2>&1 \
+    || { stamp benchmark_failed; tail -30 "$OUT/benchmark.log"; return 1; }
+  tail -n 1 "$OUT/benchmark.log"
+  stamp benchmarked
+  for mode in closed rated overload; do
+    local extra=()
+    [ "$mode" = rated ] && extra=(--rate "$(python -c "import json; print(json.load(open('$OUT/serve_closed.json'))['sustained_fps_host_inclusive'] / 2)")")
+    [ "$mode" = overload ] && extra=(--rate "$(python -c "import json; print(json.load(open('$OUT/serve_closed.json'))['sustained_fps_host_inclusive'] * 3)")" --policy shed_oldest)
+    python -m hvs_tpu_torch.serve_bench --checkpoint "$ckpt" --jpeg-dir "$DATA/val" \
+      --mode "$mode" "${extra[@]}" --output "$OUT/serve_$mode.json" > "$OUT/serve_$mode.log" 2>&1 \
+      || { stamp "serve_${mode}_failed"; tail -30 "$OUT/serve_$mode.log"; return 1; }
+    stamp "served_$mode"
+  done
+}
 
 stamp start
 if [ ! -f "$DATA/annotations/instances_val.json" ]; then
@@ -71,6 +109,9 @@ PY
     > "$OUT/eval.log" 2>&1 || { stamp eval_failed; tail -50 "$OUT/eval.log"; exit 1; }
   stamp evaluated
   tail -n 3 "$OUT/eval.log"
+  if [ "$PROTOCOL" = r3_rag_off ]; then
+    measure_on_checkpoint "$RUN" "$CKPT" || exit 1
+  fi
   python scripts/torch_trained_checks.py --checkpoint "$CKPT" --data-root "$DATA" \
     --num-classes 8 --image-size 416 $RAG --output "$OUT/checks.json" \
     --dump "$OUT/sites.pt" > "$OUT/checks.log" 2>&1

@@ -1252,3 +1252,83 @@ def test_two_processes_share_the_card_in_a_tensor_parallel_step(tmp_path):
                and s["steps"] == 2 and np.isfinite(s["train_loss"]).all() for s in summaries)
     best = torch.load(tmp_path / "ckpt" / "best.pt", map_location="cpu")
     assert all(torch.isfinite(v).all() for v in best["params"].values())
+
+
+def _conditioned_flagship_checkpoint(path):
+    """The flagship's seeded weights with the prediction convs conditioned
+    (kernels x4, objectness and class biases 1), saved as a port checkpoint."""
+    from hvs_tpu_torch.models import ProductionHybridVision
+
+    model = ProductionHybridVision(seed=0, device="cpu")
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    for name, value in params.items():
+        if ".predict." in name and name.endswith("kernel"):
+            value.mul_(4.0)
+        elif ".predict." in name:
+            value.view(3, -1)[:, 4:] = 1.0
+    torch.save({"params": params}, path)
+    return path
+
+
+@pytest.mark.gpu
+def test_bench_replay_equals_its_eager_call(tmp_path):
+    """``python -m hvs_tpu_torch.bench``'s serve program on conditioned
+    flagship weights at 640² batch 2: the captured graph's replay equals an
+    eager call exactly, on detections; kernel A at 18 launches per forward."""
+    from hvs_tpu_torch import bench
+
+    _need_card()
+    det = bench.build_detector(0, _conditioned_flagship_checkpoint(str(tmp_path / "w.pt")),
+                               "cuda")
+    serve = bench.serve_fn(det)
+    images = torch.rand((2, bench.IMAGE, bench.IMAGE, 3),
+                        generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    a0 = mhc_mod.launches
+    serve(images)
+    torch.cuda.synchronize()
+    assert mhc_mod.launches - a0 == 18
+    graph = bench.CapturedServe(serve, images)
+    assert graph.graph is not None and graph.replay_equals_eager()
+    assert int((graph.eager_out[1] >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_serve_bench_overload_sheds_on_the_card(tmp_path):
+    """``python -m hvs_tpu_torch.serve_bench --mode overload`` on the card
+    (the flagship at bucket 1, slower than the one thread that decodes and
+    submits the JPEGs; a queue of 4): requests are shed, and every request
+    accepted completes without an error."""
+    from hvs_tpu_torch import serve_bench
+
+    _need_card()
+    report = serve_bench.main(["--seconds", "2", "--bucket", "1", "--mode", "overload",
+                               "--rate", "5000", "--policy", "shed_oldest", "--queue-depth", "4",
+                               "--output", str(tmp_path / "overload.json")])
+    assert report["frames"] > 0 and report["shed_or_rejected"] > 0
+    assert report["frames"] + report["shed_or_rejected"] == report["submitted"]
+
+
+@pytest.mark.gpu
+def test_accuracy_sweep_equals_evaluate_on_the_card(tmp_path):
+    """``python -m hvs_tpu_torch.accuracy_sweep`` at one resolution against
+    ``python -m hvs_tpu_torch.evaluate`` on the same conditioned flagship
+    weights and 8 generated 320² images: the same accuracy numbers."""
+    import json
+
+    from hvs_tpu_torch import accuracy_sweep, evaluate, make_shapes_dataset
+
+    _need_card()
+    root = str(tmp_path / "shapes")
+    make_shapes_dataset.main(["--root", root, "--train", "1", "--val", "8", "--size", "320",
+                              "--num-classes", "80"])
+    ckpt = _conditioned_flagship_checkpoint(str(tmp_path / "w.pt"))
+    sweep = accuracy_sweep.main(["--checkpoint", ckpt, "--data-root", root, "--resolutions",
+                                 "320", "--output", str(tmp_path / "sweep.json")])
+    report = evaluate.main(["--data-root", root, "--split", "val", "--checkpoint", ckpt,
+                            "--image-size", "320", "--output", str(tmp_path / "eval.json")])
+    got = sweep["resolution_sweep"]["320"]
+    assert {k: got[k] for k in report["accuracy"]} == {
+        k: round(v, 4) for k, v in report["accuracy"].items()}
+    assert got["fps_per_chip_batch16"] > 0
+    with open(tmp_path / "sweep.json") as f:
+        assert json.load(f) == sweep
