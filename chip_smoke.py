@@ -177,7 +177,16 @@ Phases, each of which fails the run with a non-zero exit:
      files, memory by batch), ``accuracy_sweep`` of phase ``data``'s
      checkpoint (its 640² entry equal to that phase's ``evaluate``),
      ``summarize_run`` of that run (equal to ``torch_run_summary.py``), and
-     ``serve_bench`` closed, rated (nothing shed) and overload (some shed).
+     ``serve_bench`` closed, rated (nothing shed) and overload (some shed);
+ 18. roofline (after ``bench``; ``phase_roofline``): the operation count
+     (``ModelProfiler.cost_analysis``) of a 320² b2 serve forward, a 416² b2
+     validation forward and a 416² b2 train step equal on the card and on
+     the CPU, kernel C counted at 10·N·d² at its 18 sites; the roofline
+     tools in this process at cut sizes (``roofline`` at buckets 8 and 16
+     with ``mfu`` and ``hbm_utilization`` in (0, 1.05], ``bytes_attribution``
+     with its stages summing to the serve call, ``train_roofline`` at 416²
+     b16, both ceilings, ``cls_loss_ab`` at 2 x 10 steps), and the
+     detection path without mHC (``use_mhc=False``): no A and no B.
 Phase 2's Sinkhorn part also runs the public projections that launch B
 (``project_to_doubly_stochastic``, ``birkhoff_project``,
 ``sinkhorn_with_diagnostics``) and the Stiefel and SPD functions on the card
@@ -456,13 +465,23 @@ def set_flags(values: dict) -> None:
         setattr(*_flag_owner(path), value)
 
 
+def timed(phase, *args):
+    """``phase(*args)``, with its wall seconds printed after it (the script
+    has a time limit; this says where it goes)."""
+    t0 = time.perf_counter()
+    result = phase(*args)
+    print(json.dumps({"phase_seconds": phase.__name__, "seconds": time.perf_counter() - t0}),
+          flush=True)
+    return result
+
+
 def entry_point_phase(phase, defaults: dict, *args):
     """Run one phase that goes through the package's entry points, starting
     from torch's own flags (``defaults``, read before any phase ran), and
     fail unless those entry points pinned the flags themselves: this script
     never pins them."""
     set_flags(defaults)
-    result = phase(*args)
+    result = timed(phase, *args)
     flags = read_flags()
     if any(flags.values()):
         fail(f"{phase.__name__}: the entry points left the matmul precision flags {flags}")
@@ -5027,6 +5046,256 @@ def phase_bench(card: str, data_dir: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The operation count and the roofline tools
+
+ROOFLINE_BUCKETS = "8,16"
+ROOFLINE_ITERS = 10  # timed replays per program of the tools
+ROOFLINE_TRAIN_ARGS = ["--resolutions", "416", "--iters", "5", "--chunk-warmup", "10",
+                       "--chunked-steps", "20"]
+ROOFLINE_AB_STEPS = 10
+ROOFLINE_IMAGES = 64  # 80-class 640² train images, made in the phase
+ROOFLINE_UTIL_MAX = 1.05  # mfu and hbm_utilization must lie in (0, this]
+COUNT_KEYS = ("flops", "transcendentals", "bytes accessed")
+
+
+def count_pair(build, run) -> dict:
+    """``run(*build(device))``'s ``cost_analysis`` on the card and on the
+    CPU, each after one warm call (device constants and anchor grids are
+    copied to the card on a first call only). ``build`` returns the
+    arguments with its inputs already on the device: a copy to the card
+    would count, the same ``.to`` on the CPU would not."""
+    from hvs_tpu_torch.utils.profiler import ModelProfiler
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = build(torch.device(dev))
+        run(*args)
+        t0 = time.perf_counter()
+        out[dev] = ModelProfiler(lambda: run(*args)).cost_analysis()
+        out[f"{dev}_s"] = time.perf_counter() - t0
+        del args
+    return out
+
+
+def phase_roofline(card: str) -> dict:
+    """The repaired operation count and the tools built on it
+    (``python -m hvs_tpu_torch.<tool>``, each called in this process):
+      1. counts: a 320² b2 serve forward of the flagship, a 416² b2
+         validation forward and a 416² b2 train step of the training model,
+         each on the card and on the CPU: flops, transcendentals and bytes
+         equal; kernel C's operator counted at its 18 sites of the
+         validation forward at 10·N·d² each (``FlopCounterMode``'s count of
+         ``hvs::mhc_block_unfolded``);
+      2. ``roofline`` at buckets 8 and 16, ``bytes_attribution`` at b16:
+         every ``mfu`` and ``hbm_utilization`` in (0, ``ROOFLINE_UTIL_MAX``],
+         the stages' flops and bytes summing to the serve call's;
+      3. ``train_roofline`` at 416² b16 (5 replays per program, 10 + 20
+         chunked steps) on 64 generated 80-class 640² images;
+      4. ``gn_fusion_ceiling`` and ``head_fusion_ceiling`` at 10 replays;
+      5. ``cls_loss_ab`` at 2 x 10 steps;
+      6. the flagship's detection path without mHC (``use_mhc=False`` on the
+         backbone, the FPN and the head at their full widths; the ViT blocks
+         and the global-feature head, which carry mHC in every JAX
+         configuration, left out): no kernel B at its load, no kernel A in
+         its 640² b16 forward, finite outputs.
+    Returns the kernels' launches over the phase (each tool's own count of
+    eager calls, captures and replays; the counts' calls)."""
+    import shutil
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hvs_tpu_torch import (bytes_attribution, cls_loss_ab, gn_fusion_ceiling,
+                               head_fusion_ceiling, make_shapes_dataset, roofline,
+                               train_roofline)
+    from hvs_tpu_torch.inference import Detector
+    from hvs_tpu_torch.models import HybridVisionSystem, ProductionHybridVision
+    from hvs_tpu_torch.models.backbone import HybridVisionBackbone
+    from hvs_tpu_torch.models.constraints import compute_constraints, load_constraints, \
+        param_tree
+    from hvs_tpu_torch.models.fpn import OUT_CHANNELS, FeaturePyramidNetwork
+    from hvs_tpu_torch.models.layers import init_weights
+    from hvs_tpu_torch.models.yolo_head import YOLODetectionHead
+    from hvs_tpu_torch.train import make_synthetic_loader
+    from hvs_tpu_torch.training import ManifoldConstrainedTrainer, TrainerConfig, train_step
+    from hvs_tpu_torch.training.trainer import batch_to, eval_step
+
+    t_phase = time.perf_counter()
+    launches = {"mhc_block": 0, "sinkhorn_forward": 0, "sinkhorn_backward": 0,
+                "mhc_block_unfolded": 0}
+
+    def add(counts: dict) -> None:
+        for k in launches:
+            launches[k] += counts[k]
+
+    # 1. The count on the card against the CPU.
+    zero_counts()
+    r = np.random.default_rng(4)
+    image = torch.from_numpy(r.uniform(size=(2, 320, 320, 3)).astype(np.float32))
+
+    @torch.inference_mode()
+    def serve_forward(det, images):
+        return det.model(images)
+
+    forward = count_pair(
+        lambda dev: (Detector(ProductionHybridVision(seed=1, device=dev), device=dev),
+                     image.to(dev)), serve_forward)
+    host = next(make_synthetic_loader(2, TRAIN_IMAGE, 1, TRAIN_CLASSES, TRAIN_BOXES, seed=5)())
+    config = TrainerConfig(num_classes=TRAIN_CLASSES)
+
+    def trainer_on(dev):
+        model = HybridVisionSystem(num_classes=TRAIN_CLASSES, monitor=True, seed=1, device=dev)
+        trainer = ManifoldConstrainedTrainer(model, config, device=dev)
+        trainer.init_state()
+        return trainer, batch_to(host, dev)
+
+    def val(t, batch):
+        return eval_step(t.model, config, batch)
+
+    def step(t, batch):
+        return train_step(t.model, t.tx, config, t.state, batch)
+
+    validation = count_pair(trainer_on, val)
+    train = count_pair(trainer_on, step)
+    equal = {name: all(c["cuda"][k] == c["cpu"][k] for k in COUNT_KEYS)
+             for name, c in (("forward", forward), ("validation", validation),
+                             ("train_step", train))}
+    t = trainer_on(torch.device("cuda"))
+    val(*t)
+    before = mhc_mod.launches_unfolded
+    counter = FlopCounterMode(display=False)
+    with counter:
+        val(*t)
+    c_sites = mhc_mod.launches_unfolded - before
+    c_flops = counter.get_flop_counts()["Global"][torch.ops.hvs.mhc_block_unfolded]
+    c_want = sum(10 * n * d * d for n, d in mhc_sites(2, TRAIN_IMAGE))
+    del t
+    add(kernel_counts())
+    row = {"phase": "roofline_count", "equal": equal,
+           **{f"{name}_{dev}": {k: c[dev][k] for k in COUNT_KEYS}
+              for name, c in (("forward", forward), ("validation", validation),
+                              ("train_step", train)) for dev in ("cuda", "cpu")},
+           "count_s": {name: {dev: c[f"{dev}_s"] for dev in ("cuda", "cpu")}
+                       for name, c in (("forward", forward), ("validation", validation),
+                                       ("train_step", train))},
+           "c_sites": c_sites, "c_flops": c_flops, "c_flops_formula": c_want, "card": card}
+    print(json.dumps(row), flush=True)
+    if not all(equal.values()) or c_sites != KERNEL_SITES or c_flops != c_want \
+            or train["cuda"]["transcendentals"] <= 0:
+        fail(f"roofline: the card's count differs from the CPU's, or C is not counted at "
+             f"10·N·d² at its {KERNEL_SITES} sites: {row}")
+
+    workdir = tempfile.mkdtemp(prefix="hvs_roofline_smoke_")
+    walls = {}
+    try:
+        # 2. roofline and bytes_attribution.
+        iters = ["--iters", str(ROOFLINE_ITERS)]
+        t0 = time.perf_counter()
+        rl, counts = roofline.main(["--buckets", ROOFLINE_BUCKETS, *iters,
+                                    "--output", f"{workdir}/roofline.json"])
+        walls["roofline"] = time.perf_counter() - t0
+        add(counts)
+        t0 = time.perf_counter()
+        ba, counts = bytes_attribution.main([*iters, "--output", f"{workdir}/bytes.json"])
+        walls["bytes_attribution"] = time.perf_counter() - t0
+        add(counts)
+        utils = [v for r_ in rl["buckets"].values() for v in (r_["mfu"], r_["hbm_utilization"])]
+        row = {"phase": "roofline_serve", "buckets": rl["buckets"], "stages": ba["stages"],
+               "serve": ba["serve"], "stage_sums_equal_serve": ba["stage_sums_equal_serve"],
+               "peaks": rl["peaks"], "card": card}
+        print(json.dumps(row), flush=True)
+        if not all(0 < u <= ROOFLINE_UTIL_MAX for u in utils) \
+                or not ba["stage_sums_equal_serve"]:
+            fail(f"roofline: a utilization outside (0, {ROOFLINE_UTIL_MAX}] or stage sums "
+                 f"unequal to the serve call: {row}")
+
+        # 3. train_roofline on a generated 80-class set.
+        root = f"{workdir}/shapes80"
+        make_shapes_dataset.main(["--root", root, "--num-classes", "80", "--size", str(IMAGE),
+                                  "--train", str(ROOFLINE_IMAGES), "--val", "1"])
+        t0 = time.perf_counter()
+        tr, counts = train_roofline.main(["--data-root", root, *ROOFLINE_TRAIN_ARGS,
+                                          "--output", f"{workdir}/train.json"])
+        walls["train_roofline"] = time.perf_counter() - t0
+        add(counts)
+        res = tr["resolutions"]["416"]
+        utils = [res[k][u] for k in ("forward_loss", "forward_backward", "full_step")
+                 for u in ("mfu", "hbm_utilization")]
+        b_step = res["full_step"]["kernel_launches"]
+        row = {"phase": "roofline_train", "resolution": res,
+               "chunked_steps_per_sec": tr["chunked_steps_per_sec"], "card": card}
+        print(json.dumps(row), flush=True)
+        if not all(0 < u <= ROOFLINE_UTIL_MAX for u in utils) \
+                or b_step["sinkhorn_forward"] != 15 or b_step["sinkhorn_backward"] != 10 \
+                or res["full_step"]["transcendentals"] <= 0:
+            fail(f"roofline: train_roofline {row}")
+
+        # 4. The ceilings.
+        t0 = time.perf_counter()
+        gn, counts = gn_fusion_ceiling.main([*iters, "--output", f"{workdir}/gn.json"])
+        walls["gn_fusion_ceiling"] = time.perf_counter() - t0
+        add(counts)
+        t0 = time.perf_counter()
+        head, counts = head_fusion_ceiling.main([*iters, "--output", f"{workdir}/head.json"])
+        walls["head_fusion_ceiling"] = time.perf_counter() - t0
+        add(counts)
+        row = {"phase": "roofline_ceilings", "gn": gn, "head": head, "card": card}
+        print(json.dumps(row), flush=True)
+        if not (gn["no_gn_se"]["bytes_accessed"] < gn["full"]["bytes_accessed"]
+                and head["head_gn_identity"]["bytes_accessed"]
+                < head["full"]["bytes_accessed"]):
+            fail(f"roofline: an ablation did not remove bytes: {row}")
+
+        # 5. cls_loss_ab.
+        t0 = time.perf_counter()
+        ab, counts = cls_loss_ab.main(["--data-root", root, "--steps", str(ROOFLINE_AB_STEPS),
+                                       "--probe-every", "5", "--output", f"{workdir}/ab.json"])
+        walls["cls_loss_ab"] = time.perf_counter() - t0
+        add(counts)
+        probes = [p for rows in ab["arms"].values() for p in rows]
+        row = {"phase": "roofline_cls_loss_ab", "arms": ab["arms"], "winner": ab["winner"],
+               "card": card}
+        print(json.dumps(row), flush=True)
+        if len(probes) != 2 * 3 or not all(np.isfinite([p["loss"], p["acc"], p["obj_p"]]).all()
+                                           and p["npos"] > 0 for p in probes):
+            fail(f"roofline: cls_loss_ab {row}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 6. The detection path without mHC.
+    dev = torch.device("cuda")
+    mhc = dict(sk_iters=SK_ITERS, precomputed_constraints=True, use_mhc=False)
+    parts = [HybridVisionBackbone(**mhc), FeaturePyramidNetwork(**mhc),
+             YOLODetectionHead(OUT_CHANNELS, 80, **mhc)]
+    zero_counts()
+    for m in parts:
+        init_weights(m, 1)
+        m.to(dev).eval()
+        load_constraints(m, compute_constraints(param_tree(m), SK_ITERS))
+    torch.cuda.synchronize()
+    at_load = kernel_counts()
+    images = torch.rand((SERVE_BATCH, IMAGE, IMAGE, 3), device=dev)
+    with torch.inference_mode():
+        out = parts[2](parts[1](parts[0](images)))
+    torch.cuda.synchronize()
+    after = kernel_counts()
+    add(after)
+    finite = all(bool(torch.isfinite(out[k].float()).all()) for k in ("boxes", "scores"))
+    row = {"phase": "roofline_no_mhc", "params": sum(p.numel() for m in parts
+                                                     for p in m.parameters()),
+           "mhc_params": sum(p.numel() for m in parts for n, p in m.named_parameters()
+                             if "mhc" in n),
+           "at_load": at_load, "after_forward": after, "finite": finite, "card": card}
+    print(json.dumps(row), flush=True)
+    if any(after.values()) or row["mhc_params"] or not finite:
+        fail(f"roofline: the detection path without mHC launched a kernel or holds mHC "
+             f"parameters: {row}")
+    print(json.dumps({"phase": "roofline", "seconds": time.perf_counter() - t_phase,
+                      "wall_s": walls, "launches": launches, "card": card}), flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
@@ -5047,9 +5316,9 @@ def main() -> None:
     # torch's own flags and must find them pinned by the package.
     defaults = read_flags()
     print(json.dumps({"phase": "flags", "torch_defaults": defaults}), flush=True)
-    per_shape = phase_kernels(card)
-    sink_rows, sink_mix = phase_sinkhorn(card, sm_clock_hz)
-    unfolded_rows = phase_unfolded(card)
+    per_shape = timed(phase_kernels, card)
+    sink_rows, sink_mix = timed(phase_sinkhorn, card, sm_clock_hz)
+    unfolded_rows = timed(phase_unfolded, card)
     serve_launches = entry_point_phase(phase_serve, defaults, card)
     entry_point_phase(phase_parity, defaults, card)
     entry_point_phase(phase_engine, defaults, card)
@@ -5073,13 +5342,14 @@ def main() -> None:
         # Its entry points run in processes of their own, each starting from
         # torch's own flags: this process's flags say nothing of them.
         set_flags(defaults)
-        bench = phase_bench(card, data_dir)
+        bench = timed(phase_bench, card, data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+    roofline = entry_point_phase(phase_roofline, defaults, card)
     int8 = entry_point_phase(phase_int8, defaults, card)
     rag = entry_point_phase(phase_rag, defaults, card)
     set_flags(defaults)
-    manifold_attention = phase_manifold_attention(card)
+    manifold_attention = timed(phase_manifold_attention, card)
 
     kernels = [
         kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"],
@@ -5101,6 +5371,7 @@ def main() -> None:
         k["launches_manifold_attention"] = manifold_attention[k["name"]]
         k["launches_bundle"] = bundle[k["name"]]
         k["launches_bench"] = bench[k["name"]]
+        k["launches_roofline"] = roofline[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

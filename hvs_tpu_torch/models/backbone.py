@@ -41,17 +41,26 @@ class ConvMHCBlock(QuantSites, nn.Module):
     chain. A float block records its three sites while calibrating, and
     then takes the standard tail.
 
-    ``mhc`` are keyword options of the mHC layer (``sk_iters``, ``monitor``,
-    ``precomputed_constraints``); its dropout rate is ``dropout_rate``.
+    ``bottleneck_ratio``, ``use_mhc`` and ``use_se`` as JAX's: the bottleneck
+    width is ``max(16, int(channels * bottleneck_ratio))``; without the mHC
+    layer (``use_mhc=False``; the block then holds no ``mhc`` parameters)
+    the bottleneck map goes straight to ``expand``; without SE the tail has
+    no gate (g = 1 in the fold). A GroupNorm replaced by ``nn.Identity``
+    after construction (an ablation) folds as s = 1, t = 0 and computes no
+    statistics. ``mhc`` are keyword options of the mHC layer (``sk_iters``,
+    ``monitor``, ``precomputed_constraints``); its dropout rate is
+    ``dropout_rate``.
     """
 
     SITES = ("x_scale", "y1_scale", "y2_scale")
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
                  dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0,
-                 act_quant: bool = False, act_quant_mhc: bool = False, **mhc):
+                 act_quant: bool = False, act_quant_mhc: bool = False,
+                 bottleneck_ratio: float = 0.5, use_mhc: bool = True, use_se: bool = True,
+                 **mhc):
         super().__init__()
-        mid = max(16, channels // 2)  # bottleneck width
+        mid = max(16, int(channels * bottleneck_ratio))  # bottleneck width
         self.dtype = dtype
         self.act_quant = act_quant
         self.precomputed_constraints = mhc.get("precomputed_constraints", False)
@@ -60,17 +69,24 @@ class ConvMHCBlock(QuantSites, nn.Module):
         self.GroupNorm_0 = group_norm(mid, dtype)
         self.spatial = conv(mid, mid, (3, 3), (stride, stride), dtype=dtype)
         self.GroupNorm_1 = group_norm(mid, dtype)
-        self.mhc = ManifoldHyperConnection(mid, 1, 1, dtype=dtype, dropout_rate=dropout_rate,
-                                           act_quant=act_quant_mhc, quant_sites=True, **mhc)
+        self.mhc = (ManifoldHyperConnection(mid, 1, 1, dtype=dtype, dropout_rate=dropout_rate,
+                                            act_quant=act_quant_mhc, quant_sites=True, **mhc)
+                    if use_mhc else None)
         self.expand = conv(mid, channels, (1, 1), dtype=dtype)
         self.GroupNorm_2 = group_norm(channels, dtype)
-        self.se = SqueezeExcite(channels, dtype=dtype)
+        self.se = SqueezeExcite(channels, dtype=dtype) if use_se else None
         if stride != 1 or in_channels != channels:
             self.shortcut = conv(in_channels, channels, (1, 1), (stride, stride), dtype=dtype)
             self.GroupNorm_3 = group_norm(channels, dtype)
         else:
             self.shortcut = None
         self._init_quant(self.SITES, self.SITES if act_quant else ())
+
+    def _mhc(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.mhc is None else self.mhc(y)
+
+    def _se(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.se is None else self.se(y)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -80,26 +96,37 @@ class ConvMHCBlock(QuantSites, nn.Module):
         y = F.silu(self.GroupNorm_0(self.reduce(x)))
         self.record("y1_scale", y)
         y = F.silu(self.GroupNorm_1(self.spatial(y)))
-        y = self.mhc(y)
+        y = self._mhc(y)
         self.record("y2_scale", y)
         y = self.expand(y)
         if not (self.precomputed_constraints and not self.training) or self.calibrating:
             shortcut = x if self.shortcut is None else self.GroupNorm_3(self.shortcut(x))
-            return F.silu(self.se(self.GroupNorm_2(y)) + shortcut)
+            return F.silu(self._se(self.GroupNorm_2(y)) + shortcut)
 
         y32 = y.float()
-        ch_mean = y32.mean(dim=(1, 2))
-        s, t = self.GroupNorm_2.affine_from_channel_stats(ch_mean, y32.square().mean(dim=(1, 2)))
-        pooled = ch_mean * s + t  # spatial mean of the normalized map
-        g = self.se(pooled=pooled.to(self.dtype), return_gates=True).float()
-        s, t = (s * g)[:, None, None, :], (t * g)[:, None, None, :]
-        if self.shortcut is not None:
+        s = t = ch_mean = None
+        if not isinstance(self.GroupNorm_2, nn.Identity):
+            ch_mean = y32.mean(dim=(1, 2))
+            s, t = self.GroupNorm_2.affine_from_channel_stats(
+                ch_mean, y32.square().mean(dim=(1, 2)))
+        if self.se is not None:
+            if ch_mean is None:
+                ch_mean = y32.mean(dim=(1, 2))
+            pooled = ch_mean if s is None else ch_mean * s + t  # mean of the normalized map
+            g = self.se(pooled=pooled.to(self.dtype), return_gates=True).float()
+            s, t = (g, None) if s is None else (s * g, t * g)
+        out = y32 if s is None else y32 * s[:, None, None, :]
+        if t is not None:
+            out = out + t[:, None, None, :]
+        if self.shortcut is None:
+            out = out + x.float()
+        elif isinstance(self.GroupNorm_3, nn.Identity):
+            out = out + self.shortcut(x).float()
+        else:
             sc32 = self.shortcut(x).float()
             s2, t2 = self.GroupNorm_3.affine_from_channel_stats(
                 sc32.mean(dim=(1, 2)), sc32.square().mean(dim=(1, 2)))
-            out = y32 * s + t + sc32 * s2[:, None, None, :] + t2[:, None, None, :]
-        else:
-            out = y32 * s + t + x.float()
+            out = out + sc32 * s2[:, None, None, :] + t2[:, None, None, :]
         return F.silu(out).to(self.dtype)
 
     def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
@@ -107,13 +134,13 @@ class ConvMHCBlock(QuantSites, nn.Module):
         x_q = quantize_tensor(x, x_s)
         y = F.silu(self.GroupNorm_0(self.reduce(x_q, x_s)))
         y = F.silu(self.GroupNorm_1(self.spatial(quantize_tensor(y, y1_s), y1_s)))
-        y = self.mhc(y)
+        y = self._mhc(y)
         y = self.expand(quantize_tensor(y, y2_s), y2_s)
         if self.shortcut is not None:
             shortcut = self.GroupNorm_3(self.shortcut(x_q, x_s))
         else:
             shortcut = dequantize_tensor(x_q, x_s, self.dtype)
-        return F.silu(self.se(self.GroupNorm_2(y)) + shortcut)
+        return F.silu(self._se(self.GroupNorm_2(y)) + shortcut)
 
 
 class HybridVisionBackbone(QuantSites, nn.Module):
@@ -123,7 +150,7 @@ class HybridVisionBackbone(QuantSites, nn.Module):
     "scale_large": stride 32}, with stage_channels[1:] channels. With
     ``act_quant`` ``stem2`` takes its input in int8 (site ``stem2_scale``;
     ``stem1``'s 3 input channels stay float) and so do the blocks;
-    ``act_quant_mhc`` goes to the blocks.
+    ``act_quant_mhc``, ``use_mhc`` and ``use_se`` go to the blocks.
     """
 
     SCALE_NAMES = {1: "scale_small", 2: "scale_medium", 3: "scale_large"}
@@ -131,7 +158,8 @@ class HybridVisionBackbone(QuantSites, nn.Module):
     def __init__(self, base_channels: int = 32, stage_blocks: Sequence[int] = (2, 3, 4, 2),
                  stage_channels: Sequence[int] = (64, 128, 256, 512),
                  dtype: torch.dtype = torch.bfloat16, act_quant: bool = False,
-                 act_quant_mhc: bool = False, **mhc):
+                 act_quant_mhc: bool = False, use_mhc: bool = True, use_se: bool = True,
+                 **mhc):
         super().__init__()
         self.dtype = dtype
         self.act_quant = act_quant
@@ -150,7 +178,8 @@ class HybridVisionBackbone(QuantSites, nn.Module):
                 name = f"stage{stage_idx + 1}_block{block_idx}"
                 self.add_module(name, ConvMHCBlock(in_ch, ch, stride, dtype=dtype,
                                                    act_quant=act_quant,
-                                                   act_quant_mhc=act_quant_mhc, **mhc))
+                                                   act_quant_mhc=act_quant_mhc,
+                                                   use_mhc=use_mhc, use_se=use_se, **mhc))
                 names.append(name)
                 in_ch = ch
             self.stages.append(names)

@@ -39,8 +39,9 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 class FeaturePyramidNetwork(QuantSites, nn.Module):
     """1x1 laterals to ``fpn_channels``, top-down nearest upsample + add, a 3x3
-    refine, GroupNorm + SiLU, a channel mHC per level, and 1x1 projections to
-    ``OUT_CHANNELS``. Input: the backbone's three scales. ``mhc`` are keyword
+    refine, GroupNorm + SiLU, a channel mHC per level (none with
+    ``use_mhc=False``: no ``mhc{i}`` parameters), and 1x1 projections to
+    ``out_channels``. Input: the backbone's three scales. ``mhc`` are keyword
     options of the mHC layers (their dropout rate is ``dropout_rate``, 0 as in
     JAX).
 
@@ -51,18 +52,21 @@ class FeaturePyramidNetwork(QuantSites, nn.Module):
 
     def __init__(self, in_channels: Sequence[int] = (128, 256, 512), fpn_channels: int = 256,
                  dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0,
-                 act_quant: bool = False, **mhc):
+                 act_quant: bool = False, out_channels: Sequence[int] = OUT_CHANNELS,
+                 use_mhc: bool = True, **mhc):
         super().__init__()
         self.dtype = dtype
         self.act_quant = act_quant
+        self.use_mhc = use_mhc
         conv = QuantConv if act_quant else partial(Conv, use_bias=False)
         for i, c in enumerate(in_channels):
             self.add_module(f"lateral{i}", conv(c, fpn_channels, (1, 1), dtype=dtype))
-        for i, out_ch in enumerate(OUT_CHANNELS):
+        for i, out_ch in enumerate(out_channels):
             self.add_module(f"refine{i}", conv(fpn_channels, fpn_channels, (3, 3), dtype=dtype))
             self.add_module(f"GroupNorm_{i}", group_norm(fpn_channels, dtype))
-            self.add_module(f"mhc{i}", ManifoldHyperConnection(
-                fpn_channels, 1, 1, dtype=dtype, dropout_rate=dropout_rate, **mhc))
+            if use_mhc:
+                self.add_module(f"mhc{i}", ManifoldHyperConnection(
+                    fpn_channels, 1, 1, dtype=dtype, dropout_rate=dropout_rate, **mhc))
             self.add_module(f"out{i}", conv(fpn_channels, out_ch, (1, 1), dtype=dtype))
         sites = tuple(f"{kind}{i}_scale" for kind in ("lat", "td", "y") for i in range(3))
         self._init_quant(sites, sites if act_quant else ())
@@ -83,7 +87,9 @@ class FeaturePyramidNetwork(QuantSites, nn.Module):
         outputs = {}
         for i, (name, td) in enumerate(zip(OUT_NAMES, (td0, td1, td2))):
             y = self._conv(f"refine{i}", td, f"td{i}_scale")
-            y = getattr(self, f"mhc{i}")(F.silu(getattr(self, f"GroupNorm_{i}")(y)))
+            y = F.silu(getattr(self, f"GroupNorm_{i}")(y))
+            if self.use_mhc:
+                y = getattr(self, f"mhc{i}")(y)
             outputs[name] = self._conv(f"out{i}", y, f"y{i}_scale")
         return outputs
 

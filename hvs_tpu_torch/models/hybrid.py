@@ -244,6 +244,12 @@ class HybridVisionSystem(nn.Module):
                              f"or 'multi_task')")
         return head
 
+    def global_features(self, fused: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global features of the fused maps: their spatial means (fp32),
+        concatenated, projected (``feature_proj``) and through ``mhc_features``."""
+        pooled = torch.cat([fused[k].float().mean(dim=(1, 2)) for k in OUT_NAMES], dim=-1)
+        return self.mhc_features(self.feature_proj(pooled.to(self.dtype)))
+
     def _forward(self, images: torch.Tensor, task: str) -> Dict[str, Any]:
         for _, m in self._monitored:
             m.metrics = {}
@@ -264,8 +270,7 @@ class HybridVisionSystem(nn.Module):
             out["segmentation"] = self._head("segmentation_head")(fused)
         if task in ("depth", "multi_task") and self.use_depth:
             out["depth"] = self._head("depth_head")(fused["fused_small"])
-        pooled = torch.cat([fused[k].float().mean(dim=(1, 2)) for k in OUT_NAMES], dim=-1)
-        out["features"] = self.mhc_features(self.feature_proj(pooled.to(self.dtype)))
+        out["features"] = self.global_features(fused)
         if task in ("classification", "multi_task"):
             out["classification"] = self._head("classifier")(out["features"])
         out["fused_features"] = fused

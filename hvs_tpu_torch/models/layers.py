@@ -336,12 +336,12 @@ class GroupNorm(nn.Module):
     fp32 statistics E[x²] - E[x]², fp32 normalize, cast to ``dtype``.
     """
 
-    epsilon = 1e-5
-
-    def __init__(self, features: int, num_groups: int, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, features: int, num_groups: int, dtype: torch.dtype = torch.bfloat16,
+                 epsilon: float = 1e-5):
         super().__init__()
         self.dtype = dtype
         self.num_groups = num_groups
+        self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -396,6 +396,15 @@ def group_norm(channels: int, dtype: torch.dtype) -> GroupNorm:
     while channels % groups != 0:
         groups //= 2
     return GroupNorm(channels, groups, dtype=dtype)
+
+
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """``F.one_hot(labels, num_classes)`` (int64) without its range check,
+    which on the CPU alone reads the labels' min and max back to the host:
+    here the same operators run on either device (zeros, then a scatter of
+    ones), so an operation count agrees and nothing waits on the host."""
+    out = torch.zeros(labels.shape + (num_classes,), dtype=torch.long, device=labels.device)
+    return out.scatter_(-1, labels.unsqueeze(-1), 1)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -508,10 +517,10 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
                  dtype: torch.dtype = torch.bfloat16, *, sk_iters: int = 20, tau: float = 1.0,
                  dropout_rate: float = 0.1, monitor: bool = False,
                  precomputed_constraints: bool = False, act_quant: bool = False,
-                 quant_sites: bool = False):
+                 quant_sites: bool = False, hidden_dim: Optional[int] = None):
         super().__init__()
         d = dim
-        hidden = d * expansion_rate
+        hidden = hidden_dim or d * expansion_rate
         mlp_hidden = hidden * mlp_ratio
         self.dim, self.dtype = dim, dtype
         self.sk_iters, self.tau = sk_iters, tau
@@ -532,7 +541,8 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
         # The int8 chain serves the serve branch only, as in JAX.
         self.int8 = act_quant and precomputed_constraints
         # The fused blocks serve the bf16 sites whose matrices are all [d, d].
-        self.fused = (expansion_rate == 1 and mlp_ratio == 1 and dtype == torch.bfloat16
+        self.fused = (expansion_rate == 1 and hidden == d and mlp_ratio == 1
+                      and dtype == torch.bfloat16
                       and dim in SUPPORTED_WIDTHS and not self.int8)
         chain_sites = ("y1_scale", "a1_scale", "a2_scale", "x_scale")
         self._init_quant(chain_sites if quant_sites else (), chain_sites if self.int8 else ())
@@ -712,13 +722,14 @@ class ManifoldHyperConnection(QuantSites, nn.Module):
 
 class SqueezeExcite(nn.Module):
     """SE channel attention. With ``pooled`` given (the fused serve tail), the
-    spatial mean is not recomputed; ``return_gates`` returns the gates."""
+    spatial mean is not recomputed; ``return_gates`` returns the gates. The
+    hidden width is ``channels // reduction``."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.bfloat16, reduction: int = 4):
         super().__init__()
         self.dtype = dtype
-        self.Dense_0 = Dense(channels, channels // 4, dtype=dtype)  # reduction 4
-        self.Dense_1 = Dense(channels // 4, channels, dtype=dtype)
+        self.Dense_0 = Dense(channels, channels // reduction, dtype=dtype)
+        self.Dense_1 = Dense(channels // reduction, channels, dtype=dtype)
 
     def forward(self, x: Optional[torch.Tensor] = None, pooled: Optional[torch.Tensor] = None,
                 return_gates: bool = False) -> torch.Tensor:
@@ -816,11 +827,13 @@ class MHCTransformerBlock(nn.Module):
     ``dropout_rate`` goes to both. The attention is ``DenseAttention`` (with
     ``act_quant``), or with ``use_manifold_attention``
     ``MultiHeadManifoldAttention`` (always float, as in JAX); ``act_quant``
-    also goes to the FFN."""
+    also goes to the FFN, whose widths are ``expansion_rate`` and
+    ``mlp_ratio``."""
 
     def __init__(self, dim: int, num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
                  dropout_rate: float = 0.1, act_quant: bool = False,
-                 use_manifold_attention: bool = False, **mhc):
+                 use_manifold_attention: bool = False, expansion_rate: int = 1,
+                 mlp_ratio: int = 2, **mhc):
         super().__init__()
         self.dtype = dtype
         self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
@@ -830,7 +843,7 @@ class MHCTransformerBlock(nn.Module):
         else:
             self.attn = DenseAttention(dim, num_heads, dtype=dtype, dropout_rate=dropout_rate,
                                        act_quant=act_quant)
-        self.mhc_ffn = ManifoldHyperConnection(dim, expansion_rate=1, mlp_ratio=2, dtype=dtype,
+        self.mhc_ffn = ManifoldHyperConnection(dim, expansion_rate, mlp_ratio, dtype=dtype,
                                                dropout_rate=dropout_rate, act_quant=act_quant,
                                                quant_sites=True, **mhc)
 

@@ -32,12 +32,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..constants import COCO_CLASSES
 from ..ops.nms import top_k_stable
-from .layers import Dense, LayerNorm, ManifoldHyperConnection, gelu
+from .layers import Dense, LayerNorm, ManifoldHyperConnection, gelu, one_hot
 
 
 def _pseudo_embedding(text: str, dim: int) -> np.ndarray:
@@ -205,7 +204,7 @@ class KnowledgeAwareDetection(nn.Module):
         enhanced = torch.cat([region.to(self.dtype), knowledge.to(self.dtype)], dim=-1)
         logits = self.cls_out(gelu(self.cls_hidden(enhanced)))
         know_probs = torch.softmax(logits.float(), dim=-1)
-        onehot = F.one_hot(classes.clamp(min=0).long(), self.num_classes).float()
+        onehot = one_hot(classes.clamp(min=0).long(), self.num_classes).float()
         scores = scores.float()
         orig = scores[..., None] * onehot
         refined = (1 - self.blend) * orig + self.blend * know_probs * scores[..., None]

@@ -58,33 +58,37 @@ def make_anchor_grid(grid_h: int, grid_w: int, anchors) -> np.ndarray:
 
 class YOLOPredictionHead(QuantSites, nn.Module):
     """Per-scale tower: 1x1 reduce -> GN/SiLU -> 3x3 -> GN/SiLU -> channel mHC
-    -> 1x1 to A*(5+C) logits; returns [B, H, W, A, 5+C]. The mHC keeps the
-    layer's default dropout rate (0.1), as the JAX tower passes none; ``mhc``
-    are its other keyword options. ``act_quant``: ``reduce`` and ``conv``
+    -> 1x1 to A*(5+C) logits (A = ``num_anchors``); returns [B, H, W, A, 5+C].
+    The mHC keeps the layer's default dropout rate (0.1), as the JAX tower
+    passes none; ``mhc`` are its other keyword options; ``use_mhc=False``
+    builds no mHC layer (no ``mhc`` parameters). ``act_quant``: ``reduce`` and ``conv``
     take int8 inputs (sites ``x_scale``, ``y1_scale``); the mHC layer and the
     ``predict`` logits stay bf16, as in JAX."""
 
     SITES = ("x_scale", "y1_scale")
 
     def __init__(self, in_channels: int, num_classes: int = 80, head_channels: int = 256,
-                 dtype: torch.dtype = torch.bfloat16, act_quant: bool = False, **mhc):
+                 dtype: torch.dtype = torch.bfloat16, act_quant: bool = False,
+                 num_anchors: int = NUM_ANCHORS, use_mhc: bool = True, **mhc):
         super().__init__()
         self.dtype = dtype
         self.act_quant = act_quant
+        self.num_anchors = num_anchors
         self.per_anchor = 5 + num_classes
         conv = QuantConv if act_quant else partial(Conv, use_bias=False)
         self.reduce = conv(in_channels, head_channels, (1, 1), dtype=dtype)
         self.GroupNorm_0 = group_norm(head_channels, dtype)
         self.conv = conv(head_channels, head_channels, (3, 3), dtype=dtype)
         self.GroupNorm_1 = group_norm(head_channels, dtype)
-        self.mhc = ManifoldHyperConnection(head_channels, 1, 1, dtype=dtype, **mhc)
-        self.predict = Conv(head_channels, NUM_ANCHORS * self.per_anchor, (1, 1), dtype=dtype,
+        self.mhc = (ManifoldHyperConnection(head_channels, 1, 1, dtype=dtype, **mhc)
+                    if use_mhc else None)
+        self.predict = Conv(head_channels, num_anchors * self.per_anchor, (1, 1), dtype=dtype,
                             bias_init=self._bias_init)
         self._init_quant(self.SITES, self.SITES if act_quant else ())
 
     def _bias_init(self, bias: torch.Tensor) -> None:
         # Objectness and class logits start at -4.0, box offsets at 0.
-        b = bias.view(NUM_ANCHORS, self.per_anchor)
+        b = bias.view(self.num_anchors, self.per_anchor)
         b.fill_(-4.0)
         b[:, :4] = 0.0
 
@@ -97,10 +101,12 @@ class YOLOPredictionHead(QuantSites, nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.silu(self.GroupNorm_0(self._conv(self.reduce, x.to(self.dtype), "x_scale")))
-        y = self.mhc(F.silu(self.GroupNorm_1(self._conv(self.conv, y, "y1_scale"))))
+        y = F.silu(self.GroupNorm_1(self._conv(self.conv, y, "y1_scale")))
+        if self.mhc is not None:
+            y = self.mhc(y)
         out = self.predict(y)
         b, h, w, _ = out.shape
-        return out.reshape(b, h, w, NUM_ANCHORS, self.per_anchor)
+        return out.reshape(b, h, w, self.num_anchors, self.per_anchor)
 
 
 def decode_predictions(raw: torch.Tensor, anchors: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -139,24 +145,30 @@ def decode_predictions(raw: torch.Tensor, anchors: torch.Tensor) -> Dict[str, to
 
 class YOLODetectionHead(nn.Module):
     """Prediction towers on the three fused scales and their decode,
-    concatenated fine to coarse."""
+    concatenated fine to coarse. ``anchors`` (per scale, fine to coarse,
+    normalized at 416 as ``COCO_ANCHORS_416``) and ``num_anchors`` per scale
+    as JAX's; ``use_mhc`` goes to the towers."""
 
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024), num_classes: int = 80,
                  head_channels: int = 256, dtype: torch.dtype = torch.bfloat16,
-                 act_quant: bool = False, **mhc):
+                 act_quant: bool = False, num_anchors: int = NUM_ANCHORS, use_mhc: bool = True,
+                 anchors=COCO_ANCHORS_416, **mhc):
         super().__init__()
         self.num_classes = num_classes
+        self.anchors = anchors
         for key, c in zip(SCALE_ORDER, in_channels):
             self.add_module(f"head_{key}", YOLOPredictionHead(c, num_classes, head_channels,
                                                               dtype=dtype, act_quant=act_quant,
-                                                              **mhc))
+                                                              num_anchors=num_anchors,
+                                                              use_mhc=use_mhc, **mhc))
         self._anchor_grids: Dict[Any, torch.Tensor] = {}
 
     def _anchor_grid(self, scale_idx: int, h: int, w: int, device) -> torch.Tensor:
         key = (scale_idx, h, w, str(device))
         grid = self._anchor_grids.get(key)
         if grid is None:
-            grid = torch.from_numpy(make_anchor_grid(h, w, effective_anchors(scale_idx, h)))
+            grid = torch.from_numpy(make_anchor_grid(h, w, effective_anchors(scale_idx, h,
+                                                                             self.anchors)))
             grid = grid.to(device)
             self._anchor_grids[key] = grid
         return grid

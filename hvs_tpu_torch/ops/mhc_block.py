@@ -6,7 +6,10 @@
 (kernel body ``_mhc_kernel``), the chain with a separate ``@ H_pre`` that a
 deterministic forward of the training model runs. Both are modes of one
 CUDA source, ``hvs_tpu_torch/csrc/mhc_block.cu``, built with nvcc at first
-use. Neither has a backward: training differentiates the plain chain.
+use. Each is a registered operator (``hvs::mhc_block``,
+``hvs::mhc_block_unfolded``) whose CPU version is the plain one, so an
+operation count sees the same call on either device. Neither has a backward:
+training differentiates the plain chain.
 
 Per token row: LN1 (fp32 statistics, eps 1e-6) -> ``@ W1_folded + b1`` -> GELU
 (tanh) -> ``@ W2 + b2`` -> GELU -> ``@ H_post``; plus ``x @ H_res``; add; LN2.
@@ -231,6 +234,48 @@ def _mhc_block_flops(x_shape, *operand_shapes, out_shape=None, **kwargs) -> int:
     return 8 * n * d * d
 
 
+# The unfolded mode as the operator ``hvs::mhc_block_unfolded``, registered
+# the same way, so that an operation count sees one call of known cost on
+# either device: its CPU version (the plain chain) runs below the operator.
+_LIB.define("mhc_block_unfolded(Tensor x, Tensor h_pre, Tensor w1, Tensor b1, Tensor w2, "
+            "Tensor b2, Tensor h_post, Tensor h_res, Tensor ln1_scale, Tensor ln1_bias, "
+            "Tensor ln2_scale, Tensor ln2_bias) -> Tensor")
+
+
+def _mhc_block_unfolded_cuda(x, h_pre, w1, b1, w2, b2, h_post, h_res,
+                             ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
+    out = _launch("hvs_mhc_block_unfolded", x, UNFOLDED_OPERANDS,
+                  (h_pre, w1, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias, ln2_scale,
+                   ln2_bias))
+    global launches_unfolded
+    launches_unfolded += 1
+    return out
+
+
+def _mhc_block_unfolded_fake(x, h_pre, w1, b1, w2, b2, h_post, h_res,
+                             ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
+    _check(x, UNFOLDED_OPERANDS, (h_pre, w1, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias,
+                                  ln2_scale, ln2_bias), addresses=False)
+    return torch.empty_like(x)
+
+
+def _mhc_block_unfolded_cpu(*args) -> torch.Tensor:
+    return mhc_block_unfolded_plain(*args)  # looked up at the call, so it can be wrapped
+
+
+_LIB.impl("mhc_block_unfolded", _mhc_block_unfolded_cuda, "CUDA")
+_LIB.impl("mhc_block_unfolded", _mhc_block_unfolded_cpu, "CPU")
+torch.library.register_fake("hvs::mhc_block_unfolded", _mhc_block_unfolded_fake, lib=_LIB)
+mhc_block_unfolded_op = torch.ops.hvs.mhc_block_unfolded.default
+
+
+@register_flop_formula(torch.ops.hvs.mhc_block_unfolded)
+def _mhc_block_unfolded_flops(x_shape, *operand_shapes, out_shape=None, **kwargs) -> int:
+    """Five [N, d] x [d, d] products (H_pre, W1, W2, H_post, H_res): 10·N·d²."""
+    n, d = x_shape
+    return 10 * n * d * d
+
+
 def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,
               ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
     """Fused serve-path mHC block on ``x`` [N, d], through ``hvs::mhc_block``.
@@ -246,19 +291,14 @@ def mhc_block(x, w1_folded, b1, w2, b2, h_post, h_res,
 
 def mhc_block_unfolded(x, h_pre, w1, b1, w2, b2, h_post, h_res,
                        ln1_scale, ln1_bias, ln2_scale, ln2_bias) -> torch.Tensor:
-    """Unfolded mHC block (``@ H_pre`` then ``@ W1``) on ``x`` [N, d].
+    """Unfolded mHC block (``@ H_pre`` then ``@ W1``) on ``x`` [N, d], through
+    ``hvs::mhc_block_unfolded``.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` must be bf16 and
     contiguous, the five matrices [d, d] bf16 and the vectors [d] fp32 on the
     same device; the kernel is launched on the current stream, or this
-    raises. The output carries no gradient.
+    raises. The output carries no gradient (the operator has no backward;
+    the model calls it only where nothing is differentiated).
     """
-    if x.device.type == "cpu":
-        return mhc_block_unfolded_plain(x, h_pre, w1, b1, w2, b2, h_post, h_res,
-                                        ln1_scale, ln1_bias, ln2_scale, ln2_bias)
-    out = _launch("hvs_mhc_block_unfolded", x, UNFOLDED_OPERANDS,
-                  (h_pre, w1, b1, w2, b2, h_post, h_res, ln1_scale, ln1_bias, ln2_scale,
-                   ln2_bias))
-    global launches_unfolded
-    launches_unfolded += 1
-    return out
+    return mhc_block_unfolded_op(x, h_pre, w1, b1, w2, b2, h_post, h_res,
+                                 ln1_scale, ln1_bias, ln2_scale, ln2_bias)

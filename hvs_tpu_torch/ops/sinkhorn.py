@@ -20,6 +20,11 @@ path every model forward, the manifold regulariser and the optimizer's
 periodic projection run it, each through ``sinkhorn_log_many``: one launch
 per matrix width. The model forward and the regulariser are differentiated.
 
+The forward and the backward are the operators ``hvs::sinkhorn_log`` and
+``hvs::sinkhorn_log_backward``: on the card they launch the kernels, on the
+CPU they are the plain loop and autograd's gradient of it, so an operation
+count (``utils/profiler.py``) sees the same calls on either device.
+
 The gradient is that of the UNROLLED loop, as ``jax.grad`` of the JAX
 function gives (not the implicit gradient at the fixed point). The kernel's
 forward stores the potentials f and g of every iteration (in base 2: f·log2 e
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -71,16 +77,30 @@ def sinkhorn_log_plain(logits: torch.Tensor, n_iters: int = 20, tau: float = 1.0
     L = logits / tau. Computes in fp32 (fp64 for fp64 input, so that gradcheck
     can run on it); returns the input dtype.
     """
+    return _plain_loop(logits, n_iters, tau, False)[0]
+
+
+def _plain_loop(logits: torch.Tensor, n_iters: int, tau: float, keep_history: bool
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``sinkhorn_log_plain`` and, with ``keep_history``, the potentials in
+    the kernel's layout: [..., 2·(n_iters + 1), n], f_1..f_{K+1} then
+    g_0..g_K, each times log2 e, in the computing dtype."""
     in_dtype = logits.dtype
     x = logits.to(torch.promote_types(in_dtype, torch.float32)) / tau
     n = x.shape[-1]
     f = x.new_zeros(x.shape[:-2] + (n,))
     g = x.new_zeros(x.shape[:-2] + (n,))
+    fs, gs = [], [g]
     for _ in range(n_iters):
         f = -torch.logsumexp(x + g[..., None, :], dim=-1)
         g = -torch.logsumexp(x + f[..., :, None], dim=-2)
+        fs.append(f)
+        gs.append(g)
     f = -torch.logsumexp(x + g[..., None, :], dim=-1)
-    return torch.exp(x + f[..., :, None] + g[..., None, :]).to(in_dtype)
+    fs.append(f)
+    p = torch.exp(x + f[..., :, None] + g[..., None, :]).to(in_dtype)
+    hist = torch.stack(fs + gs, dim=-2) * math.log2(math.e) if keep_history else None
+    return p, hist
 
 
 def _check(name: str, t: torch.Tensor, shape=None) -> None:
@@ -241,13 +261,104 @@ def sinkhorn_backward(logits: torch.Tensor, p: torch.Tensor, dp: torch.Tensor,
     return dlogits
 
 
+# Forward and backward as the operators ``hvs::sinkhorn_log`` and
+# ``hvs::sinkhorn_log_backward``: their CUDA versions launch the kernels,
+# their CPU versions are the plain loop and autograd's gradient of it, so an
+# operation count sees the same calls, with the same inputs and outputs, on
+# either device. ``keep_history`` False gives an empty history.
+_LIB = torch.library.Library("hvs", "FRAGMENT")
+_LIB.define("sinkhorn_log(Tensor logits, int n_iters, float tau, bool keep_history) "
+            "-> (Tensor, Tensor)")
+_LIB.define("sinkhorn_log_backward(Tensor logits, Tensor p, Tensor dp, Tensor history, "
+            "int n_iters, float tau) -> Tensor")
+
+
+def _history_shape(logits: torch.Tensor, n_iters: int) -> Tuple[int, ...]:
+    return tuple(logits.shape[:-2]) + (2 * (n_iters + 1), logits.shape[-1])
+
+
+def _forward_cuda(logits, n_iters, tau, keep_history):
+    p, hist = sinkhorn_forward(logits, n_iters, tau, keep_history=keep_history)
+    return p, hist if hist is not None else logits.new_empty(0)
+
+
+def _autograd_keys():
+    """Autograd's dispatch keys back in force: below a dispatch mode (an
+    operation count) they are excluded, and the CPU versions differentiate
+    the plain loop."""
+    key = torch._C.DispatchKey
+    exclude = torch._C._dispatch_tls_local_exclude_set().remove(key.AutogradCPU) \
+        .remove(key.AutogradOther).remove(key.ADInplaceOrView)
+    return torch._C._ForceDispatchKeyGuard(torch._C._dispatch_tls_local_include_set(), exclude)
+
+
+def _forward_cpu(logits, n_iters, tau, keep_history):
+    if not keep_history:
+        return _plain_loop(logits, n_iters, tau, False)[0], logits.new_empty(0)
+    # A backward will follow: keep autograd's graph of the plain loop on the
+    # history it returns, so the backward differentiates it without a second
+    # forward (the same gradient, bitwise).
+    with _autograd_keys(), torch.enable_grad():
+        x = logits.detach().requires_grad_(True)
+        p, hist = _plain_loop(x, n_iters, tau, True)
+    hist = hist.detach()
+    hist._plain_graph = (x, p)
+    return p.detach(), hist
+
+
+def _forward_fake(logits, n_iters, tau, keep_history):
+    hist = logits.new_empty(_history_shape(logits, n_iters) if keep_history else (0,))
+    return torch.empty_like(logits), hist
+
+
+def _backward_cpu(logits, p, dp, history, n_iters, tau):
+    """Autograd's gradient of the plain loop: of the graph the forward kept
+    on ``history``, else of a forward run again."""
+    x, out = getattr(history, "_plain_graph", (None, None))
+    if x is not None:
+        del history._plain_graph  # autograd frees the graph with this backward
+    with _autograd_keys(), torch.enable_grad():
+        if x is None or x.shape != logits.shape:
+            x = logits.detach().requires_grad_(True)
+            out = sinkhorn_log_plain(x, n_iters, tau)
+        return torch.autograd.grad(out, x, dp)[0]
+
+
+def _backward_fake(logits, p, dp, history, n_iters, tau):
+    return torch.empty_like(logits)
+
+
+_LIB.impl("sinkhorn_log", _forward_cuda, "CUDA")
+_LIB.impl("sinkhorn_log", _forward_cpu, "CPU")
+torch.library.register_fake("hvs::sinkhorn_log", _forward_fake, lib=_LIB)
+_LIB.impl("sinkhorn_log_backward", sinkhorn_backward, "CUDA")
+_LIB.impl("sinkhorn_log_backward", _backward_cpu, "CPU")
+torch.library.register_fake("hvs::sinkhorn_log_backward", _backward_fake, lib=_LIB)
+sinkhorn_log_op = torch.ops.hvs.sinkhorn_log.default
+sinkhorn_log_backward_op = torch.ops.hvs.sinkhorn_log_backward.default
+
+
+def transcendentals(func, args) -> int:
+    """The exponentials of one call of B's operators (0 for any other
+    operator): (2·n_iters + 2)·n² per matrix forward (42·n² at 20
+    iterations), 2·n_iters·n² backward (40·n²), the counts the kernel
+    table's bound uses."""
+    if func is sinkhorn_log_op:
+        logits, n_iters = args[0], args[1]
+        return (2 * n_iters + 2) * logits.numel()
+    if func is sinkhorn_log_backward_op:
+        logits, n_iters = args[0], args[4]
+        return 2 * n_iters * logits.numel()
+    return 0
+
+
 class _SinkhornKernel(torch.autograd.Function):
-    """Forward and backward through the Hopper kernels; the forward keeps the
+    """Forward and backward through B's operators; the forward keeps the
     history of potentials for the backward."""
 
     @staticmethod
     def forward(ctx, logits, n_iters, tau):
-        p, hist = sinkhorn_forward(logits, n_iters, tau, keep_history=True)
+        p, hist = sinkhorn_log_op(logits, n_iters, tau, True)
         ctx.n_iters, ctx.tau = n_iters, tau
         ctx.save_for_backward(logits, p, hist)
         return p
@@ -255,25 +366,25 @@ class _SinkhornKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dp):
         logits, p, hist = ctx.saved_tensors
-        return sinkhorn_backward(logits, p, dp.contiguous(), hist, ctx.n_iters, ctx.tau), \
-            None, None
+        return sinkhorn_log_backward_op(logits, p, dp.contiguous(), hist, ctx.n_iters,
+                                        ctx.tau), None, None
 
 
 def sinkhorn_log(logits: torch.Tensor, n_iters: int = 20, tau: float = 1.0) -> torch.Tensor:
-    """Project ``logits`` [..., n, n] to a doubly stochastic matrix.
+    """Project ``logits`` [..., n, n] to a doubly stochastic matrix, through
+    ``hvs::sinkhorn_log`` (and ``hvs::sinkhorn_log_backward`` when a
+    gradient flows).
 
-    A CPU tensor takes the plain version (autograd differentiates its loop).
-    A CUDA tensor must be contiguous fp32 with n <= 1024: the forward kernel
-    is launched, keeping its history only when autograd will need it (and
-    the backward kernel runs when a gradient flows), or this raises.
+    A CPU tensor takes the plain version and its autograd gradient. A CUDA
+    tensor must be contiguous fp32 with n <= 1024: the forward kernel is
+    launched, keeping its history only when autograd will need it (and the
+    backward kernel runs when a gradient flows), or this raises.
     """
-    if logits.device.type == "cpu":
-        return sinkhorn_log_plain(logits, n_iters, tau)
-    if logits.device.type != "cuda":
+    if logits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sinkhorn_log runs on cuda or cpu tensors, got {logits.device}")
     if torch.is_grad_enabled() and logits.requires_grad:
         return _SinkhornKernel.apply(logits, n_iters, tau)
-    return sinkhorn_forward(logits, n_iters, tau)[0]
+    return sinkhorn_log_op(logits, n_iters, tau, False)[0]
 
 
 def sinkhorn_log_many(mats: Sequence[torch.Tensor], n_iters: int = 20,

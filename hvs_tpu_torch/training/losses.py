@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import device_constant
+from ..models.layers import one_hot
 from ..models.yolo_head import COCO_ANCHORS_416, SCALE_ORDER, effective_anchors
 from ..ops.boxes import box_ciou, cxcywh_to_xyxy
 from ..ops.sinkhorn import sinkhorn_log_many
@@ -174,7 +175,7 @@ def mhc_yolo_loss(raw_outputs: Dict[str, Tensor], targets: Dict[str, Dict[str, T
         obj_loss = (weights.obj * (obj_loss_map * obj_mask).sum()
                     + weights.noobj * (obj_loss_map * noobj_mask).sum()) / denom
 
-        onehot = F.one_hot(t["cls"], num_classes).float()
+        onehot = one_hot(t["cls"], num_classes).float()
         if cls_mode == "softmax":
             tgt = onehot * (1.0 - label_smoothing) + label_smoothing / num_classes
             ce = -(tgt * torch.log_softmax(raw[..., 5:], dim=-1)).sum(dim=-1)
@@ -304,7 +305,7 @@ def multi_task_loss(outputs: Dict[str, object], batch: Dict[str, object], num_cl
         labels = at_head_stride(batch["seg_labels"], h, w).long()
         log_p = torch.log_softmax(logits, dim=-1)
         ce_map = -log_p.gather(-1, labels[..., None])[..., 0]
-        onehot = F.one_hot(labels, k).float()
+        onehot = one_hot(labels, k).float()
         counts = onehot.sum(dim=(0, 1, 2))
         numel = torch.full((), labels.numel(), dtype=torch.float32, device=logits.device)
         if mesh is not None:

@@ -3,12 +3,10 @@ monitor.
 
 Counterpart of ``hvs_tpu/utils/profiler.py`` in PyTorch's idiom:
 
-  * :class:`ModelProfiler` — ``cost_analysis`` counts the floating-point
-    operations of one call with ``torch.utils.flop_counter.FlopCounterMode``
-    (kernel A's operator ``hvs::mhc_block`` by its registered formula) and
-    the bytes its operators read and write (each operator's tensor inputs and
-    outputs, unfused); wall time from CUDA events on the card (the host clock
-    on the CPU); ``trace`` writes a ``torch.profiler`` Chrome trace into
+  * :class:`ModelProfiler` — ``cost_analysis`` counts the product flops,
+    the transcendentals and the bytes of one call (the convention is in its
+    docstring); wall time from CUDA events on the card (the host clock on
+    the CPU); ``trace`` writes a ``torch.profiler`` Chrome trace into
     ``log_dir``; ``profile`` adds the achieved rate and the recommendations.
   * :class:`InferenceProfiler` — latency and throughput per batch size, the
     best batch within a latency budget, and scaling against batch 1.
@@ -18,6 +16,7 @@ Counterpart of ``hvs_tpu/utils/profiler.py`` in PyTorch's idiom:
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -53,17 +52,35 @@ def _wait(result) -> None:
             return
 
 
-class _BytesCounter(TorchDispatchMode):
-    """Bytes of every operator's tensor inputs and outputs."""
+@functools.lru_cache(maxsize=None)
+def _moves_no_bytes(func) -> bool:
+    """Whether ``func`` is a view or aliasing operator: ``func.is_view``, or
+    every return of its schema an alias that is not a write (``detach``,
+    ``split``, ``alias``)."""
+    if func.is_view:
+        return True
+    returns = func._schema.returns
+    return bool(returns) and all(r.alias_info is not None and not r.alias_info.is_write
+                                 for r in returns)
+
+
+class _CostCounter(TorchDispatchMode):
+    """The bytes of every operator's tensor inputs and outputs, views and
+    aliases excluded, and the transcendentals of kernel B's operators."""
 
     def __init__(self):
         super().__init__()
         self.total = 0
+        self.transcendentals = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from ..ops.sinkhorn import transcendentals
+
         out = func(*args, **(kwargs or {}))
-        self.total += sum(t.numel() * t.element_size()
-                          for t in _tensors((args, kwargs, out)))
+        if not _moves_no_bytes(func):
+            self.total += sum(t.numel() * t.element_size()
+                              for t in _tensors((args, kwargs, out)))
+        self.transcendentals += transcendentals(func, args)
         return out
 
 
@@ -81,14 +98,37 @@ class ModelProfiler:
         self.device = tensors[0].device if tensors else torch.device("cpu")
 
     def cost_analysis(self) -> Dict[str, float]:
-        """Operations and bytes of one call: ``flops`` (FlopCounterMode) and
-        ``bytes accessed`` (every operator's inputs and outputs, unfused)."""
+        """What one call costs, counted over the operators PyTorch
+        dispatches (each counted once, at the top of the dispatch; what an
+        operator does below itself is not seen):
+
+          * ``flops``: product flops, 2 per multiply-add of every matmul,
+            convolution and attention (``FlopCounterMode``), the padded taps
+            of a SAME convolution included; kernels A and C by their
+            operators' formulas (8·N·d² and 10·N·d²). Elementwise work counts
+            nothing;
+          * ``transcendentals``: the exponentials of kernel B's operators
+            (``hvs::sinkhorn_log``: (2·n_iters + 2)·n² per matrix,
+            ``hvs::sinkhorn_log_backward``: 2·n_iters·n²); no other
+            operator's;
+          * ``bytes accessed``: the bytes of every operator's tensor inputs
+            and outputs, as if nothing were fused; views and aliasing
+            operators count none.
+
+        Every kernel runs below a registered operator (its CPU version, the
+        plain one, included), so a call counts the same on the CPU and on the
+        card. XLA's ``cost_analysis`` counts differently: its flops add
+        elementwise work and skip the out-of-bounds taps of a SAME
+        convolution, and its bytes are those of its fused program, so the
+        numbers are not comparable with an ``xla_*`` one."""
         from torch.utils.flop_counter import FlopCounterMode
 
         counter = FlopCounterMode(display=False)
-        with counter, _BytesCounter() as moved:
+        with counter, _CostCounter() as cost:
             _wait(self.fn(*self.example_args))
-        return {"flops": float(counter.get_total_flops()), "bytes accessed": float(moved.total)}
+        return {"flops": float(counter.get_total_flops()),
+                "transcendentals": float(cost.transcendentals),
+                "bytes accessed": float(cost.total)}
 
     def measure_wall_time(self, iters: int = 20) -> float:
         """Seconds per call: CUDA events around ``iters`` calls on the card,

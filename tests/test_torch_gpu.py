@@ -1332,3 +1332,40 @@ def test_accuracy_sweep_equals_evaluate_on_the_card(tmp_path):
     assert got["fps_per_chip_batch16"] > 0
     with open(tmp_path / "sweep.json") as f:
         assert json.load(f) == sweep
+
+
+@pytest.mark.gpu
+def test_kernel_b_and_c_operators_launch_and_count_as_on_the_cpu():
+    """B's and C's operators on the card: one launch each, the results their
+    CPU versions give (B bitwise in its row sums' tolerance), and the same
+    count of flops, transcendentals and bytes on both devices."""
+    _need_card()
+    from hvs_tpu_torch.utils.profiler import ModelProfiler
+
+    x, args = _cuda_inputs(700, 64, seed=7)
+    h_pre = args[0].clone()
+    before = mhc_mod.launches_unfolded
+    got = mhc_mod.mhc_block_unfolded(x, h_pre, *args)
+    torch.cuda.synchronize()
+    assert mhc_mod.launches_unfolded == before + 1
+    cpu = [t.cpu() for t in (x, h_pre, *args)]
+    want = mhc_mod.mhc_block_unfolded(*cpu)
+    a, b = got.float().cpu().numpy().ravel(), want.float().numpy().ravel()
+    assert np.corrcoef(a, b)[0, 1] > MIN_CORR
+    counts = [ModelProfiler(mhc_mod.mhc_block_unfolded, *t).cost_analysis()
+              for t in ((x, h_pre, *args), cpu)]
+    assert counts[0] == counts[1] and counts[0]["flops"] == 10 * 700 * 64 * 64
+
+    logits = torch.randn(5, 64, 64, device="cuda", requires_grad=True)
+    f0, b0 = sink_mod.launches_forward, sink_mod.launches_backward
+
+    def step(t):
+        return torch.autograd.grad((sinkhorn_log(t, 20) ** 2).sum(), t)[0]
+
+    g = step(logits)
+    torch.cuda.synchronize()
+    assert (sink_mod.launches_forward - f0, sink_mod.launches_backward - b0) == (1, 1)
+    ref = logits.detach().cpu().requires_grad_(True)
+    np.testing.assert_allclose(g.cpu().numpy(), step(ref).numpy(), rtol=1e-4, atol=1e-6)
+    counts = [ModelProfiler(step, t).cost_analysis() for t in (logits, ref)]
+    assert counts[0] == counts[1] and counts[0]["transcendentals"] == (42 + 40) * 5 * 64 * 64
