@@ -95,9 +95,9 @@ Phases, each of which fails the run with a non-zero exit:
      per resolution, and one chunk at the ``train`` phase's configuration;
  10. train_parity: one train step, dropout off, the full-width model at 320²,
      batch 2: the card (kernels) against the CPU (plain versions);
-     train_trajectory: 120 steps of the full-width model in bf16 (dropout
+     train_trajectory: 80 steps of the full-width model in bf16 (dropout
      off) through the captured chunk steps at 128² and 160² alternating, a
-     warm-up of 30, a projection at step 100, the EMA on, against the same
+     warm-up of 30, a projection at step 60, the EMA on, against the same
      steps on this machine's CPU fed the same draws: 20-step window means of
      the loss within 10 % and the largest grad norm after step 20 within
      JAX's own bf16/fp32 spread;
@@ -186,7 +186,13 @@ Phases, each of which fails the run with a non-zero exit:
      with ``mfu`` and ``hbm_utilization`` in (0, 1.05], ``bytes_attribution``
      with its stages summing to the serve call, ``train_roofline`` at 416²
      b16, both ceilings, ``cls_loss_ab`` at 2 x 10 steps), and the
-     detection path without mHC (``use_mhc=False``): no A and no B.
+     detection path without mHC (``use_mhc=False``): no A and no B;
+ 19. tours (``phase_tours``): the six runnable tours (``examples/torch_*.py``)
+     at their default, full-width sizes, each a process of its own, all at
+     once: exit 0, the summary line within ``tests/test_torch_tours.py``'s
+     limits (nb_02's count equal to this process's count of the same
+     forward), A launched by the engines' tours and B by every tour that
+     loads the flagship; the kernels line's ``launches_tours``.
 Phase 2's Sinkhorn part also runs the public projections that launch B
 (``project_to_doubly_stochastic``, ``birkhoff_project``,
 ``sinkhorn_with_diagnostics``) and the Stiefel and SPD functions on the card
@@ -195,9 +201,9 @@ The package pins its matmul precision flags itself (fp32 accumulation;
 ``hvs_tpu_torch.device.pin_matmul_precision``): this script never pins
 them. It puts back torch's own flags before each phase that goes through an
 entry point (3-15) and fails unless they are pinned after it (phase 16
-builds the encoder directly and pins them as those entry points do; phase
-17's entry points run in processes of their own, each from torch's own
-flags); the plain
+builds the encoder directly and pins them as those entry points do; the
+entry points of phase 17 and the tours of phase 19 run in processes of their
+own, each from torch's own flags); the plain
 versions of A and C sum their products in fp32 whatever the flags.
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the port with its measurements.
@@ -370,7 +376,7 @@ TRAIN_PARITY = {
 # dropout off) trained on the card through its captured TrainChunk steps and
 # on this machine's CPU through the same chunk bodies eagerly, fed the
 # card's draws, from the same weights: sizes 128² and 160² alternating by
-# chunk of 10, batch 4, warm-up 30 (the peak rate reached), step 100 a
+# chunk of 10, batch 4, warm-up 30 (the peak rate reached), step 60 a
 # projection step, EMA 0.999, 64 shapes-benchmark frames at 160². The card
 # and the CPU run one program in bf16 and differ by rounding alone. The loss
 # limit: 20-step window means within 10 %, between JAX's own seed-to-seed
@@ -379,7 +385,8 @@ TRAIN_PARITY = {
 # norm: the largest after the first 20 steps (the init transient, where bf16
 # rounding at init sets every run's largest), within JAX's bf16-to-fp32
 # spread of that largest, a factor 1.80 either way (the same record).
-TRAJ_SIZES, TRAJ_BATCH, TRAJ_CHUNK, TRAJ_STEPS, TRAJ_WINDOW = (128, 160), 4, 10, 120, 20
+TRAJ_SIZES, TRAJ_BATCH, TRAJ_CHUNK, TRAJ_STEPS, TRAJ_WINDOW = (128, 160), 4, 10, 80, 20
+TRAJ_PROJECT_EVERY = 60  # 20 steps of the run follow the projection
 TRAJ_IMAGES, TRAJ_IMAGE, TRAJ_WARMUP, TRAJ_CLASSES, TRAJ_BOXES = 64, 160, 30, 8, 16
 TRAJ_LOSS_WINDOW_RTOL = 0.10
 TRAJ_TRANSIENT = 20
@@ -3043,7 +3050,8 @@ def shapes_arrays(n: int, size: int, seed: int, max_boxes: int):
 
 
 def phase_train_trajectory(card: str, steps: int = TRAJ_STEPS, sizes=TRAJ_SIZES,
-                           batch: int = TRAJ_BATCH, warmup: int = TRAJ_WARMUP) -> dict:
+                           batch: int = TRAJ_BATCH, warmup: int = TRAJ_WARMUP,
+                           project_every: int = TRAJ_PROJECT_EVERY) -> dict:
     """``steps`` steps of the full-width flagship in bf16 (dropout off)
     on the card, through its captured ``TrainChunk`` steps, against the same
     steps on this machine's CPU through the chunk bodies run eagerly, fed
@@ -3052,7 +3060,7 @@ def phase_train_trajectory(card: str, steps: int = TRAJ_STEPS, sizes=TRAJ_SIZES,
     steps within the limits above. Returns kernel B's launches on the card's path (each captured
     step's times its replays; counters zeroed just before).
     ``scripts/torch_train_parity.py trajectory --device cuda`` calls it with
-    its own steps, sizes, batch and warm-up."""
+    its own steps, sizes, batch, warm-up and projection period."""
     import copy
 
     from hvs_tpu_torch.data import AugmentDraws, put_device_data
@@ -3068,7 +3076,8 @@ def phase_train_trajectory(card: str, steps: int = TRAJ_STEPS, sizes=TRAJ_SIZES,
             m.rate = 0.0
     cpu_model = copy.deepcopy(model).to("cpu")
     config = TrainerConfig(num_classes=TRAJ_CLASSES, max_boxes=TRAJ_BOXES,
-                           warmup_steps=warmup, total_steps=6000, ema_decay=0.999)
+                           warmup_steps=warmup, total_steps=6000, ema_decay=0.999,
+                           project_every=project_every)
     zero_counts()
     sides = {}
     for name, m, dev in (("cuda", model, torch.device("cuda")),
@@ -5296,6 +5305,213 @@ def phase_roofline(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The runnable tours (examples/torch_*.py), run as a user runs them
+
+TOURS = {  # name -> the tour's file in examples/
+    "quickstart": "torch_quickstart.py",
+    "nb_01": "torch_nb_01_data_exploration.py",
+    "nb_02": "torch_nb_02_model_analysis.py",
+    "nb_03": "torch_nb_03_training_analysis.py",
+    "nb_04": "torch_nb_04_inference_demo.py",
+    "nb_05": "torch_nb_05_deployment_test.py",
+}
+TOUR_TIMEOUT_S = 300
+TOUR_ENGINES = ("quickstart", "nb_04", "nb_05")  # serve through InferenceEngine: A > 0
+TOUR_FLAGSHIP = ("quickstart", "nb_02", "nb_04", "nb_05")  # load the flagship: B > 0
+TOUR_DS_ERROR_MAX = 1e-3  # tests/test_torch_tours.py's limit
+TOUR_NB01_IMAGES = {"train": 200, "val": 50}
+TOUR_NB03_STEPS = 60
+TOUR_NB04_BURST, TOUR_NB04_CONCURRENT = 32, 8
+TOUR_NB02_SIZE = 320
+
+
+def _floats(value, where: str = ""):
+    """Every float in a JSON value, with its path."""
+    if isinstance(value, float):
+        yield where, value
+    elif isinstance(value, dict):
+        for k, v in value.items():
+            yield from _floats(v, f"{where}/{k}")
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            yield from _floats(v, f"{where}/{i}")
+
+
+def tour_expectations(device: str = "cuda") -> dict:
+    """What the tours must report, computed in this process: the flagship
+    config's parameter estimate and output shapes, and the nb_02 model's
+    parameters by subsystem, output shapes and count (one warm forward, then
+    ``ModelProfiler.cost_analysis`` of the next, as the tour counts it)."""
+    from hvs_tpu_torch.config import ModelConfig
+    from hvs_tpu_torch.models import HybridVisionSystem
+    from hvs_tpu_torch.utils import ModelProfiler
+
+    mcfg = ModelConfig(device=device)
+    model = HybridVisionSystem(device=device, seed=0).eval()
+    by_top: dict = {}
+    for name, p in model.named_parameters():
+        by_top[name.split(".")[0]] = by_top.get(name.split(".")[0], 0) + p.numel()
+    images = torch.zeros((1, TOUR_NB02_SIZE, TOUR_NB02_SIZE, 3), device=device)
+
+    def forward(x):
+        with torch.no_grad():
+            return model(x)
+
+    out = forward(images)
+    shapes = {f"raw/{k}": list(v.shape) for k, v in out["detection"]["raw"].items()}
+    shapes["boxes"] = list(out["detection"]["boxes"].shape)
+    shapes["features"] = list(out["features"].shape)
+    count = ModelProfiler(forward, images).cost_analysis()
+    return {"params_estimate": mcfg.estimate_parameters(),
+            "output_shapes": {k: list(v) for k, v in mcfg.output_shapes().items()},
+            "params_by_subsystem": by_top, "nb02_output_shapes": shapes, "count": count}
+
+
+def tour_checks(name: str, s: dict, launches: dict, want: dict) -> list:
+    """The limits of ``tests/test_torch_tours.py`` on one tour's summary at
+    its full size on the card; returns what failed."""
+    from hvs_tpu_torch.data import SHAPE_CLASSES, COCODataset
+
+    bad = []
+    if s.get("tour") != name or not str(s.get("device", "")).startswith("cuda"):
+        bad.append(f"tour {s.get('tour')} on {s.get('device')}")
+    bad += [f"{where} = {v}" for where, v in _floats(s) if not math.isfinite(v)]
+    if "ds_error_max" in s and not 0.0 <= s["ds_error_max"] <= TOUR_DS_ERROR_MAX:
+        bad.append(f"ds_error_max {s['ds_error_max']}")
+    if name in TOUR_ENGINES and launches["mhc_block"] <= 0:
+        bad.append("kernel A never launched")
+    if name in TOUR_FLAGSHIP and launches["sinkhorn_forward"] <= 0:
+        bad.append("kernel B never launched")
+    if name == "quickstart":
+        if s["params_estimate"] != want["params_estimate"] \
+                or s["output_shapes"] != want["output_shapes"]:
+            bad.append("the config's estimate or output shapes")
+        if len(s["losses"]) != 3 or s["image_size"] != IMAGE or not os.path.exists(s["annotated"]):
+            bad.append("the three steps, the 640² engine or the annotated image")
+    elif name == "nb_01":
+        root = s["root"]
+        counts = {split: len(COCODataset(root=os.path.join(root, split), annotation_file=ann,
+                                         image_size=256))
+                  for split, ann in s["annotations"].items()}
+        ds = COCODataset(root=os.path.join(root, "train"),
+                         annotation_file=s["annotations"]["train"], image_size=256, max_boxes=16)
+        hist = {ds.class_names[c]: n for c, n in sorted(ds.class_distribution().items())}
+        if s["images"] != counts or counts != TOUR_NB01_IMAGES \
+                or s["class_names"] != list(SHAPE_CLASSES) or s["class_histogram"] != hist \
+                or s["sample0_boxes"] != int(np.asarray(ds[0]["box_mask"]).sum()):
+            bad.append("the dataset's counts, classes, histogram or sample 0")
+    elif name == "nb_02":
+        count = want["count"]
+        if s["params_by_subsystem"] != want["params_by_subsystem"] \
+                or s["output_shapes"] != want["nb02_output_shapes"]:
+            bad.append("parameters by subsystem or output shapes")
+        if (s["flops"], s["transcendentals"], s["bytes_accessed"]) != \
+                (count["flops"], count["transcendentals"], count["bytes accessed"]):
+            bad.append(f"the count {s['flops']}, {s['transcendentals']}, {s['bytes_accessed']} "
+                       f"against this process's {count}")
+        if s["num_layers"] <= 0 or s["ds_error_64"] > TOUR_DS_ERROR_MAX:
+            bad.append("the monitored layers or the 64x64 projection")
+    elif name == "nb_03":
+        if s["records"] != TOUR_NB03_STEPS or not s["all_finite"] \
+                or s["round_trip_bitwise"] is not True or s["moved_by_step"] <= 0:
+            bad.append("the step records or the checkpoint round trip")
+    elif name == "nb_04":
+        if s["concurrent_served"] != TOUR_NB04_CONCURRENT or s["burst"] != TOUR_NB04_BURST \
+                or s["served"] + s["rejected"] != TOUR_NB04_BURST or s["served"] <= 0:
+            bad.append("the batcher's requests or the burst")
+    elif name == "nb_05":
+        if not s["endpoints"] or any(code != 200 for code in s["endpoints"].values()) \
+                or s["health"] != "healthy":
+            bad.append(f"endpoints {s['endpoints']}, health {s['health']}")
+        if s["export"]["consistent"] is not True:  # rtol 1e-3, atol 1e-4
+            bad.append(f"the export {s['export']}")
+        if s["gate"] != {"good": True, "bad": False} or s["repository"] != {
+                "v1_admitted": True, "v2_admitted": False, "latest_admitted": 1}:
+            bad.append(f"the gate {s['gate']} or the repository {s['repository']}")
+    return bad
+
+
+def phase_tours(card: str) -> dict:
+    """The port's six runnable tours (``examples/torch_*.py``) at their
+    default, full-width sizes on the card, each a process of its own started
+    from a temp directory with the checkout on ``PYTHONPATH`` (as a user
+    runs them), all six at once: a tour is mostly host work and process
+    start, which the card's host runs side by side. Fails on an exit other
+    than 0, a run past ``TOUR_TIMEOUT_S``, or a summary outside the limits of
+    ``tests/test_torch_tours.py`` (``tour_checks``); nb_02's count must equal
+    the count of the same forward in this process. Kernel A must launch in
+    the tours that serve through ``InferenceEngine``, B in those that load
+    the flagship. Returns the kernels' launches summed over the tours, as
+    each process's counters saw them (captures and eager calls; a captured
+    graph's replays are not counted)."""
+    import gc
+    import shutil
+    import tempfile
+
+    want = tour_expectations()
+    # The tours' processes share the card with this one: hand back what
+    # this process's allocator holds from the earlier phases.
+    gc.collect()
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="hvs_tours_smoke_")
+    procs, started, walls = {}, {}, {}
+    try:
+        for name, script in TOURS.items():
+            out = os.path.join(workdir, name)
+            os.makedirs(out)
+            env = dict(os.environ, PYTHONPATH=repo, HVS_NB_OUT=out)
+            started[name] = time.perf_counter()
+            # Files, not pipes: a tour never waits on a pipe this process is
+            # not reading yet.
+            with open(f"{out}.stdout", "w") as so, open(f"{out}.stderr", "w") as se:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.join(repo, "examples", script)], cwd=out,
+                    env=env, stdout=so, stderr=se)
+        while len(walls) < len(procs):
+            for name, proc in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - started[name]
+            late = [TOURS[n] for n in procs
+                    if n not in walls and time.perf_counter() - started[n] > TOUR_TIMEOUT_S]
+            if late:
+                fail(f"tours: {late} ran past {TOUR_TIMEOUT_S} s")
+            time.sleep(0.1)
+        results = {}
+        for name, proc in procs.items():
+            out_path = os.path.join(workdir, name)
+            with open(f"{out_path}.stdout") as so, open(f"{out_path}.stderr") as se:
+                out, err = so.read(), se.read()
+            if proc.returncode != 0:
+                fail(f"tours: {TOURS[name]} exited {proc.returncode}: {err[-3000:]}")
+            reports = [json.loads(line) for line in err.splitlines()
+                       if line.startswith("{") and '"kernel_launches"' in line]
+            if not reports or not out.strip():
+                fail(f"tours: {TOURS[name]} printed no summary or no kernel_launches line")
+            results[name] = (json.loads(out.strip().splitlines()[-1]),
+                             reports[-1]["kernel_launches"])
+        launches = {k: 0 for k in kernel_counts()}
+        for name, (summary, counted) in results.items():
+            bad = tour_checks(name, summary, counted, want)
+            print(json.dumps({"phase": "tours", "tour": name, "wall_s": walls[name],
+                              "launches": counted, "summary": summary, "card": card}),
+                  flush=True)
+            if bad:
+                fail(f"tours: {TOURS[name]} outside its limits: {bad}")
+            for k in launches:
+                launches[k] += counted[k]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"phase": "tours_total", "wall_s": walls, "launches": launches,
+                      "nb02_count": want["count"], "card": card}), flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a CUDA card")
@@ -5350,6 +5566,9 @@ def main() -> None:
     rag = entry_point_phase(phase_rag, defaults, card)
     set_flags(defaults)
     manifold_attention = timed(phase_manifold_attention, card)
+    # Each tour runs in a process of its own, starting from torch's own flags.
+    set_flags(defaults)
+    tours = timed(phase_tours, card)
 
     kernels = [
         kernel_summary({**per_shape, **light["a_rows"]}, serve_launches, light["mhc_block"],
@@ -5372,6 +5591,7 @@ def main() -> None:
         k["launches_bundle"] = bundle[k["name"]]
         k["launches_bench"] = bench[k["name"]]
         k["launches_roofline"] = roofline[k["name"]]
+        k["launches_tours"] = tours[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -600,7 +600,7 @@ def main(argv=None):
         launches = chip_smoke.phase_train_trajectory(
             chip_smoke.card_line(), steps=args.steps,
             sizes=(args.size, args.size2) if args.size2 else (args.size,), batch=args.batch,
-            warmup=args.warmup)
+            warmup=args.warmup, project_every=args.project_every)
         print(json.dumps({"launches": launches}))
         return
     import jax

@@ -32,6 +32,15 @@
 #
 #   PROTOCOL=r3_rag_off PARENT=_compare/parent bash scripts/torch_trained_run.sh [OUT]
 #   PROTOCOL=r3_rag_gated bash scripts/torch_trained_run.sh [OUT]
+#
+# PROTOCOL=r4_multitask runs instead the multi-task protocol that
+# MULTITASK_r04.json records for the JAX package (scripts/r4_chip_runs.sh's
+# step 7): train_multitask with the segmentation and depth heads, 20,000
+# steps at 416², batch 8, on 1,600 + 200 dense shapes images generated in
+# data/shapes_mt416, then scripts/torch_run_summary.py --multitask beside the
+# reference (STEPS is ignored; train_multitask keeps no checkpoint).
+#
+#   PROTOCOL=r4_multitask bash scripts/torch_trained_run.sh [OUT]
 set -uo pipefail
 OUT=${1:-runs/trained_report}
 STEPS=${2:-10000}
@@ -74,6 +83,18 @@ measure_on_checkpoint() {
 }
 
 stamp start
+if [ "$PROTOCOL" = r4_multitask ]; then
+  RUN=runs/r4_multitask
+  python -m hvs_tpu_torch.train_multitask --size 416 --steps 20000 --num-train 1600 \
+    --num-val 200 --batch-size 8 --data-root data/shapes_mt416 --output "$RUN/report.json" \
+    > "$OUT/train.log" 2>&1 || { stamp train_failed; tail -50 "$OUT/train.log"; exit 1; }
+  stamp trained
+  cp "$RUN/report.json" "$OUT/report.json"
+  python scripts/torch_run_summary.py --multitask "$RUN/report.json" > "$OUT/summary.json" \
+    || { stamp summary_failed; exit 1; }
+  cat "$OUT/summary.json"
+  exit 0
+fi
 if [ ! -f "$DATA/annotations/instances_val.json" ]; then
   python -m hvs_tpu_torch.make_shapes_dataset --root "$DATA" --size 640 \
     > "$OUT/make_dataset.log" 2>&1 || { stamp dataset_failed; exit 1; }

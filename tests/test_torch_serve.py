@@ -127,8 +127,8 @@ _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|hvs_tpu)(\.
 def test_port_imports_no_jax():
     """Importing every module of the port, its subpackages included (and
     chip_smoke.py), leaves jax, flax, optax, orbax and hvs_tpu out of
-    sys.modules; no source line of them, or of the port's card scripts
-    (scripts/torch_*.py), imports them."""
+    sys.modules; no source line of them, of the port's card scripts
+    (scripts/torch_*.py) or of its tours (examples/torch_*.py), imports them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import hvs_tpu_torch, chip_smoke\n"
@@ -152,6 +152,11 @@ def test_port_imports_no_jax():
                 if f.startswith("torch_") and f.endswith(".py")
                 and f not in ("torch_import_checkpoint.py", "torch_train_parity.py")]
     assert len(sources) >= 7
+    # The port's runnable tours, which import only the port.
+    tours = [os.path.join(REPO, "examples", f) for f in os.listdir(os.path.join(REPO, "examples"))
+             if f.startswith("torch_") and f.endswith(".py")]
+    assert len(tours) == 6
+    sources += tours
     for root, _, files in os.walk(os.path.join(REPO, "hvs_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:
