@@ -21,6 +21,15 @@ graph per bucket (and per registered raw source shape):
   * ``dispatch_batch`` / ``finalize_batch`` split enqueueing from waiting, so
     the micro-batcher assembles batch N+1 while batch N runs.
 
+While a ``torch.profiler`` runs in the process, the engine records spans of
+its own work into ``engine.spans`` (``utils/tracing.py``): per batch
+``engine.dispatch`` (children ``engine.ring_wait``, ``engine.stage``,
+``engine.letterbox_eager``, ``engine.launch``) and ``engine.finalize``
+(``engine.copyout_wait``, ``engine.postprocess``), ``engine.capture`` per
+graph, the batcher's ``batcher.wait`` and ``batcher.assemble``, and per
+request ``request.queued`` (submit to its batch's dispatch). Counters of
+set-up and of the eager path are always kept (``get_performance_stats``).
+
 On the CPU (``device="cpu"``) nothing is captured: the same serve functions
 run eagerly, with the plain versions of the kernels.
 
@@ -56,6 +65,7 @@ from ..models.quantize import load_quant_scales
 from ..models.rag import roi_pool_bilinear
 from ..ops.sinkhorn import doubly_stochastic_error, sinkhorn_log
 from ..utils.metrics import InferenceMetrics
+from ..utils.tracing import NO_SPAN, SpanRecorder, now_ns
 
 WARMUP_CALLS = 3  # eager calls on a side stream before a capture
 
@@ -137,9 +147,11 @@ class _BucketServe:
     """
 
     def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], in_shape, device,
-                 stream=None, pool=None, staged: bool = False, nms_method: str = "hard"):
+                 spans: SpanRecorder, stream=None, pool=None, staged: bool = False,
+                 nms_method: str = "hard"):
         self.fn = fn
         self.device = device
+        self.spans = spans
         # The NMS method is part of what the graph was captured for, as it is
         # part of the reference's program key.
         self.nms_method = nms_method
@@ -157,8 +169,12 @@ class _BucketServe:
                       for _ in range(2)] if staged and device.type == "cuda" else []
         self._ring_read: List[Optional[torch.cuda.Event]] = [None, None]
         self._slot = 0
+        self.capture_s = 0.0  # the warm-up calls and the capture
         if device.type == "cuda":
-            self._capture(stream, pool)
+            t0 = time.perf_counter()
+            with self.spans.span("engine.capture"):
+                self._capture(stream, pool)
+            self.capture_s = time.perf_counter() - t0
 
     def _capture(self, stream, pool) -> None:
         # Kernels are built and loaded, cuBLAS/cuDNN initialised and the
@@ -184,25 +200,28 @@ class _BucketServe:
             return self.fn(images_u8)
 
     def stage(self, images: Sequence[np.ndarray], stream) -> None:
-        """Copy host frames into ``static_in`` (rows past them zeroed)."""
+        """Copy host frames into ``static_in`` (rows past them zeroed). On
+        the CPU there is no ring, and its wait is empty."""
         n = len(images)
-        if not self._ring:
-            for i, img in enumerate(images):
-                self.static_in[i].copy_(torch.from_numpy(np.ascontiguousarray(img)))
-            self.static_in[n:].zero_()
-            return
         slot = self._slot
         self._slot ^= 1
-        if self._ring_read[slot] is not None:
-            self._ring_read[slot].synchronize()
-        buf = self._ring[slot].numpy()
-        for i, img in enumerate(images):
-            buf[i] = img
-        buf[n:] = 0
-        self.static_in.copy_(self._ring[slot], non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(stream)
-        self._ring_read[slot] = event
+        with self.spans.span("engine.ring_wait"):
+            if self._ring_read[slot] is not None:
+                self._ring_read[slot].synchronize()
+        with self.spans.span("engine.stage"):
+            if not self._ring:
+                for i, img in enumerate(images):
+                    self.static_in[i].copy_(torch.from_numpy(np.ascontiguousarray(img)))
+                self.static_in[n:].zero_()
+                return
+            buf = self._ring[slot].numpy()
+            for i, img in enumerate(images):
+                buf[i] = img
+            buf[n:] = 0
+            self.static_in.copy_(self._ring[slot], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+            self._ring_read[slot] = event
 
     def run(self, stream) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
         """Replay (or call) the function on ``static_in``; returns the packed
@@ -249,6 +268,7 @@ class InferenceEngine:
                  inference_config: Optional[InferenceConfig] = None,
                  variables: Optional[Dict[str, Any]] = None, rng_seed: int = 0, *,
                  device: DeviceLike = None):
+        t0 = time.perf_counter()
         self.config = inference_config or InferenceConfig()
         self.device = resolve_device(self.config.device if device is None else device)
         self.model_config = model_config or ModelConfig(device=self.device.type)
@@ -279,9 +299,15 @@ class InferenceEngine:
         self._stability_report: Optional[Dict[str, Any]] = None
         self._service_time_s: Dict[int, float] = {}
         self._raw_shapes: set = set()
+        self.spans = SpanRecorder()
+        # Always-on counters (get_performance_stats): graphs captured and the
+        # seconds their warm-up calls and captures took; batches served off
+        # the raw-frame graphs (letterboxed eagerly); the whole construction.
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.eager_batches = 0
         self.load_seconds = 0.0
 
-        t0 = time.perf_counter()
         if variables is None and self.config.checkpoint_path:
             variables = self.load_checkpoint(self.config.checkpoint_path)
         if variables is None:
@@ -447,8 +473,11 @@ class InferenceEngine:
             entry = self._serve_fns.get(key)
             if entry is None:
                 entry = _BucketServe(self._make_serve(src_hw), in_shape, self.device,
-                                     self._stream, self._pool, staged=src_hw is not None,
+                                     self.spans, self._stream, self._pool,
+                                     staged=src_hw is not None,
                                      nms_method=self.config.postprocessing.nms_method)
+                self.captures += entry.graph is not None
+                self.capture_seconds += entry.capture_s
                 self._serve_fns[key] = entry
             return entry
 
@@ -550,40 +579,51 @@ class InferenceEngine:
             return results
         return self.finalize_batch(self.dispatch_batch(images))
 
-    def dispatch_batch(self, images: Sequence[np.ndarray]) -> Dict[str, Any]:
+    def dispatch_batch(self, images: Sequence[np.ndarray],
+                       requests: Optional[Sequence[Tuple[int, int]]] = None) -> Dict[str, Any]:
         """Stage and enqueue one batch on the card without waiting for it.
 
         Uniform frames of a registered shape take the raw path (host frames
         staged through pinned memory, letterbox inside the graph); anything
         else is letterboxed eagerly on the card, rounded to uint8, and served
-        by the bucket's letterboxed graph. Returns a handle for
-        :meth:`finalize_batch`.
+        by the bucket's letterboxed graph. ``requests`` (the micro-batcher's)
+        gives each image's (submit stamp, request id): their latency then
+        starts at submit. Returns a handle for :meth:`finalize_batch`.
         """
-        t0 = time.perf_counter()
-        n = len(images)
-        bucket = self._bucket_for(n)
-        if n > bucket:
-            raise ValueError(f"batch of {n} exceeds the largest bucket {bucket}; "
-                             "use infer_batch (it chunks) or add a bigger bucket")
-        images = [np.asarray(img) for img in images]
-        shapes = {im.shape for im in images}
-        raw_ok = (len(shapes) == 1 and images[0].ndim == 3 and images[0].shape[2] == 3
-                  and images[0].dtype == np.uint8
-                  and tuple(images[0].shape[:2]) in self._raw_shapes)
-        if raw_ok:
-            h, w = images[0].shape[:2]
-            scale, _, pad = letterbox_geometry(h, w, self.image_size)
-            meta = [(scale, pad, (h, w))] * n
-            entry = self._serve_fn_raw(bucket, (h, w))
-        else:
-            entry = self._serve_fn(bucket)
-        with self._serve_lock, self._on(self._stream):
+        with self.spans.span("engine.dispatch") as batch:
+            t0 = now_ns()
+            if batch is not None and requests:
+                for submitted, rid in requests:
+                    self.spans.record("request.queued", submitted, t0, rid, parent=batch)
+            n = len(images)
+            bucket = self._bucket_for(n)
+            if n > bucket:
+                raise ValueError(f"batch of {n} exceeds the largest bucket {bucket}; "
+                                 "use infer_batch (it chunks) or add a bigger bucket")
+            images = [np.asarray(img) for img in images]
+            shapes = {im.shape for im in images}
+            raw_ok = (len(shapes) == 1 and images[0].ndim == 3 and images[0].shape[2] == 3
+                      and images[0].dtype == np.uint8
+                      and tuple(images[0].shape[:2]) in self._raw_shapes)
             if raw_ok:
-                entry.stage(images, self._stream)
+                h, w = images[0].shape[:2]
+                scale, _, pad = letterbox_geometry(h, w, self.image_size)
+                meta = [(scale, pad, (h, w))] * n
+                entry = self._serve_fn_raw(bucket, (h, w))
             else:
-                meta = self._letterbox_into(entry.static_in, images)
-            out, done = entry.run(self._stream)
-        return {"t0": t0, "n": n, "meta": meta, "out": out, "done": done}
+                entry = self._serve_fn(bucket)
+            with self._serve_lock, self._on(self._stream):
+                if raw_ok:
+                    entry.stage(images, self._stream)
+                else:
+                    self.eager_batches += 1
+                    with self.spans.span("engine.letterbox_eager"):
+                        meta = self._letterbox_into(entry.static_in, images)
+                with self.spans.span("engine.launch"):
+                    out, done = entry.run(self._stream)
+        submitted = None if requests is None else [stamp for stamp, _ in requests]
+        return {"t0": t0, "submitted": submitted, "batch": batch, "n": n, "meta": meta,
+                "out": out, "done": done}
 
     def _letterbox_into(self, batch: torch.Tensor, images: Sequence[np.ndarray]):
         """Letterbox each image on the engine's device into the uint8 rows of
@@ -606,19 +646,30 @@ class InferenceEngine:
         return meta
 
     def finalize_batch(self, handle: Dict[str, Any]) -> List[Detections]:
-        """Wait for a dispatched batch and split it into per-image results."""
-        if handle["done"] is not None:
-            handle["done"].synchronize()
-        boxes, scores, classes, num_valid, emb = _unpack_outputs(handle["out"].numpy())
-        latency = time.perf_counter() - handle["t0"]
-        n = handle["n"]
-        self.metrics.record(latency, batch_size=n)
-        return [
-            self._postprocess_host(boxes[i], scores[i], classes[i], num_valid[i],
-                                   *handle["meta"][i], latency,
-                                   embeddings=None if emb is None else emb[i])
-            for i in range(n)
-        ]
+        """Wait for a dispatched batch and split it into per-image results.
+        Latency runs from each image's start (its submit, through the
+        micro-batcher; else the dispatch): one metrics entry per batch of a
+        direct call, one per request of the batcher."""
+        with self.spans.span("engine.finalize", parent=handle["batch"]):
+            with self.spans.span("engine.copyout_wait"):
+                if handle["done"] is not None:
+                    handle["done"].synchronize()
+            with self.spans.span("engine.postprocess"):
+                boxes, scores, classes, num_valid, emb = _unpack_outputs(handle["out"].numpy())
+                now, n = now_ns(), handle["n"]
+                if handle["submitted"] is None:
+                    latency = [(now - handle["t0"]) / 1e9] * n
+                    self.metrics.record(latency[0], batch_size=n)
+                else:
+                    latency = [(now - stamp) / 1e9 for stamp in handle["submitted"]]
+                    for lat in latency:
+                        self.metrics.record(lat)
+                return [
+                    self._postprocess_host(boxes[i], scores[i], classes[i], num_valid[i],
+                                           *handle["meta"][i], latency[i],
+                                           embeddings=None if emb is None else emb[i])
+                    for i in range(n)
+                ]
 
     # ------------------------------------------------------------------
     def start_batcher(self) -> None:
@@ -653,6 +704,8 @@ class InferenceEngine:
         for b, t in self._service_time_s.items():
             stats[f"service_ms_b{b}"] = round(t * 1e3, 3)
         stats["raw_shapes_registered"] = len(self._raw_shapes)
+        stats.update(captures=self.captures, capture_seconds=self.capture_seconds,
+                     eager_batches=self.eager_batches, load_seconds=self.load_seconds)
         return stats
 
     def get_stability_report(self) -> Dict[str, Any]:
@@ -693,6 +746,7 @@ class _MicroBatcher:
 
     def __init__(self, engine: InferenceEngine):
         self.engine = engine
+        self.spans: SpanRecorder = engine.spans
         perf = engine.config.performance
         self.max_batch = max(perf.batch_buckets)
         depth = perf.max_queue_depth or self._sized_depth(perf)
@@ -701,6 +755,8 @@ class _MicroBatcher:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.max_delay_s = perf.max_queue_delay_ms / 1e3
+        # Counted from callers' threads: under a lock, so none is lost.
+        self._count_lock = threading.Lock()
         self.submitted = 0
         self.rejected = 0
         self.shed = 0
@@ -719,31 +775,36 @@ class _MicroBatcher:
         return max(self.max_batch, int(budget_ms / 1e3 / max(per_item_s, 1e-6)))
 
     def submit(self, image: np.ndarray) -> "Future[Detections]":
+        """Queue one image with its submit stamp and request id."""
         fut: "Future[Detections]" = Future()
-        self.submitted += 1
+        item = (image, fut, now_ns(), self.spans.new_id())
+        with self._count_lock:
+            self.submitted += 1
         while True:
             try:
-                self.queue.put_nowait((image, fut))
+                self.queue.put_nowait(item)
                 return fut
             except queue.Full:
                 if self.policy == "shed_oldest":
                     try:
-                        _, old_fut = self.queue.get_nowait()
-                        self.shed += 1
-                        if not old_fut.done():
-                            old_fut.set_exception(EngineOverloaded("request shed under overload"))
+                        old_fut = self.queue.get_nowait()[1]
                     except queue.Empty:
                         continue
+                    with self._count_lock:
+                        self.shed += 1
+                    if not old_fut.done():
+                        old_fut.set_exception(EngineOverloaded("request shed under overload"))
                 else:
-                    self.rejected += 1
+                    with self._count_lock:
+                        self.rejected += 1
                     raise EngineOverloaded(
                         f"queue full ({self.queue.maxsize} pending); retry later")
 
     def stats(self) -> Dict[str, float]:
+        with self._count_lock:
+            counts = {"submitted": self.submitted, "rejected": self.rejected, "shed": self.shed}
         return {
-            "submitted": self.submitted,
-            "rejected": self.rejected,
-            "shed": self.shed,
+            **counts,
             "queue_depth": self.queue.qsize(),
             "queue_capacity": self.queue.maxsize,
         }
@@ -753,11 +814,11 @@ class _MicroBatcher:
             items, handle = pending
             try:
                 results = self.engine.finalize_batch(handle)
-                for (_, fut), det in zip(items, results):
+                for (_, fut, _, _), det in zip(items, results):
                     fut.set_result(det)
             except Exception as e:
                 self.engine.metrics.record_error()
-                for _, fut in items:
+                for _, fut, _, _ in items:
                     if not fut.done():
                         fut.set_exception(e)
 
@@ -765,38 +826,41 @@ class _MicroBatcher:
             # Double-buffered: batch N runs on the card while batch N+1 is
             # assembled on the host.
             pending = None
+            spans = self.spans
             while not self._stop.is_set():
                 try:
-                    first = self.queue.get(timeout=0.02 if pending else 0.1)
+                    with spans.span("batcher.wait") if pending is None else NO_SPAN:
+                        first = self.queue.get(timeout=0.02 if pending else 0.1)
                 except queue.Empty:
                     if pending is not None:
                         finalize(pending)
                         pending = None
                     continue
-                items = [first]
-                while len(items) < self.max_batch:
-                    try:
-                        items.append(self.queue.get_nowait())
-                    except queue.Empty:
-                        break
-                # Wait for stragglers only while a batch is in flight (that
-                # wait hides under the card's work); an idle card ships now.
-                if pending is not None:
-                    deadline = time.perf_counter() + self.max_delay_s
+                with spans.span("batcher.assemble"):
+                    items = [first]
                     while len(items) < self.max_batch:
-                        remaining = deadline - time.perf_counter()
-                        if remaining <= 0:
-                            break
                         try:
-                            items.append(self.queue.get(timeout=remaining))
+                            items.append(self.queue.get_nowait())
                         except queue.Empty:
                             break
-                images = [im for im, _ in items]
+                    # Wait for stragglers only while a batch is in flight (that
+                    # wait hides under the card's work); an idle card ships now.
+                    if pending is not None:
+                        deadline = time.perf_counter() + self.max_delay_s
+                        while len(items) < self.max_batch:
+                            remaining = deadline - time.perf_counter()
+                            if remaining <= 0:
+                                break
+                            try:
+                                items.append(self.queue.get(timeout=remaining))
+                            except queue.Empty:
+                                break
                 try:
-                    handle = self.engine.dispatch_batch(images)
+                    handle = self.engine.dispatch_batch(
+                        [item[0] for item in items], [item[2:] for item in items])
                 except Exception as e:
                     self.engine.metrics.record_error()
-                    for _, fut in items:
+                    for _, fut, _, _ in items:
                         fut.set_exception(e)
                     continue
                 if pending is not None:

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from .inference.engine import _MicroBatcher
+from .utils.tracing import SpanRecorder
 
 
 class StubEngine:
@@ -44,12 +45,13 @@ class StubEngine:
             batch_buckets=buckets, max_queue_depth=depth, overload_policy="reject",
             max_queue_delay_ms=deadline_ms))
         self.metrics = SimpleNamespace(record_error=lambda: None)
+        self.spans = SpanRecorder()
         self.fixed_s = fixed_ms / 1e3
         self.per_item_s = per_item_ms / 1e3
         self._lock = threading.Lock()
         self._device_free_at = 0.0  # the device is busy until then
 
-    def dispatch_batch(self, images):
+    def dispatch_batch(self, images, requests=None):
         n = len(images)
         with self._lock:
             now = time.perf_counter()
@@ -74,10 +76,10 @@ class LegacyBatcher(_MicroBatcher):
             items, handle = pending
             try:
                 results = self.engine.finalize_batch(handle)
-                for (_, fut), det in zip(items, results):
+                for (_, fut, _, _), det in zip(items, results):
                     fut.set_result(det)
             except Exception as e:
-                for _, fut in items:
+                for _, fut, _, _ in items:
                     if not fut.done():
                         fut.set_exception(e)
 
@@ -101,7 +103,7 @@ class LegacyBatcher(_MicroBatcher):
                         items.append(self.queue.get(timeout=remaining))
                     except queue_mod.Empty:
                         break
-                handle = self.engine.dispatch_batch([im for im, _ in items])
+                handle = self.engine.dispatch_batch([item[0] for item in items])
                 if pending is not None:
                     finalize(pending)
                 pending = (items, handle)

@@ -11,6 +11,8 @@ versions). The engine's agreement with the JAX engine is in
 
 import asyncio
 import json
+import queue
+import sys
 import threading
 import time
 from types import SimpleNamespace
@@ -25,6 +27,7 @@ from hvs_tpu_torch.device import pin_matmul_precision
 from hvs_tpu_torch.inference import (AsyncInferenceEngine, EngineOverloaded, ImagePreprocessor,
                                      InferenceEngine, NMSFilter)
 from hvs_tpu_torch.inference.engine import _MicroBatcher
+from hvs_tpu_torch.utils.tracing import SpanRecorder
 
 torch.set_num_threads(1)
 
@@ -72,7 +75,8 @@ def tiny_port_engine():
 def make_batcher(policy="reject", depth=4):
     perf = SimpleNamespace(batch_buckets=(1, 2), max_queue_depth=depth, overload_policy=policy,
                            max_queue_delay_ms=33.0)
-    return _MicroBatcher(SimpleNamespace(config=SimpleNamespace(performance=perf)))
+    return _MicroBatcher(SimpleNamespace(config=SimpleNamespace(performance=perf),
+                                         spans=SpanRecorder()))
 
 
 @pytest.mark.parametrize("policy", ["reject", "shed_oldest"])
@@ -95,7 +99,8 @@ def test_overload_policy(policy):
 def test_queue_depth_sized_from_service_time():
     perf = SimpleNamespace(batch_buckets=(1, 2, 8), max_queue_depth=0, overload_policy="reject",
                            max_queue_delay_ms=33.0, queue_budget_ms=100.0, latency_target_ms=50.0)
-    engine = SimpleNamespace(config=SimpleNamespace(performance=perf), _service_time_s={})
+    engine = SimpleNamespace(config=SimpleNamespace(performance=perf), _service_time_s={},
+                             spans=SpanRecorder())
     assert _MicroBatcher(engine).queue.maxsize == 16  # no warmup: 2 x largest bucket
     engine._service_time_s = {1: 0.010, 8: 0.040}  # 5 ms per item at bucket 8
     assert _MicroBatcher(engine).queue.maxsize == 20  # 100 ms / 5 ms
@@ -125,10 +130,11 @@ class _StubEngine:
             batch_buckets=(1, 2, 8), max_queue_depth=64, overload_policy="reject",
             max_queue_delay_ms=max_delay_ms))
         self.metrics = SimpleNamespace(record_error=lambda: None)
+        self.spans = SpanRecorder()
         self.dispatches = []
         self.service_s = service_s
 
-    def dispatch_batch(self, images):
+    def dispatch_batch(self, images, requests=None):
         self.dispatches.append(len(images))
         return {"n": len(images)}
 
@@ -249,6 +255,46 @@ def test_engine_micro_batcher_and_async_facade(tiny_port_engine):
     one, many = asyncio.run(go())
     assert one.latency_ms > 0 and len(many) == 2
     assert tiny_port_engine._batcher is None
+
+
+@pytest.mark.parametrize("policy", ["reject", "shed_oldest"])
+def test_batcher_counts_are_exact_under_concurrent_submits(tiny_port_engine, policy):
+    """8 threads submit 500 requests each to a running batcher with a short
+    queue: every submit is counted, and each refusal or shed once."""
+    b = _MicroBatcher(tiny_port_engine)
+    b.policy, b.queue = policy, queue.Queue(maxsize=4)
+    futs, refused, lock = [], [0], threading.Lock()
+
+    def client():
+        mine, no = [], 0
+        for _ in range(500):
+            try:
+                mine.append(b.submit(IMG))
+            except EngineOverloaded:
+                no += 1
+        with lock:
+            futs.extend(mine)
+            refused[0] += no
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    b.start()
+    try:
+        threads = [threading.Thread(target=client) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        b.stop()
+    stats = b.stats()
+    assert stats["submitted"] == len(futs) + refused[0] == 4000
+    assert stats["rejected"] == refused[0]
+    shed = sum(1 for f in futs if f.done() and isinstance(f.exception(), EngineOverloaded))
+    assert stats["shed"] == shed
+    assert (refused[0] > 0) == (policy == "reject") and (shed > 0) == (policy == "shed_oldest")
 
 
 def _port_params(seed):

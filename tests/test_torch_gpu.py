@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels; they need a card and skip without one.
+"""Tests of the port's CUDA kernels and of the serving engine's spans on the
+card; they need a card and skip without one.
 
 This file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -13,6 +14,7 @@ import torch
 
 from hvs_tpu_torch.ops import mhc_block as mhc_mod
 from hvs_tpu_torch.ops import sinkhorn as sink_mod
+from hvs_tpu_torch.inference import InferenceEngine
 from hvs_tpu_torch.ops.sinkhorn import sinkhorn_log
 
 # The kernel and its plain version round at the same points (the GELU with
@@ -1369,3 +1371,72 @@ def test_kernel_b_and_c_operators_launch_and_count_as_on_the_cpu():
     np.testing.assert_allclose(g.cpu().numpy(), step(ref).numpy(), rtol=1e-4, atol=1e-6)
     counts = [ModelProfiler(step, t).cost_analysis() for t in (logits, ref)]
     assert counts[0] == counts[1] and counts[0]["transcendentals"] == (42 + 40) * 5 * 64 * 64
+
+
+_RAW_HW = (48, 64)
+
+
+def _tiny_engine_configs():
+    """A tiny flagship and its serving config on the card (the CPU engine
+    tests' sizes, ``tests/test_torch_engine_serving.py``)."""
+    from hvs_tpu_torch.config import InferenceConfig, ModelConfig
+
+    mcfg = ModelConfig(input_size=64, feature_dim=32, device="cuda")
+    mcfg.backbone.stage_channels = (16, 24, 32, 40)
+    mcfg.backbone.stage_blocks = (1, 1, 1, 1)
+    mcfg.vit.dim, mcfg.vit.depth, mcfg.vit.num_heads = 16, 1, 2
+    mcfg.fusion.fpn_channels = 16
+    mcfg.fusion.out_channels = (16, 24, 32)
+    mcfg.detection.head_channels = 16
+    mcfg.detection.num_classes = 8
+    mcfg.mhc.sinkhorn_iterations = 5
+    icfg = InferenceConfig(device="cuda")
+    icfg.preprocessing.image_size = 64
+    icfg.performance.batch_buckets = (1, 2)
+    icfg.postprocessing.score_threshold = 0.01
+    icfg.postprocessing.pre_nms_top_k = 64
+    icfg.postprocessing.max_detections = 16
+    return mcfg, icfg
+
+
+def _frame(seed):
+    return np.random.default_rng(seed).integers(0, 255, (*_RAW_HW, 3), np.uint8)
+
+
+@pytest.mark.gpu
+def test_on_the_card_captures_are_spans_and_the_card_shares_the_clock():
+    """A tiny engine on the card, traced: one ``engine.capture`` span per
+    graph beside the counters; the staged frames' copy to the card starts
+    inside the batch's dispatch on the trace's clock; the program's ranges
+    on the card's timeline are annotations, not operations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the engine captures graphs only there")
+    engine = InferenceEngine(*_tiny_engine_configs())
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        engine.register_raw_shape(_RAW_HW)
+        for k in range(3):
+            engine.infer_batch([_frame(k), _frame(k + 1)])
+        torch.cuda.synchronize()
+    spans = engine.spans.spans()
+    stats = engine.get_performance_stats()
+    captures = [s for s in spans if s[0] == "engine.capture"]
+    assert stats["captures"] == len(captures) == 2  # buckets (1, 2)
+    assert stats["capture_seconds"] == pytest.approx(sum((s[2] - s[1]) / 1e9 for s in captures),
+                                                     rel=0.05, abs=5e-3)
+    assert {s[0] for s in spans} >= {"engine.dispatch", "engine.ring_wait", "engine.stage",
+                                     "engine.launch", "engine.finalize",
+                                     "engine.copyout_wait", "engine.postprocess"}
+    events = prof.profiler.kineto_results.events()
+    cuda = [ev for ev in events if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    assert all(ev.is_user_annotation() for ev in cuda if ev.name().startswith("hvs."))
+    # Each copy to the card in the batches (the staged frames) starts after
+    # its batch's stage span opened and before its copy-out was waited for.
+    batches = sorted((st[1], w[2]) for st, w in zip(
+        sorted(s for s in spans if s[0] == "engine.stage"),
+        sorted(s for s in spans if s[0] == "engine.copyout_wait")))
+    copies = [ev.start_ns() for ev in cuda
+              if "HtoD" in ev.name() and ev.start_ns() >= batches[0][0] - 1_000_000]
+    assert len(batches) == 3 and len(copies) >= 3
+    for copy in copies:
+        assert any(lo <= copy <= hi for lo, hi in batches), (copy, batches)
