@@ -224,6 +224,7 @@ import torch.nn.functional as F
 
 import hvs_tpu_torch
 from hvs_tpu_torch import build
+from hvs_tpu_torch.ops import group_norm as gn_mod
 from hvs_tpu_torch.ops import mhc_block as mhc_mod
 from hvs_tpu_torch.ops import sinkhorn as sink_mod
 from hvs_tpu_torch.ops.sinkhorn import sinkhorn_log
@@ -498,6 +499,20 @@ def entry_point_phase(phase, defaults: dict, *args):
 def zero_counts() -> None:
     mhc_mod.launches = mhc_mod.launches_unfolded = 0
     sink_mod.launches_forward = sink_mod.launches_backward = 0
+    gn_mod.launches_stats = gn_mod.launches_apply = 0
+
+
+def gn_counts() -> dict:
+    """The GroupNorm pair's launch counters."""
+    return {"gn_stats": gn_mod.launches_stats, "gn_apply": gn_mod.launches_apply}
+
+
+def gn_per_forward(model: str) -> dict:
+    """The pair's launches in one serve forward of ``model`` (``GN_SITES``):
+    gn_stats at every GroupNorm + SiLU site, every tail and every normalised
+    shortcut; gn_apply at every GroupNorm + SiLU site and every tail."""
+    silu_sites, tails, normed = GN_SITES[model]
+    return {"gn_stats": silu_sites + tails + normed, "gn_apply": silu_sites + tails}
 
 
 def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
@@ -763,15 +778,255 @@ def kernel_summary(per_shape, launches: int, lightweight: int, exported: int):
 
 
 # ---------------------------------------------------------------------------
+# GroupNorm kernel pair: gn_stats / gn_apply
+
+
+# Sites of one serve forward: GroupNorm + SiLU, folded tails, and the tails
+# whose projected shortcut is normalised.
+GN_SITES = {"flagship": (33, 11, 3), "lightweight": (23, 6, 3)}
+# Share of the elements where a kernel and its plain version give the same
+# bf16 bits: they round at the same points and differ only where the
+# statistics' summation order moves an fp32 value across a rounding boundary
+# (at most 4 in 10^5 at these sites and seeds). Every element besides is held
+# to ``gn_excess``.
+GN_MIN_EXACT = 0.9999
+GN_STATS_RTOL = 1e-5  # the statistics' relative difference allowed
+SILU_LIPSCHITZ = 1.1  # max |d silu / dx|
+
+
+def gn_site_calls(name: str, batch: int, image: int = IMAGE):
+    """The GroupNorm operator calls of one serve forward of ``name`` at
+    ``batch`` x ``image``²: ("silu", B, HW, C) for each GroupNorm + SiLU and
+    ("tail", B, HW, C, normed shortcut) for each folded tail, in order."""
+    from unittest import mock
+
+    from hvs_tpu_torch.inference import Detector
+    from hvs_tpu_torch.models import LightweightHybridVision, ProductionHybridVision
+
+    cls, kw = ((ProductionHybridVision, {}) if name == "flagship" else
+               (LightweightHybridVision, dict(precomputed_constraints=True, dropout_rate=0.0)))
+    det = Detector(cls(seed=1, device="cuda", **kw), device="cuda")
+    calls = []
+    apply, tail = gn_mod.gn_apply, gn_mod.gn_apply_tail
+
+    def rec_apply(x, stats, scale, bias, groups, eps, silu):
+        calls.append(("silu" if silu else "norm", x.shape[0], x[0, ..., 0].numel(), x.shape[-1]))
+        return apply(x, stats, scale, bias, groups, eps, silu)
+
+    def rec_tail(y, s, t, shortcut, shortcut_stats=None, *rest):
+        calls.append(("tail", y.shape[0], y[0, ..., 0].numel(), y.shape[-1],
+                      shortcut_stats is not None))
+        return tail(y, s, t, shortcut, shortcut_stats, *rest)
+
+    x = torch.rand(batch, image, image, 3, device="cuda")
+    with mock.patch.object(gn_mod, "gn_apply", rec_apply), \
+            mock.patch.object(gn_mod, "gn_apply_tail", rec_tail), torch.inference_mode():
+        det.model(x)
+    torch.cuda.synchronize()
+    return calls
+
+
+def gn_site_inputs(site, seed: int):
+    """Seeded inputs of one site: the map(s) [B, HW, C] bf16 and the fp32
+    vectors of the pair (GroupNorm scale and bias; a tail's s and t [B, C])."""
+    r = np.random.default_rng(seed)
+    kind, b, hw, c = site[:4]
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dtype)
+
+    x = t(0.3 + 1.5 * r.standard_normal((b, hw, c)), torch.bfloat16)
+    scale, bias = t(r.uniform(0.5, 1.5, c)), t(r.uniform(-0.5, 0.5, c))
+    if kind != "tail":
+        return x, scale, bias
+    sc = t(r.standard_normal((b, hw, c)), torch.bfloat16)
+    s, tt = t(r.uniform(0.2, 1.0, (b, c))), t(r.uniform(-0.3, 0.3, (b, c)))
+    return x, sc, s, tt, scale, bias
+
+
+def bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at |a| (fp32 tensor)."""
+    _, e = torch.frexp(a.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def gn_excess(site, inputs, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest amount by which an element of the kernel's output ``out``
+    lies outside its bound around the plain version's ``ref``: one bf16 step,
+    plus the statistics' relative ``GN_STATS_RTOL`` carried through the
+    terms of x·s + t (|x·s|, |bias| and |mean·s|, which may cancel) and,
+    where the plain chain rounds before its SiLU, one step of the rounded
+    pre-activation through the SiLU. A tail's s and t reach both versions as
+    they are; only a normalised shortcut's statistics differ. Above 0 is a
+    fault."""
+    kind = site[0]
+    if kind == "tail" and not site[4]:
+        slack = torch.zeros_like(out, dtype=torch.float32)
+    else:
+        # A tail's normalised map is its shortcut (``gn_site_fns``).
+        x, scale, bias = (inputs[1], inputs[4], inputs[5]) if kind == "tail" else inputs
+        p, p2 = gn_mod.channel_means(gn_mod.gn_stats_plain(x))
+        s, t = gn_mod.affine(p, p2, scale, bias, 8, 1e-5)
+        x32 = x.float()
+        terms = (x32 * s[:, None]).abs() + bias.abs() + (bias - t).abs()[:, None]
+        slack = GN_STATS_RTOL * terms
+        if kind == "silu":
+            slack = SILU_LIPSCHITZ * (slack + bf16_ulp(x32 * s[:, None] + t[:, None]))
+        elif kind == "tail":
+            slack = SILU_LIPSCHITZ * slack
+    a, b = out.float(), ref.float()
+    return float(((a - b).abs() - bf16_ulp(torch.maximum(a.abs(), b.abs())) - slack).max())
+
+
+def gn_site_fns(site, inputs):
+    """(kernel pair, plain version, library call or None) of one site, each a
+    function of no arguments doing all of the site's work: a tail's
+    statistics of y (for the SE), of a normalised shortcut, and the apply."""
+    kind, normed = site[0], site[4] if site[0] == "tail" else False
+    if kind != "tail":
+        x, scale, bias = inputs
+        g = 8
+        # NCHW, the library's own layout; it takes the weights in x's dtype.
+        x4 = x.transpose(1, 2).contiguous()
+        w4, b4 = scale.to(x.dtype), bias.to(x.dtype)
+
+        def kernel():
+            return gn_mod.gn_apply(x, gn_mod.gn_stats(x), scale, bias, g, 1e-5, kind == "silu")
+
+        def plain():
+            return gn_mod.gn_apply_plain(x, gn_mod.gn_stats_plain(x), scale, bias, g, 1e-5,
+                                         kind == "silu")
+
+        def library():
+            return F.silu(F.group_norm(x4, g, w4, b4, 1e-5))
+
+        return kernel, plain, library
+    y, sc, s, t, scale, bias = inputs
+
+    def pair(stats_fn, tail_fn):
+        def run():
+            stats_fn(y)
+            if normed:
+                return tail_fn(y, s, t, sc, stats_fn(sc), scale, bias, 8, 1e-5)
+            return tail_fn(y, s, t, sc)
+        return run
+
+    return (pair(gn_mod.gn_stats, gn_mod.gn_apply_tail),
+            pair(gn_mod.gn_stats_plain, gn_mod.gn_apply_tail_plain), None)
+
+
+def gn_bound_ms(site) -> float:
+    """Least time on the card: each input map read once and the output
+    written once, 2 bytes an element (GroupNorm: x and out, 4·B·HW·C bytes;
+    a tail: y, shortcut and out, 6·B·HW·C), over the memory rate."""
+    kind, b, hw, c = site[:4]
+    maps = 3 if kind == "tail" else 2
+    return 2.0 * maps * b * hw * c / PEAK_BYTES * 1e3
+
+
+def phase_group_norm(card: str) -> dict:
+    """The GroupNorm kernel pair at the main-path shapes: the sites of one
+    batch-16 640² serve forward of the flagship and of the lightweight
+    model, each site against its plain version (the share of bit-equal
+    elements, the largest difference, the statistics' relative error), its
+    time beside the bound and the plain version's, and ``F.group_norm`` +
+    ``F.silu`` on an NCHW map as the yardstick (``library_ms``; the port
+    never calls it). Totals per model over its sites. The sites come from one
+    eager forward of each model, which must launch the pair as
+    ``gn_per_forward`` says (the serve and engine phases count the main
+    paths' launches). Fails on disagreement, a wrong launch count or a fault
+    (``torch.cuda.synchronize``)."""
+    rows, totals = {}, {}
+    for name in ("flagship", "lightweight"):
+        zero_counts()
+        calls = gn_site_calls(name, SERVE_BATCH)
+        silu_sites, tails, normed = GN_SITES[name]
+        got, want = gn_counts(), gn_per_forward(name)
+        kinds = [c[0] for c in calls]
+        if got != want or kinds.count("silu") != silu_sites or kinds.count("tail") != tails \
+                or sum(c[0] == "tail" and c[4] for c in calls) != normed:
+            fail(f"group_norm {name}: launches {got} over one forward with sites {calls}, "
+                 f"expected {want}")
+        total = {"phase": "kernel_total", "kernel": "group_norm", "model": name,
+                 "sites": len(calls), "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "library_ms": 0.0, "card": card}
+        for site in calls:
+            if site not in rows:
+                inputs = gn_site_inputs(site, seed=sum(site[1:4]))
+                kernel, plain, library = gn_site_fns(site, inputs)
+                out, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                a, b = out.float(), ref.float()
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"group_norm {site}: non-finite output")
+                exact = float((out.view(torch.int16) == ref.view(torch.int16)).float().mean())
+                x = inputs[0]
+                m, m2 = gn_mod.channel_means(gn_mod.gn_stats(x))
+                p, p2 = gn_mod.channel_means(gn_mod.gn_stats_plain(x))
+                stats_rel = float(torch.maximum((m - p).abs() / p2.sqrt(),
+                                                (m2 - p2).abs() / p2).max())
+                excess = gn_excess(site, inputs, out, ref)
+                row = {"phase": "kernel", "kernel": "group_norm", "site": list(site),
+                       "slices": gn_mod.num_slices(site[2], site[3]), "exact_share": exact,
+                       "max_abs_err": float((a - b).abs().max()), "bound_excess": excess,
+                       "stats_rel_err": stats_rel,
+                       "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                       "bound_ms": gn_bound_ms(site),
+                       "library_ms": time_ms(library) if library else None, "card": card}
+                print(json.dumps(row), flush=True)
+                if exact < GN_MIN_EXACT or excess > 0.0 or stats_rel > GN_STATS_RTOL:
+                    fail(f"group_norm {site} disagrees with its plain version: {exact} of the "
+                         f"elements equal (need {GN_MIN_EXACT}), an element {excess} outside "
+                         f"its bound (need <= 0), statistics {stats_rel} apart "
+                         f"(need <= {GN_STATS_RTOL})")
+                rows[site] = row
+            row = rows[site]
+            for k in ("ms", "plain_ms", "bound_ms"):
+                total[k] += row[k]
+            total["library_ms"] += row["library_ms"] or 0.0
+        torch.cuda.synchronize()
+        print(json.dumps(total), flush=True)
+        totals[name] = total
+    return totals
+
+
+def group_norm_summary(totals: dict, serve: dict, lightweight: dict, engine: dict) -> dict:
+    """The pair over the flagship's sites of one batch-16 640² forward (the
+    lightweight model's beside it), with its launches on the main paths:
+    ``serve`` and ``lightweight`` over the serve phases' ``Detector``
+    forwards, ``engine`` over the engine's captures."""
+    f, lw = totals["flagship"], totals["lightweight"]
+    return {
+        "name": "group_norm",
+        "route": "cuda",
+        "source": "hvs_tpu_torch/csrc/group_norm.cu",
+        "replaces": "none: XLA fused this glue on the TPU",
+        "launches": serve,
+        "launches_lightweight": lightweight,
+        "launches_engine": engine,
+        "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+        "bound_by": "bytes",
+        # F.group_norm + F.silu at the GroupNorm + SiLU sites only (no
+        # library call computes a folded tail).
+        "library_ms": f["library_ms"],
+        "lightweight_ms": lw["ms"], "lightweight_plain_ms": lw["plain_ms"],
+        "lightweight_bound_ms": lw["bound_ms"], "lightweight_library_ms": lw["library_ms"],
+    }
+
+
+# ---------------------------------------------------------------------------
 # Serve path
 
 
-def phase_serve(card: str, build=None, sites: int = KERNEL_SITES, name: str = "serve") -> int:
+def phase_serve(card: str, build=None, sites: int = KERNEL_SITES, name: str = "serve",
+                gn_model: str = "flagship"):
     """A model served by ``Detector`` at 640², batch 16 and batch 1: the
     flagship ``ProductionHybridVision``, or what ``build()`` returns with
-    ``sites`` kernel-A sites. Counters are zeroed before the load (kernel B,
-    one launch per mHC matrix) and again before the forwards. Returns kernel
-    A's launches over this phase's forwards (``sites`` per forward)."""
+    ``sites`` kernel-A sites and the GroupNorm sites of ``gn_model``.
+    Counters are zeroed before the load (kernel B, one launch per mHC
+    matrix) and again before the forwards. Returns kernel A's launches over
+    this phase's forwards (``sites`` per forward) and the GroupNorm pair's
+    (``gn_per_forward`` each)."""
     from hvs_tpu_torch.inference import Detector
     from hvs_tpu_torch.models import ProductionHybridVision
     from hvs_tpu_torch.models.layers import ManifoldHyperConnection
@@ -821,15 +1076,19 @@ def phase_serve(card: str, build=None, sites: int = KERNEL_SITES, name: str = "s
     if launches != sites * forwards:
         fail(f"{name}: mhc_block launched {launches} times over {forwards} forwards, expected "
              f"{sites} each")
+    gn_launches = gn_counts()
+    if gn_launches != {k: v * forwards for k, v in gn_per_forward(gn_model).items()}:
+        fail(f"{name}: the GroupNorm pair launched {gn_launches} over {forwards} forwards, "
+             f"expected {gn_per_forward(gn_model)} each")
     print(json.dumps({"phase": name, "image": IMAGE, "fps_batch16": fps,
                       "batch1_frame_ms": frame_ms, "forwards": forwards,
-                      "mhc_block_launches": launches,
+                      "mhc_block_launches": launches, "group_norm_launches": gn_launches,
                       "mhc_block_site_widths": sorted(m.dim for m in mhc if m.fused),
                       "sinkhorn_launches_at_load": load_launches["sinkhorn_forward"],
                       "load_s": load_s, "params": sum(p.numel() for p in det.model.parameters()),
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "card": card}), flush=True)
-    return launches
+    return launches, gn_launches
 
 
 def phase_parity(card: str, build=None, name: str = "parity") -> None:
@@ -940,17 +1199,19 @@ def check_detections(dets, shapes, where: str) -> int:
 ENGINE_GRAPH_ATOL = 1e-5
 
 
-def phase_engine(card: str) -> None:
+def phase_engine(card: str) -> dict:
     """The serving engine at the flagship's published widths: one CUDA graph
     per bucket of (1, 2, 4, 8, 16) at 640², and per bucket for 720x1280 raw
     frames (letterbox inside the graph); graph against eager at buckets 1 and
     16; the registered and an unregistered mix of shapes; the micro-batcher
     under 4 client threads for ~5 s with one hot swap mid-run; the stability
-    report (kernel B on the card)."""
+    report (kernel B on the card). Returns the GroupNorm pair's launches per
+    capture, which must be ``gn_per_forward``'s."""
     import threading
 
     from hvs_tpu_torch.config import InferenceConfig, ModelConfig
     from hvs_tpu_torch.inference import EngineOverloaded, InferenceEngine
+    from hvs_tpu_torch.inference.engine import WARMUP_CALLS as ENGINE_WARMUP_CALLS
 
     raw_hw = (720, 1280)
     cfg = InferenceConfig()
@@ -963,18 +1224,26 @@ def phase_engine(card: str) -> None:
     zero_counts()
     engine = InferenceEngine(ModelConfig(), cfg, variables={"params": old_params})
     b_per_load = sink_mod.launches_forward
+    gn0 = gn_counts()
     t0 = time.perf_counter()
     service = engine.warmup(cfg.performance.warmup_raw_shapes)
     capture_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     graphs = len(engine.replays)
+    # Each capture: WARMUP_CALLS eager calls and the capture, one forward each.
+    gn_per_capture = {k: (v - gn0[k]) / graphs / (ENGINE_WARMUP_CALLS + 1)
+                      for k, v in gn_counts().items()}
     print(json.dumps({"phase": "engine_load", "load_s": engine.load_seconds,
                       "capture_s": capture_s, "graphs": graphs,
                       "service_ms": {str(b): t * 1e3 for b, t in service.items()},
                       "peak_mem_gb": peak_gb, "sinkhorn_launches_per_load": b_per_load,
+                      "group_norm_launches_per_capture": gn_per_capture,
                       "kernel_sites": engine.kernel_sites, "card": card}), flush=True)
     if graphs != 2 * len(cfg.performance.batch_buckets):
         fail(f"engine captured {graphs} graphs, expected one per bucket and path")
+    if gn_per_capture != gn_per_forward("flagship"):
+        fail(f"engine: the GroupNorm pair launched {gn_per_capture} per capture, expected "
+             f"{gn_per_forward('flagship')}")
     if engine.kernel_sites != KERNEL_SITES:
         fail(f"engine model has {engine.kernel_sites} kernel sites, expected {KERNEL_SITES}")
 
@@ -1140,7 +1409,9 @@ def phase_engine(card: str) -> None:
     print(json.dumps({"phase": "engine_launches",
                       "graph_replays": {str(k): v for k, v in engine.replays.items()},
                       "replays": replays, "mhc_block_launches": replays * KERNEL_SITES,
+                      "group_norm_launches": {k: replays * v for k, v in gn_per_capture.items()},
                       "sinkhorn_launches_per_load": b_per_load, "card": card}), flush=True)
+    return gn_per_capture
 
 
 # ---------------------------------------------------------------------------
@@ -1698,7 +1969,7 @@ def phase_bundle(card: str) -> dict:
                "in_copy": all(r["library"].startswith(app) for r in libraries),
                "card": card}
         print(json.dumps(row), flush=True)
-        if built.returncode != 0 or len(libraries) != 2 or not row["in_copy"]:
+        if built.returncode != 0 or len(libraries) != len(build.sources()) or not row["in_copy"]:
             fail(f"bundle build: {row}; {built.stderr[-2000:]}")
 
         # The served subprocess, from the copy, on a checkpoint of seeded weights.
@@ -3759,20 +4030,22 @@ def phase_lightweight(card: str, sm_clock_hz: float) -> dict:
     kernel B, forward and backward, at the bottleneck widths 24, 48, 96 and
     192 and over the model's 13 matrices in one grouped call, against their
     plain versions. Returns the rows of the kernel checks and kernel A's
-    launches over the served forwards."""
+    and the GroupNorm pair's launches over the served forwards."""
     from hvs_tpu_torch.models import LightweightHybridVision
 
     def build(seed: int = 0):
         return LightweightHybridVision(precomputed_constraints=True, dropout_rate=0.0,
                                        seed=seed)
 
-    launches = phase_serve(card, build, LIGHT_SITES, "lightweight_serve")
+    launches, gn_launches = phase_serve(card, build, LIGHT_SITES, "lightweight_serve",
+                                        "lightweight")
     phase_parity(card, build, "lightweight_parity")
     shapes = sorted(set(lightweight_sites(SERVE_BATCH) + lightweight_sites(1)))
     a_rows = phase_kernels(card, shapes)
     b_rows = {n: sinkhorn_check(n, card, sm_clock_hz) for n in LIGHT_WIDTHS}
     b_mix = sinkhorn_mix(card, sm_clock_hz, LIGHT_MIX)
-    return {"mhc_block": launches, "a_rows": a_rows, "b_rows": b_rows, "b_mix": b_mix}
+    return {"mhc_block": launches, "group_norm": gn_launches, "a_rows": a_rows,
+            "b_rows": b_rows, "b_mix": b_mix}
 
 
 # ---------------------------------------------------------------------------
@@ -5523,7 +5796,7 @@ def main() -> None:
                       "cuda": torch.version.cuda, "port": hvs_tpu_torch.__name__}), flush=True)
     sm_clock_hz = float(nvidia_smi("clocks.max.sm")) * 1e6
     t0 = time.perf_counter()
-    build.build(["mhc_block", "sinkhorn"])
+    build.build(["mhc_block", "sinkhorn", "group_norm"])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "per_source_s": build.build_seconds}), flush=True)
 
@@ -5533,11 +5806,12 @@ def main() -> None:
     defaults = read_flags()
     print(json.dumps({"phase": "flags", "torch_defaults": defaults}), flush=True)
     per_shape = timed(phase_kernels, card)
+    gn_totals = timed(phase_group_norm, card)
     sink_rows, sink_mix = timed(phase_sinkhorn, card, sm_clock_hz)
     unfolded_rows = timed(phase_unfolded, card)
-    serve_launches = entry_point_phase(phase_serve, defaults, card)
+    serve_launches, serve_gn = entry_point_phase(phase_serve, defaults, card)
     entry_point_phase(phase_parity, defaults, card)
-    entry_point_phase(phase_engine, defaults, card)
+    engine_gn = entry_point_phase(phase_engine, defaults, card)
     deployment = entry_point_phase(phase_deployment, defaults, card)
     bundle = entry_point_phase(phase_bundle, defaults, card)
     infer = entry_point_phase(phase_infer, defaults, card)
@@ -5592,6 +5866,7 @@ def main() -> None:
         k["launches_bench"] = bench[k["name"]]
         k["launches_roofline"] = roofline[k["name"]]
         k["launches_tours"] = tours[k["name"]]
+    kernels.append(group_norm_summary(gn_totals, serve_gn, light["group_norm"], engine_gn))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

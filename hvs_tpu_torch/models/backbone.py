@@ -14,9 +14,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import group_norm as gn_ops
 from ..ops.quant import dequantize_tensor, quantize_tensor
 from .layers import Conv, ManifoldHyperConnection, QuantConv, QuantSites, SqueezeExcite, \
-    group_norm
+    group_norm, silu_norm
 
 
 class ConvMHCBlock(QuantSites, nn.Module):
@@ -31,7 +32,16 @@ class ConvMHCBlock(QuantSites, nn.Module):
     gate, the shortcut and SiLU into one elementwise pass over the expanded
     map: GroupNorm is ``y*s + t`` once its statistics are known, the SE input
     is the spatial mean of that map (``ch_mean*s + t``), and the SE gate is
-    per channel, so the tail is ``silu(y*(s*g) + t*g + shortcut)``.
+    per channel, so the tail is ``silu(y*(s*g) + t*g + shortcut)``, in fp32
+    and rounded once. With autograd off the statistics and the pass are the
+    operators ``hvs::gn_stats`` and ``hvs::gn_apply_tail``
+    (``ops/group_norm.py``): on the card the GroupNorm kernel pair, which
+    reads y and the shortcut once each (and a projected shortcut once more
+    for its own statistics) and writes the output once, bound by those
+    bytes; on the CPU their plain versions, with the plain chain's bits.
+    With autograd on the same steps run as the plain versions directly. The
+    GroupNorm + SiLU of ``reduce`` and ``spatial`` go through
+    ``models/layers.py::GroupNorm`` under the same rule.
 
     int8 (``act_quant``): the four convolutions are ``QuantConv``s. The block
     input is quantized once (site ``x_scale``) and shared by ``reduce``, the
@@ -93,9 +103,9 @@ class ConvMHCBlock(QuantSites, nn.Module):
         if self.act_quant:
             return self._forward_int8(x)
         self.record("x_scale", x)
-        y = F.silu(self.GroupNorm_0(self.reduce(x)))
+        y = silu_norm(self.GroupNorm_0, self.reduce(x))
         self.record("y1_scale", y)
-        y = F.silu(self.GroupNorm_1(self.spatial(y)))
+        y = silu_norm(self.GroupNorm_1, self.spatial(y))
         y = self._mhc(y)
         self.record("y2_scale", y)
         y = self.expand(y)
@@ -103,37 +113,39 @@ class ConvMHCBlock(QuantSites, nn.Module):
             shortcut = x if self.shortcut is None else self.GroupNorm_3(self.shortcut(x))
             return F.silu(self._se(self.GroupNorm_2(y)) + shortcut)
 
-        y32 = y.float()
+        return self._folded_tail(x, y)
+
+    def _folded_tail(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The fused serve tail: the statistics of the expanded map (and of a
+        normalised projection shortcut), the SE gate from the pooled
+        normalised map, then one pass over the map. Through the operators of
+        ``ops/group_norm.py`` when autograd is off (the kernel pair on the
+        card), else their plain versions."""
+        fused = gn_ops.engaged()
+        stats = gn_ops.gn_stats if fused else gn_ops.gn_stats_plain
         s = t = ch_mean = None
+        if not isinstance(self.GroupNorm_2, nn.Identity) or self.se is not None:
+            ch_mean, ch_m2 = gn_ops.channel_means(stats(y))
         if not isinstance(self.GroupNorm_2, nn.Identity):
-            ch_mean = y32.mean(dim=(1, 2))
-            s, t = self.GroupNorm_2.affine_from_channel_stats(
-                ch_mean, y32.square().mean(dim=(1, 2)))
+            s, t = self.GroupNorm_2.affine_from_channel_stats(ch_mean, ch_m2)
         if self.se is not None:
-            if ch_mean is None:
-                ch_mean = y32.mean(dim=(1, 2))
             pooled = ch_mean if s is None else ch_mean * s + t  # mean of the normalized map
             g = self.se(pooled=pooled.to(self.dtype), return_gates=True).float()
             s, t = (g, None) if s is None else (s * g, t * g)
-        out = y32 if s is None else y32 * s[:, None, None, :]
-        if t is not None:
-            out = out + t[:, None, None, :]
-        if self.shortcut is None:
-            out = out + x.float()
-        elif isinstance(self.GroupNorm_3, nn.Identity):
-            out = out + self.shortcut(x).float()
-        else:
-            sc32 = self.shortcut(x).float()
-            s2, t2 = self.GroupNorm_3.affine_from_channel_stats(
-                sc32.mean(dim=(1, 2)), sc32.square().mean(dim=(1, 2)))
-            out = out + sc32 * s2[:, None, None, :] + t2[:, None, None, :]
-        return F.silu(out).to(self.dtype)
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        norm = None if self.shortcut is None or isinstance(self.GroupNorm_3, nn.Identity) \
+            else self.GroupNorm_3
+        tail = gn_ops.gn_apply_tail if fused else gn_ops.gn_apply_tail_plain
+        if norm is None:
+            return tail(y, s, t, shortcut)
+        return tail(y, s, t, shortcut, stats(shortcut), norm.scale, norm.bias, norm.num_groups,
+                    norm.epsilon)
 
     def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
         x_s, y1_s, y2_s = (self.act_scale(site) for site in self.SITES)
         x_q = quantize_tensor(x, x_s)
-        y = F.silu(self.GroupNorm_0(self.reduce(x_q, x_s)))
-        y = F.silu(self.GroupNorm_1(self.spatial(quantize_tensor(y, y1_s), y1_s)))
+        y = silu_norm(self.GroupNorm_0, self.reduce(x_q, x_s))
+        y = silu_norm(self.GroupNorm_1, self.spatial(quantize_tensor(y, y1_s), y1_s))
         y = self._mhc(y)
         y = self.expand(quantize_tensor(y, y2_s), y2_s)
         if self.shortcut is not None:
@@ -204,14 +216,14 @@ class HybridVisionBackbone(QuantSites, nn.Module):
         return flops
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = F.silu(self.GroupNorm_0(self.stem1(x.to(self.dtype))))
+        x = silu_norm(self.GroupNorm_0, self.stem1(x.to(self.dtype)))
         if self.act_quant:
             scale = self.act_scale("stem2_scale")
             x = self.stem2(quantize_tensor(x, scale), scale)
         else:
             self.record("stem2_scale", x)
             x = self.stem2(x)
-        x = F.silu(self.GroupNorm_1(x))
+        x = silu_norm(self.GroupNorm_1, x)
         outputs = {}
         for stage_idx, names in enumerate(self.stages):
             for name in names:

@@ -19,7 +19,7 @@ from torch import nn
 
 from ..ops.quant import quantize_tensor
 from .layers import (Conv, Dense, ManifoldHyperConnection, QuantConv, QuantSites, attend,
-                     group_norm)
+                     group_norm, silu_norm)
 
 SCALES = ("scale_small", "scale_medium", "scale_large")
 OUT_NAMES = ("fused_small", "fused_medium", "fused_large")
@@ -87,7 +87,7 @@ class FeaturePyramidNetwork(QuantSites, nn.Module):
         outputs = {}
         for i, (name, td) in enumerate(zip(OUT_NAMES, (td0, td1, td2))):
             y = self._conv(f"refine{i}", td, f"td{i}_scale")
-            y = F.silu(getattr(self, f"GroupNorm_{i}")(y))
+            y = silu_norm(getattr(self, f"GroupNorm_{i}"), y)
             if self.use_mhc:
                 y = getattr(self, f"mhc{i}")(y)
             outputs[name] = self._conv(f"out{i}", y, f"y{i}_scale")
@@ -110,7 +110,7 @@ class MultiScaleFeatureFusion(nn.Module):
         small = features["scale_small"].to(self.dtype)
         maps = [small] + [resize_nearest(features[k].to(self.dtype), small.shape[1:3])
                           for k in SCALES[1:]]
-        return F.silu(self.GroupNorm_0(self.Conv_0(torch.cat(maps, dim=-1))))
+        return silu_norm(self.GroupNorm_0, self.Conv_0(torch.cat(maps, dim=-1)))
 
 
 class CrossScaleAttention(nn.Module):

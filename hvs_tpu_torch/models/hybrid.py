@@ -21,7 +21,7 @@ from ..ops.sinkhorn import sinkhorn_log_many
 from .backbone import HybridVisionBackbone
 from .fpn import OUT_CHANNELS, OUT_NAMES, FeaturePyramidNetwork
 from .layers import Conv, ConvTranspose, Dense, ManifoldHyperConnection, group_norm, \
-    init_weights
+    init_weights, silu_norm
 from .rag import RAGVisionKnowledge
 from .vit import HybridVisionEncoder
 from .yolo_head import YOLODetectionHead, postprocess_detections
@@ -49,7 +49,7 @@ class _UpsamplingHead(nn.Module):
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.STAGES)):
             x = getattr(self, f"ConvTranspose_{i}")(x)
-            x = F.silu(getattr(self, f"GroupNorm_{i}")(x))
+            x = silu_norm(getattr(self, f"GroupNorm_{i}"), x)
         return self.Conv_0(x)
 
 

@@ -22,6 +22,11 @@ unfolded block. Each block is the Hopper kernel on a CUDA tensor and its
 plain version on a CPU tensor (``ops/mhc_block.py``). Torch's ``training``
 flag plays the part of JAX's ``deterministic=False``.
 
+``GroupNorm`` (+ SiLU, through ``silu_norm``) goes through the operators of
+``ops/group_norm.py`` when autograd is off: the Hopper kernel pair on a CUDA
+tensor, their plain versions (the plain chain's bits) on a CPU tensor. With
+autograd on it runs the plain chain.
+
 int8 serving (W8A8, ``ops/quant.py``): a module with int8 sites
 (``QuantSites``) names the activations it can quantize. While it
 calibrates (``models/quantize.py``) it records each one's max|x| and runs
@@ -40,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import group_norm as gn_ops
 from ..ops.mhc_block import SUPPORTED_WIDTHS, layernorm as _layernorm, mhc_block, \
     mhc_block_unfolded
 from ..ops.quant import calib_maxabs, conv_int8_prepared, matmul_int8_prepared, \
@@ -333,7 +339,15 @@ class GroupNorm(nn.Module):
     per-(batch, channel) vectors, which the fused serve tail of
     ``ConvMHCBlock`` folds with the SE gate and the residual add.
 
-    fp32 statistics E[x²] - E[x]², fp32 normalize, cast to ``dtype``.
+    fp32 statistics E[x²] - E[x]², fp32 normalize, cast to ``dtype``;
+    ``silu=True`` applies SiLU to that (``silu_norm`` calls it so).
+
+    Dispatch (``ops/group_norm.py``): with autograd off, every map goes
+    through the operators ``hvs::gn_stats`` and ``hvs::gn_apply``, which
+    launch the Hopper kernel pair on a CUDA tensor (two passes over the map,
+    bound by its bytes; a map outside the kernels' contract raises) and run
+    their plain versions, this chain's bits, on a CPU tensor. With autograd
+    on (every training step) this module runs the chain in plain PyTorch.
     """
 
     def __init__(self, features: int, num_groups: int, dtype: torch.dtype = torch.bfloat16,
@@ -352,22 +366,25 @@ class GroupNorm(nn.Module):
     def affine_from_channel_stats(self, ch_mean: torch.Tensor, ch_m2: torch.Tensor):
         """(s, t) with ``normalized = x*s + t``, from per-channel spatial means
         of x and x² (fp32, [B, C])."""
-        b, c = ch_mean.shape
-        g = self.num_groups
-        gm = ch_mean.reshape(b, g, c // g).mean(dim=-1)
-        gm2 = ch_m2.reshape(b, g, c // g).mean(dim=-1)
-        rs = torch.rsqrt(gm2 - gm.square() + self.epsilon)
-        s = self.scale[None, :] * rs.repeat_interleave(c // g, dim=-1)
-        t = self.bias[None, :] - gm.repeat_interleave(c // g, dim=-1) * s
-        return s, t
+        return gn_ops.affine(ch_mean, ch_m2, self.scale, self.bias, self.num_groups,
+                             self.epsilon)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        if gn_ops.engaged():
+            return gn_ops.gn_apply(x, gn_ops.gn_stats(x), self.scale, self.bias,
+                                   self.num_groups, self.epsilon, silu)
         x32 = x.float()
-        spatial = tuple(range(1, x.dim() - 1))
-        s, t = self.affine_from_channel_stats(x32.mean(dim=spatial),
-                                              x32.square().mean(dim=spatial))
-        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-        return (x32 * s.reshape(shape) + t.reshape(shape)).to(self.dtype)
+        s, t = self.affine_from_channel_stats(*gn_ops.spatial_means(x32))
+        return gn_ops.normalize(x32, s, t, silu, self.dtype)
+
+
+def silu_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``F.silu(norm(x))``. A ``GroupNorm`` applies the SiLU in its own pass
+    over the map; any other norm (an ablation's ``nn.Identity``) is followed
+    by ``F.silu``."""
+    if isinstance(norm, GroupNorm):
+        return norm(x, silu=True)
+    return F.silu(norm(x))
 
 
 class RMSNorm(nn.Module):

@@ -13,12 +13,12 @@ from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nms import NMSResult, batched_nms
 from ..ops.quant import quantize_tensor
-from .layers import Conv, ManifoldHyperConnection, QuantConv, QuantSites, group_norm
+from .layers import Conv, ManifoldHyperConnection, QuantConv, QuantSites, group_norm, \
+    silu_norm
 
 # COCO anchor sizes in pixels at a 416 input, normalized by 416, ordered from
 # the fine (stride 8) grid to the coarse (stride 32) one.
@@ -100,8 +100,8 @@ class YOLOPredictionHead(QuantSites, nn.Module):
         return layer(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.silu(self.GroupNorm_0(self._conv(self.reduce, x.to(self.dtype), "x_scale")))
-        y = F.silu(self.GroupNorm_1(self._conv(self.conv, y, "y1_scale")))
+        y = silu_norm(self.GroupNorm_0, self._conv(self.reduce, x.to(self.dtype), "x_scale"))
+        y = silu_norm(self.GroupNorm_1, self._conv(self.conv, y, "y1_scale"))
         if self.mhc is not None:
             y = self.mhc(y)
         out = self.predict(y)

@@ -34,6 +34,7 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("int8 matmul (_int_mm)", ("s8s8", "i8i8", "imma", "_s8_", "int8")),
     ("sinkhorn forward (kernel B)", ("sinkhorn_forward_cluster", "sinkhorn_forward_streamed")),
     ("sinkhorn backward (kernel B)", ("sinkhorn_backward_cluster", "sinkhorn_backward_streamed")),
+    ("group_norm (gn_stats, gn_apply)", ("gn_stats_kernel", "gn_apply_kernel")),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "winograd", "fprop")),
     ("matmul", ("gemm", "cutlass", "cublas", "matmul", "splitk")),
     ("reduction", ("reduce", "norm", "mean", "sum")),

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from hvs_tpu_torch.ops import group_norm as gn_mod
 from hvs_tpu_torch.ops import mhc_block as mhc_mod
 from hvs_tpu_torch.ops import sinkhorn as sink_mod
 from hvs_tpu_torch.inference import InferenceEngine
@@ -1440,3 +1441,230 @@ def test_on_the_card_captures_are_spans_and_the_card_shares_the_clock():
     assert len(batches) == 3 and len(copies) >= 3
     for copy in copies:
         assert any(lo <= copy <= hi for lo, hi in batches), (copy, batches)
+
+
+# ---------------------------------------------------------------------------
+# The GroupNorm kernel pair (ops/group_norm.py) against its plain versions.
+
+# GroupNorm + SiLU sites, folded tails and normalised projected shortcuts of
+# one serve forward of each configuration.
+_GN_SITES = {"flagship": (33, 11, 3), "lightweight": (23, 6, 3)}
+_GN_STATS_RTOL = 1e-5
+_SILU_LIPSCHITZ = 1.1  # max |d silu / dx|
+_gn_site_cache = {}
+
+
+def _gn_detector(name):
+    from hvs_tpu_torch.inference import Detector
+    from hvs_tpu_torch.models import LightweightHybridVision, ProductionHybridVision
+
+    cls, kw = ((ProductionHybridVision, {}) if name == "flagship" else
+               (LightweightHybridVision, dict(precomputed_constraints=True, dropout_rate=0.0)))
+    return Detector(cls(seed=1, device="cuda", **kw), device="cuda")
+
+
+def _gn_serve_sites(name):
+    """The (kind, HW, C, normed shortcut) of every GroupNorm site of one
+    640² serve forward of ``name``, recorded at batch 1."""
+    from unittest import mock
+
+    if name not in _gn_site_cache:
+        calls = []
+        apply, tail = gn_mod.gn_apply, gn_mod.gn_apply_tail
+
+        def rec_apply(x, stats, scale, bias, groups, eps, silu):
+            calls.append(("silu" if silu else "norm", x[0, ..., 0].numel(), x.shape[-1], False))
+            return apply(x, stats, scale, bias, groups, eps, silu)
+
+        def rec_tail(y, s, t, shortcut, shortcut_stats=None, *rest):
+            calls.append(("tail", y[0, ..., 0].numel(), y.shape[-1], shortcut_stats is not None))
+            return tail(y, s, t, shortcut, shortcut_stats, *rest)
+
+        det = _gn_detector(name)
+        with mock.patch.object(gn_mod, "gn_apply", rec_apply), \
+                mock.patch.object(gn_mod, "gn_apply_tail", rec_tail), torch.inference_mode():
+            det.model(torch.rand(1, 640, 640, 3, device="cuda"))
+        _gn_site_cache[name] = calls
+    return _gn_site_cache[name]
+
+
+_MANTISSA_BITS = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+
+
+def _ulp(a, dtype=torch.bfloat16):
+    """One step of ``dtype`` at |a| (fp32 tensor)."""
+    _, e = torch.frexp(a.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(a), e - _MANTISSA_BITS[dtype])
+
+
+def _assert_gn_agrees(out, ref, pre, terms, silu_after_rounding):
+    """The kernel's output within one step of its type of the plain
+    version's, plus the statistics' relative 1e-5 carried through the terms
+    (``terms``: the sum of the magnitudes of x·s, the bias and mean·s; it
+    matters where they cancel) and, where the plain chain rounds before its
+    SiLU, one step of the rounded pre-activation ``pre`` through the SiLU; a
+    bf16 output bit-equal in 99% of elements."""
+    a, b = out.float(), ref.float()
+    assert bool(torch.isfinite(a).all())
+    slack = _GN_STATS_RTOL * terms
+    if silu_after_rounding:
+        slack = _SILU_LIPSCHITZ * (slack + _ulp(pre, out.dtype))
+    excess = (a - b).abs() - _ulp(torch.maximum(a.abs(), b.abs()), out.dtype) - slack
+    at = int(excess.argmax())
+    assert float(excess.max()) <= 0.0, (
+        f"kernel {a.flatten()[at]} plain {b.flatten()[at]} slack {slack.flatten()[at]} "
+        f"pre {None if pre is None else float(pre.flatten()[at])} at {at} of {a.shape}")
+    if out.dtype == torch.bfloat16:
+        assert float((out.view(torch.int16) == ref.view(torch.int16)).float().mean()) >= 0.99
+
+
+def _gn_check_site(kind, b, hw, c, normed, seed, dtype=torch.bfloat16):
+    r = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dtype)
+
+    x = t(0.3 + 1.5 * r.standard_normal((b, hw, c)), dtype)
+    scale, bias = t(r.uniform(0.5, 1.5, c)), t(r.uniform(-0.5, 0.5, c))
+    stats, plain_stats = gn_mod.gn_stats(x), gn_mod.gn_stats_plain(x)
+    torch.cuda.synchronize()
+    (m, m2), (p, p2) = gn_mod.channel_means(stats), gn_mod.channel_means(plain_stats)
+    assert float(((m - p).abs() / p2.sqrt()).max()) <= _GN_STATS_RTOL
+    assert float(((m2 - p2).abs() / p2).max()) <= _GN_STATS_RTOL
+    assert torch.equal(stats, gn_mod.gn_stats(x))  # no atomics: the same bits again
+    g = 8 if c % 8 == 0 else 4  # as models/layers.py::group_norm picks
+    s, tt = gn_mod.affine(p, p2, scale, bias, g, 1e-5)
+    x32 = x.float()
+    pre = x32 * s[:, None] + tt[:, None]
+    # x·s + t = x·s + bias - mean·s: the statistics move s and mean·s.
+    terms = (x32 * s[:, None]).abs() + bias.abs() + (bias - tt).abs()[:, None]
+    if kind != "tail":
+        for silu in (False, True):
+            out = gn_mod.gn_apply(x, stats, scale, bias, g, 1e-5, silu)
+            ref = gn_mod.gn_apply_plain(x, plain_stats, scale, bias, g, 1e-5, silu)
+            _assert_gn_agrees(out, ref, pre, terms, silu)
+        return
+    y = t(r.standard_normal((b, hw, c)), dtype)
+    gs, gt = t(r.uniform(0.2, 1.0, (b, c))), t(r.uniform(-0.3, 0.3, (b, c)))
+    # s and t of y reach both versions as they are: only a normalised
+    # shortcut's statistics differ, through its terms and the SiLU.
+    for stats_args in ((stats, scale, bias, g, 1e-5), ()) if normed else ((),):
+        plain_args = (plain_stats,) + stats_args[1:] if stats_args else ()
+        out = gn_mod.gn_apply_tail(y, gs, gt, x, *stats_args)
+        ref = gn_mod.gn_apply_tail_plain(y, gs, gt, x, *plain_args)
+        _assert_gn_agrees(out, ref, None,
+                          _SILU_LIPSCHITZ * terms if stats_args else torch.zeros_like(terms),
+                          False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 6, 16])
+@pytest.mark.parametrize("name", ["flagship", "lightweight"])
+def test_group_norm_kernels_match_plain_versions_at_every_serve_site(name, batch):
+    """gn_stats / gn_apply at the shape of every GroupNorm site of a 640²
+    serve forward, at buckets 1, 6 and 16: the statistics within a relative
+    1e-5 (of the mean square, and of the RMS for the mean), the outputs as
+    ``_assert_gn_agrees`` says."""
+    _need_card()
+    for k, site in enumerate(sorted(set(_gn_serve_sites(name)))):
+        _gn_check_site(site[0], batch, *site[1:], seed=batch * 100 + k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["silu", "tail"])
+@pytest.mark.parametrize("b,hw,c", [(3, 999, 24), (2, 1001, 40), (1, 7, 512), (2, 1000, 20),
+                                   (3, 4096, 12)])
+def test_group_norm_kernels_take_ragged_rows(kind, b, hw, c):
+    """Row counts that no slice or pass divides, odd lane counts (C/8 = 3, 5),
+    fewer rows than one block's pass, and C = 20 and 12, which take 4
+    channels a thread (the tiny widths' bottlenecks)."""
+    _need_card()
+    _gn_check_site(kind, b, hw, c, True, seed=hw + c)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("kind", ["silu", "tail"])
+def test_group_norm_kernels_take_fp32_and_fp16_maps(kind, dtype):
+    """A model of another precision keeps the kernels: fp32 and fp16 maps,
+    a ragged row count and a wide and a narrow C, within one step of their
+    type of the plain versions."""
+    _need_card()
+    for b, hw, c in ((2, 1001, 40), (3, 400, 512), (2, 999, 20)):
+        _gn_check_site(kind, b, hw, c, True, seed=hw + c, dtype=dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_group_norm_refuses_a_map_outside_the_kernels_contract_on_the_card():
+    """With autograd off a CUDA map never falls back to the plain chain: a
+    width the kernels do not take, or a type, raises; nothing is launched."""
+    _need_card()
+    from hvs_tpu_torch.models.layers import GroupNorm
+
+    before = (gn_mod.launches_stats, gn_mod.launches_apply)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            GroupNorm(18, 2).cuda()(torch.rand(2, 8, 8, 18, device="cuda"))
+        with pytest.raises(TypeError):
+            GroupNorm(16, 8).cuda()(torch.rand(2, 8, 8, 16, device="cuda").double())
+    assert (gn_mod.launches_stats, gn_mod.launches_apply) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flagship", "lightweight"])
+def test_group_norm_launches_per_captured_replay_equal_the_sites(name):
+    """A captured 640² serve forward launches gn_stats at every GroupNorm +
+    SiLU site, every tail and every normalised shortcut, and gn_apply at
+    every GroupNorm + SiLU site and tail; its replay gives the eager bits."""
+    _need_card()
+    silu_sites, tails, normed = _GN_SITES[name]
+    sites = _gn_serve_sites(name)
+    assert sum(s[0] == "silu" for s in sites) == silu_sites
+    assert sum(s[0] == "tail" for s in sites) == tails
+    assert sum(s[0] == "tail" and s[3] for s in sites) == normed
+    det = _gn_detector(name)
+    x = torch.rand(2, 640, 640, 3, device="cuda")
+
+    def forward():
+        return det.model(x)["detection"]["raw"]
+
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = forward()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        s0, a0 = gn_mod.launches_stats, gn_mod.launches_apply
+        with torch.cuda.graph(graph):
+            captured = forward()
+        assert (gn_mod.launches_stats - s0, gn_mod.launches_apply - a0) == \
+            (silu_sites + tails + normed, silu_sites + tails)
+        graph.replay()
+        torch.cuda.synchronize()
+    for k in eager:
+        assert torch.equal(eager[k], captured[k])
+
+
+@pytest.mark.gpu
+def test_group_norm_kernels_stay_off_training_and_cpu_tensors():
+    """A training step (autograd on) on the card and a no-grad forward on
+    the CPU launch neither kernel."""
+    _need_card()
+    from hvs_tpu_torch.models import HybridVisionSystem
+
+    tiny = dict(stage_blocks=(1, 1, 1, 1), stage_channels=(16, 24, 32, 40), vit_dim=16,
+                vit_depth=1, vit_heads=2, fpn_channels=16, head_channels=16, sk_iters=3,
+                seed=1)
+    before = (gn_mod.launches_stats, gn_mod.launches_apply)
+    model = HybridVisionSystem(device="cuda", **tiny).train()
+    out = model(torch.rand(2, 64, 64, 3, device="cuda"))
+    sum(v.float().sum() for v in out["detection"]["raw"].values()).backward()
+    cpu = HybridVisionSystem(device="cpu", **tiny).eval()
+    with torch.no_grad():
+        cpu(torch.rand(1, 64, 64, 3))
+    torch.cuda.synchronize()
+    assert (gn_mod.launches_stats, gn_mod.launches_apply) == before
