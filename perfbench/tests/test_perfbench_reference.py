@@ -1,11 +1,13 @@
 """The plain reference against the port, at a tiny size on the CPU, and the
 benchmark's flop count against the figure the port's own count gave."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from conftest import load_config, load_traffic, tiny_config
+from conftest import ROOT, load_config, load_traffic, tiny_config
 from perfbench.harness import judge, program
 from perfbench.harness.frames import make_frames
 from perfbench.harness.weights import make_weights
@@ -13,14 +15,18 @@ from perfbench.reference import hybrid as ref
 
 CPU = torch.device("cpu")
 LIMIT = load_traffic("serve_b16_720p")["limits"]["logit_gap"]
+CONFIGS = sorted(p.stem for p in (ROOT / "perfbench" / "configs").glob("*.json"))
 
 
-@pytest.mark.parametrize("name", ["hvs_flagship", "hvs_lightweight"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_param_spec_matches_the_port(name):
+    """Every configuration's reference names the parameters of the model the
+    harness builds from its file, with their shapes."""
     cfg = load_config(name)
+    reference = importlib.import_module(f"perfbench.reference.{cfg['reference']}")
     model = program.model_config(cfg, "cpu").build_model(production=True, device="cpu")
     port = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    mine = {n: s for n, s, _, _ in ref.param_spec(cfg)}
+    mine = {n: s for n, s, _, _ in reference.param_spec(cfg)}
     assert mine == port
 
 
