@@ -990,6 +990,90 @@ def phase_group_norm(card: str) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# ViTDet's relative-position attention (hvs::relpos_attention)
+
+RELPOS_BATCH = 16  # the ViTDet cell's batch, at its 1024² input
+RELPOS_MAX_ERR, RELPOS_MEAN_ERR = 2.0 ** -7, 2.0 ** -10  # of max|v|, tests/test_torch_gpu.py's
+
+
+def phase_relpos_attention(card: str) -> dict:
+    """The relative-position attention kernel at the two shapes of one
+    batch-16 1024² ViTDet-B forward (window: 400 windows x 12 heads x 196
+    tokens; global: 16 x 12 x 4,096), on seeded inputs laid out as the
+    model lays them (q, k, v views of one qkv map; rel_h, rel_w the strided
+    views of ``relative_terms``): each against its plain version (every
+    element within 2^-7 of max|v|, the mean within 2^-10), its time beside
+    its bound (``perfbench/count/attention.py``), the plain version's and
+    ``F.scaled_dot_product_attention`` with the bias materialised as a bf16
+    mask (``library_ms``; the port never calls it). The plain version and the
+    library call run on a share of the global batch (their [T, T] tensors
+    take 13-26 GB at b16) and are scaled to it. Totals over the 12 sites
+    (8 window, 4 global). Fails on disagreement or a fault."""
+    from hvs_tpu_torch.models.vitdet import relative_terms
+    from hvs_tpu_torch.ops import relpos_attention as rp
+    from perfbench.count import attention as count
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "perfbench", "configs",
+                           "vitdet_b.json")) as f:
+        cfg = json.load(f)
+    sites = count.sites(cfg, cfg["input_size"])
+    rows = {}
+    for windowed, side, n, share in ((True, 14, 25 * RELPOS_BATCH, 25 * RELPOS_BATCH),
+                                     (False, 64, RELPOS_BATCH, 2)):
+        g = torch.Generator(device="cuda").manual_seed(side)
+        qkv = torch.randn(n, side, side, 3, 12, 64, generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.unbind(3)
+        tables = [torch.randn(2 * side - 1, 64, generator=g, device="cuda") * 0.125
+                  for _ in range(2)]
+        rel_h, rel_w = relative_terms(q, *tables)
+        with torch.no_grad():
+            out = rp.relpos_attention(q, k, v, rel_h, rel_w, windowed)
+            part = [a[:share] for a in (q, k, v, rel_h, rel_w)]
+            ref = torch.cat([rp.relpos_attention_plain(*(a[i:i + 2] for a in (q, k, v, rel_h,
+                                                                              rel_w)))
+                             for i in range(0, n, 2)]) if not windowed else \
+                rp.relpos_attention_plain(q, k, v, rel_h, rel_w)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        vmax = float(v.float().abs().max())
+        t = side * side
+
+        def heads(a):
+            return a.reshape(share, t, 12, 64).transpose(1, 2).contiguous()
+
+        mask = (rel_h[:share].permute(0, 3, 1, 2, 4)[..., :, None]
+                + rel_w[:share].permute(0, 3, 1, 2, 4)[..., None, :]).reshape(
+                    share, 12, t, t).to(torch.bfloat16)
+        sq, sk, sv = heads(part[0]), heads(part[1]), heads(part[2])
+        scale = n / share
+        site = next(s for s in sites if s.windowed == windowed)
+        row = {"phase": "kernel", "kernel": "relpos_attention",
+               "site": "window" if windowed else "global", "problems": n * 12, "tokens": t,
+               "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+               "max_abs_v": vmax,
+               "ms": time_ms(lambda: rp.relpos_attention(q, k, v, rel_h, rel_w, windowed)),
+               "plain_ms": scale * time_ms(lambda: rp.relpos_attention_plain(*part), reps=2,
+                                           trials=3),
+               "library_ms": scale * time_ms(
+                   lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask), reps=4,
+                   trials=3),
+               "bound_ms": 1e3 * count.bound_s(site, RELPOS_BATCH), "card": card}
+        print(json.dumps(row), flush=True)
+        if not math.isfinite(row["max_abs_err"]) or row["max_abs_err"] > RELPOS_MAX_ERR * vmax \
+                or row["mean_abs_err"] > RELPOS_MEAN_ERR * vmax:
+            fail(f"relpos_attention {row['site']} disagrees with its plain version: {row}")
+        rows[windowed] = row
+        del qkv, q, k, v, rel_h, rel_w, out, ref, part, mask, sq, sk, sv
+        torch.cuda.empty_cache()
+    total = {"phase": "kernel_total", "kernel": "relpos_attention", "sites": len(sites),
+             "card": card}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        total[key] = sum(rows[s.windowed][key] for s in sites)
+    print(json.dumps(total), flush=True)
+    return total
+
+
 def group_norm_summary(totals: dict, serve: dict, lightweight: dict, engine: dict) -> dict:
     """The pair over the flagship's sites of one batch-16 640² forward (the
     lightweight model's beside it), with its launches on the main paths:
@@ -5796,7 +5880,7 @@ def main() -> None:
                       "cuda": torch.version.cuda, "port": hvs_tpu_torch.__name__}), flush=True)
     sm_clock_hz = float(nvidia_smi("clocks.max.sm")) * 1e6
     t0 = time.perf_counter()
-    build.build(["mhc_block", "sinkhorn", "group_norm"])
+    build.build(["mhc_block", "sinkhorn", "group_norm", "relpos_attention"])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "per_source_s": build.build_seconds}), flush=True)
 
@@ -5807,6 +5891,7 @@ def main() -> None:
     print(json.dumps({"phase": "flags", "torch_defaults": defaults}), flush=True)
     per_shape = timed(phase_kernels, card)
     gn_totals = timed(phase_group_norm, card)
+    timed(phase_relpos_attention, card)
     sink_rows, sink_mix = timed(phase_sinkhorn, card, sm_clock_hz)
     unfolded_rows = timed(phase_unfolded, card)
     serve_launches, serve_gn = entry_point_phase(phase_serve, defaults, card)

@@ -10,10 +10,13 @@ CPU its plain version. ``rag.enabled`` builds the retrieval model, and
 ``production`` with ``quantization.enabled`` the int8 serve model.
 ``vit.use_manifold_attention`` is read by no ``build_model``, as in JAX: the
 manifold-attention encoder is built directly (``models.HybridVisionEncoder``).
+``vitdet.enabled`` builds the plain-ViT detector instead of the hybrid
+(``models.vitdet``; a model of the port alone, with no JAX counterpart).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -135,6 +138,36 @@ class QuantizationConfig:
 
 
 @dataclass
+class ViTDetConfig:
+    """The plain-ViT detector (``models/vitdet.py``): ViTDet's backbone (Li,
+    Mao, Girshick, He, arXiv:2203.16527; detectron2
+    ``modeling/backbone/vit.py``) and simple feature pyramid, feeding the
+    port's YOLO head. Defaults are ViT-B/16's. The global blocks' relative
+    position tables are sized from ``ModelConfig.input_size``."""
+
+    enabled: bool = False
+    patch_size: int = 16
+    dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    window_size: int = 14
+    window_block_indexes: Tuple[int, ...] = (0, 1, 3, 4, 6, 7, 9, 10)
+    pretrain_grid: int = 14  # side of the pretrained absolute position grid
+    pyramid_scales: Tuple[float, ...] = (2.0, 1.0, 0.5)
+    pyramid_channels: int = 256
+
+    def validate(self):
+        assert self.dim % self.num_heads == 0
+        assert all(0 <= i < self.depth for i in self.window_block_indexes)
+
+
+# Options of the hybrid that the plain-ViT detector does not have.
+_HYBRID_ONLY = ("vit.enabled", "rag.enabled", "use_segmentation", "use_depth",
+                "quantization.enabled")
+
+
+@dataclass
 class ModelConfig(BaseConfig):
     """Composed model config (reference: model_config.py:432-653)."""
 
@@ -149,6 +182,7 @@ class ModelConfig(BaseConfig):
     quantization: QuantizationConfig = field(default_factory=QuantizationConfig)
     use_segmentation: bool = False
     use_depth: bool = False
+    vitdet: ViTDetConfig = field(default_factory=ViTDetConfig)
 
     def __post_init__(self):
         # Re-hydrate nested dicts (YAML load path).
@@ -156,12 +190,14 @@ class ModelConfig(BaseConfig):
             ("mhc", MHCConfig), ("backbone", BackboneConfig), ("vit", ViTConfig),
             ("fusion", FusionConfig), ("detection", DetectionHeadConfig),
             ("rag", RAGConfig), ("quantization", QuantizationConfig),
+            ("vitdet", ViTDetConfig),
         ):
             value = getattr(self, name)
             if isinstance(value, dict):
                 setattr(self, name, from_dict(cls, value))
         super().__post_init__()
-        for sub in (self.mhc, self.backbone, self.vit, self.fusion, self.detection):
+        for sub in (self.mhc, self.backbone, self.vit, self.fusion, self.detection,
+                    self.vitdet):
             sub.validate()
 
     def estimate_parameters(self) -> int:
@@ -213,8 +249,14 @@ class ModelConfig(BaseConfig):
         task whose heads get parameters, as the flax model's ``init`` task
         decides it (``"multi_task"`` builds every head the flags enable).
         ``production`` with ``quantization.enabled`` builds the int8 twin (its
-        scales are loaded separately: ``models.quantize.load_quant_scales``)."""
+        scales are loaded separately: ``models.quantize.load_quant_scales``).
+        With ``vitdet.enabled`` it builds ``ViTDetDetector`` (``task`` must
+        be ``"detection"``), and raises ``ValueError`` if an option of the
+        hybrid is also set."""
         from ..models import HybridVisionSystem, ProductionHybridVision
+
+        if self.vitdet.enabled:
+            return self._build_vitdet(production, monitor, device, seed, task)
 
         cls = ProductionHybridVision if production else HybridVisionSystem
         q = self.quantization
@@ -249,3 +291,24 @@ class ModelConfig(BaseConfig):
             act_quant_mhc=int8 and q.quantize_mhc,
             act_quant_vit=int8 and q.quantize_vit,
         )
+
+    def _build_vitdet(self, production: bool, monitor: bool, device: DeviceLike, seed: int,
+                      task: str):
+        from ..models.vitdet import ViTDetDetector
+
+        on = [name for name in _HYBRID_ONLY if functools.reduce(getattr, name.split("."), self)]
+        if on:
+            raise ValueError(f"vitdet.enabled builds the plain-ViT detector, which has none of "
+                             f"the hybrid's options: turn off {', '.join(on)}")
+        if task != "detection":
+            raise ValueError(f"the plain-ViT detector has only the detection task, not {task!r}")
+        v = self.vitdet
+        return ViTDetDetector(
+            input_size=self.input_size, patch_size=v.patch_size, dim=v.dim, depth=v.depth,
+            num_heads=v.num_heads, mlp_ratio=v.mlp_ratio, window_size=v.window_size,
+            window_block_indexes=tuple(v.window_block_indexes), pretrain_grid=v.pretrain_grid,
+            pyramid_scales=tuple(v.pyramid_scales), pyramid_channels=v.pyramid_channels,
+            num_classes=self.detection.num_classes, num_anchors=self.detection.num_anchors,
+            head_channels=self.detection.head_channels, sk_iters=self.mhc.sinkhorn_iterations,
+            monitor=False if production else monitor, precomputed_constraints=production,
+            dtype=self.dtype(), device=self.device if device is None else device, seed=seed)

@@ -272,6 +272,12 @@ class InferenceEngine:
         self.config = inference_config or InferenceConfig()
         self.device = resolve_device(self.config.device if device is None else device)
         self.model_config = model_config or ModelConfig(device=self.device.type)
+        if self.model_config.vitdet.enabled \
+                and self.config.preprocessing.image_size != self.model_config.input_size:
+            raise ValueError(
+                f"the plain-ViT detector serves its input_size "
+                f"({self.model_config.input_size}), which sizes its global relative position "
+                f"tables; preprocessing.image_size is {self.config.preprocessing.image_size}")
         pin_matmul_precision()
         self.model = self.model_config.build_model(production=True, device=self.device,
                                                    seed=rng_seed).eval()

@@ -353,8 +353,8 @@ def test_build_main_lists_each_current_library(monkeypatch, tmp_path, capsys):
         build._library_path(name).write_bytes(b"")
     assert build.main([]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert {os.path.basename(x["source"]) for x in lines[:-1]} == {"group_norm.cu", "mhc_block.cu",
-                                                                    "sinkhorn.cu"}
+    assert {os.path.basename(x["source"]) for x in lines[:-1]} == {
+        "group_norm.cu", "mhc_block.cu", "relpos_attention.cu", "sinkhorn.cu"}
     assert all(x["library"].startswith(str(tmp_path)) for x in lines[:-1])
     assert lines[-1]["built"] == 0 and lines[-1]["current"] == len(build.sources())
 

@@ -1668,3 +1668,147 @@ def test_group_norm_kernels_stay_off_training_and_cpu_tensors():
         cpu(torch.rand(1, 64, 64, 3))
     torch.cuda.synchronize()
     assert (gn_mod.launches_stats, gn_mod.launches_apply) == before
+
+
+# ---------------------------------------------------------------------------
+# ViTDet's relative-position attention (ops/relpos_attention.py)
+
+
+def _relpos_inputs(n, side, heads, seed, bias_scale=1.0):
+    """q, k, v as views of one qkv map [N, side, side, 3, H, 64] (bf16) and
+    rel_h, rel_w as ``relative_terms`` gives them, from tables of std
+    0.125 x ``bias_scale``, on the card."""
+    from hvs_tpu_torch.models.vitdet import relative_terms
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(n, side, side, 3, heads, 64, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.unbind(3)
+    tables = [torch.randn(2 * side - 1, 64, generator=g, device="cuda") * 0.125 * bias_scale
+              for _ in range(2)]
+    return (q, k, v, *relative_terms(q, *tables))
+
+
+def _relpos_plain_in_chunks(q, k, v, rel_h, rel_w, chunk):
+    from hvs_tpu_torch.ops.relpos_attention import relpos_attention_plain
+
+    return torch.cat([relpos_attention_plain(*(a[i:i + chunk] for a in (q, k, v, rel_h, rel_w)))
+                      for i in range(0, q.shape[0], chunk)])
+
+
+# Kernel against plain, element by element: the kernel rounds the
+# probabilities to bf16 before their product with v (at most 2^-9 of
+# sum p|v| / sum p <= 2^-9 max|v|) and both round the output to bf16 (2^-9
+# of it each); the logits' fp32 sums differ only in order. So every element
+# lies within 2^-7 max|v| of the plain version, the mean within 2^-10.
+RELPOS_MAX_ERR, RELPOS_MEAN_ERR = 2.0 ** -7, 2.0 ** -10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,side,chunk", [(16 * 25, 14, 400), (16, 64, 2), (1, 14, 1), (3, 14, 3),
+                                          (17, 14, 17), (1, 64, 1), (3, 64, 3), (2, 5, 2),
+                                          (2, 20, 2)])
+@pytest.mark.parametrize("bias_scale", [1.0, 16.0])
+def test_relpos_attention_kernel_matches_plain_version(n, side, chunk, bias_scale):
+    """At the published window (b16 x 25 windows x 12 heads x 196) and
+    global (b16 x 12 x 4,096) shapes, ragged batches, and grids that are
+    neither; with tables 16 times wider the bias dominates the logits."""
+    from hvs_tpu_torch.ops import relpos_attention as rp
+
+    _need_card()
+    args = _relpos_inputs(n, side, 12, seed=n + side, bias_scale=bias_scale)
+    with torch.no_grad():
+        got = rp.relpos_attention(*args, windowed=side == 14)
+        want = _relpos_plain_in_chunks(*args, chunk)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    vmax = args[2].float().abs().max()
+    assert got.shape == want.shape and got.is_contiguous()
+    assert err.max() <= RELPOS_MAX_ERR * vmax, (err.max(), vmax)
+    assert err.mean() <= RELPOS_MEAN_ERR * vmax, (err.mean(), vmax)
+
+
+@pytest.mark.gpu
+def test_relpos_attention_without_the_bias_is_far_from_the_kernel():
+    """The comparison above can see the bias: the plain version without it
+    lies far outside the kernel's bound."""
+    from hvs_tpu_torch.ops import relpos_attention as rp
+
+    _need_card()
+    q, k, v, rel_h, rel_w = _relpos_inputs(40, 14, 12, seed=5)
+    with torch.no_grad():
+        got = rp.relpos_attention(q, k, v, rel_h, rel_w, windowed=True)
+        blind = rp.relpos_attention_plain(q, k, v, rel_h * 0, rel_w * 0)
+    assert (got.float() - blind.float()).abs().max() > 8 * RELPOS_MAX_ERR * v.float().abs().max()
+
+
+@pytest.mark.gpu
+def test_relpos_attention_raises_outside_its_contract():
+    """Head width other than 64, fp16, a grid over 64 or a mis-strided k
+    raise instead of falling back."""
+    from hvs_tpu_torch.ops import relpos_attention as rp
+
+    _need_card()
+    q, k, v, rel_h, rel_w = _relpos_inputs(2, 14, 2, seed=1)
+    with torch.no_grad(), pytest.raises(TypeError):
+        rp.relpos_attention(q[..., :32], k[..., :32], v[..., :32], rel_h, rel_w, True)
+    with torch.no_grad(), pytest.raises(TypeError):
+        rp.relpos_attention(q.half(), k.half(), v.half(), rel_h, rel_w, True)
+    with torch.no_grad(), pytest.raises(ValueError):
+        rp.relpos_attention(q, k.contiguous(), v, rel_h, rel_w, True)
+    big = _relpos_inputs(1, 65, 1, seed=2)
+    with torch.no_grad(), pytest.raises(ValueError):
+        rp.relpos_attention(*big, windowed=False)
+
+
+def _tiny_card_vitdet(**kw):
+    from hvs_tpu_torch.models.vitdet import ViTDetDetector
+
+    opts = dict(input_size=256, dim=128, num_heads=2, pyramid_channels=32, head_channels=32,
+                num_classes=6, sk_iters=5, device="cuda", seed=3)
+    opts.update(kw)
+    return ViTDetDetector(**opts)
+
+
+@pytest.mark.gpu
+def test_vitdet_takes_the_kernel_at_every_attention_map():
+    """With autograd off every attention map of the model launches the
+    kernel: 8 window and 4 global launches per forward, and per capture of
+    the engine's graph (its warm-up calls and the capture); with autograd on
+    (training) none, and the plain chain is differentiated."""
+    from hvs_tpu_torch.config.model import ModelConfig
+    from hvs_tpu_torch.config.inference import InferenceConfig
+    from hvs_tpu_torch.inference.engine import WARMUP_CALLS
+    from hvs_tpu_torch.ops import relpos_attention as rp
+
+    from hvs_tpu_torch.models.constraints import compute_constraints, load_constraints, \
+        param_tree
+
+    _need_card()
+    model = _tiny_card_vitdet().eval()
+    load_constraints(model, compute_constraints(param_tree(model), 5))
+    x = torch.randn(2, 256, 256, 3, device="cuda")
+    before = (rp.launches_window, rp.launches_global)
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    assert (rp.launches_window - before[0], rp.launches_global - before[1]) == (8, 4)
+    train = _tiny_card_vitdet(precomputed_constraints=False).train()
+    before = (rp.launches_window, rp.launches_global)
+    sum(r.float().sum() for r in train(x)["detection"]["raw"].values()).backward()
+    assert (rp.launches_window, rp.launches_global) == before
+    assert train.backbone.block2.attn.rel_pos_h.grad.abs().sum() > 0
+    mcfg = ModelConfig(device="cuda", input_size=256, vit={"enabled": False},
+                       vitdet={"enabled": True, "dim": 128, "num_heads": 2,
+                               "pyramid_channels": 32},
+                       detection={"num_classes": 6, "head_channels": 32},
+                       mhc={"sinkhorn_iterations": 5})
+    engine = InferenceEngine(mcfg, InferenceConfig(device="cuda", preprocessing={
+        "image_size": 256}, performance={"batch_buckets": (2,)}))
+    before = (rp.launches_window, rp.launches_global)
+    engine.register_raw_shape((180, 320))
+    frames = [np.random.default_rng(i).integers(0, 256, (180, 320, 3), dtype=np.uint8)
+              for i in range(2)]
+    engine.infer_batch(frames)
+    calls = WARMUP_CALLS + 1
+    assert (rp.launches_window - before[0], rp.launches_global - before[1]) == \
+        (8 * calls, 4 * calls)
