@@ -995,22 +995,28 @@ def phase_group_norm(card: str) -> dict:
 
 RELPOS_BATCH = 16  # the ViTDet cell's batch, at its 1024² input
 RELPOS_MAX_ERR, RELPOS_MEAN_ERR = 2.0 ** -7, 2.0 ** -10  # of max|v|, tests/test_torch_gpu.py's
+# The kernel's total over the 12 sites when it read the relative terms from
+# device memory, made beforehand by ``relative_terms`` (NVIDIA H100 80GB
+# HBM3, 700 W): the yardstick of the kernel that computes them itself.
+RELPOS_TERMS_READ_MS = 25.171
 
 
 def phase_relpos_attention(card: str) -> dict:
-    """The relative-position attention kernel at the two shapes of one
-    batch-16 1024² ViTDet-B forward (window: 400 windows x 12 heads x 196
-    tokens; global: 16 x 12 x 4,096), on seeded inputs laid out as the
-    model lays them (q, k, v views of one qkv map; rel_h, rel_w the strided
-    views of ``relative_terms``): each against its plain version (every
-    element within 2^-7 of max|v|, the mean within 2^-10), its time beside
-    its bound (``perfbench/count/attention.py``), the plain version's and
+    """The relative-position attention kernel (``hvs::relpos_attention_tables``)
+    at the two shapes of one batch-16 1024² ViTDet-B forward (window: 400
+    windows x 12 heads x 196 tokens; global: 16 x 12 x 4,096), on seeded
+    inputs laid out as the model lays them (q, k, v views of one qkv map; the
+    two fp32 tables): each against its plain chain (``relative_terms``, then
+    ``relpos_attention_plain``; every element within 2^-7 of max|v|, the mean
+    within 2^-10), its time beside its bound (``perfbench/count/attention.py``),
+    the plain chain's, ``relative_terms`` alone (``terms_ms``: the fp32
+    product and q's fp32 copy the kernel no longer needs) and
     ``F.scaled_dot_product_attention`` with the bias materialised as a bf16
-    mask (``library_ms``; the port never calls it). The plain version and the
+    mask (``library_ms``; the port never calls it). The plain chain and the
     library call run on a share of the global batch (their [T, T] tensors
     take 13-26 GB at b16) and are scaled to it. Totals over the 12 sites
-    (8 window, 4 global). Fails on disagreement or a fault."""
-    from hvs_tpu_torch.models.vitdet import relative_terms
+    (8 window, 4 global), beside the kernel that read the terms from memory
+    (``terms_read_ms``). Fails on disagreement or a fault."""
     from hvs_tpu_torch.ops import relpos_attention as rp
     from perfbench.count import attention as count
 
@@ -1026,25 +1032,26 @@ def phase_relpos_attention(card: str) -> dict:
         q, k, v = qkv.unbind(3)
         tables = [torch.randn(2 * side - 1, 64, generator=g, device="cuda") * 0.125
                   for _ in range(2)]
-        rel_h, rel_w = relative_terms(q, *tables)
         with torch.no_grad():
-            out = rp.relpos_attention(q, k, v, rel_h, rel_w, windowed)
-            part = [a[:share] for a in (q, k, v, rel_h, rel_w)]
-            ref = torch.cat([rp.relpos_attention_plain(*(a[i:i + 2] for a in (q, k, v, rel_h,
-                                                                              rel_w)))
+            out = rp.relpos_attention_tables(q, k, v, *tables, windowed)
+            ref = torch.cat([rp.relpos_attention_tables_plain(q[i:i + 2], k[i:i + 2],
+                                                              v[i:i + 2], *tables)
                              for i in range(0, n, 2)]) if not windowed else \
-                rp.relpos_attention_plain(q, k, v, rel_h, rel_w)
+                rp.relpos_attention_tables_plain(q, k, v, *tables)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         vmax = float(v.float().abs().max())
         t = side * side
+        part = [a[:share] for a in (q, k, v)]
 
         def heads(a):
             return a.reshape(share, t, 12, 64).transpose(1, 2).contiguous()
 
-        mask = (rel_h[:share].permute(0, 3, 1, 2, 4)[..., :, None]
-                + rel_w[:share].permute(0, 3, 1, 2, 4)[..., None, :]).reshape(
+        rel_h, rel_w = rp.relative_terms(part[0], *tables)
+        mask = (rel_h.permute(0, 3, 1, 2, 4)[..., :, None]
+                + rel_w.permute(0, 3, 1, 2, 4)[..., None, :]).reshape(
                     share, 12, t, t).to(torch.bfloat16)
+        del rel_h, rel_w
         sq, sk, sv = heads(part[0]), heads(part[1]), heads(part[2])
         scale = n / share
         site = next(s for s in sites if s.windowed == windowed)
@@ -1052,9 +1059,10 @@ def phase_relpos_attention(card: str) -> dict:
                "site": "window" if windowed else "global", "problems": n * 12, "tokens": t,
                "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
                "max_abs_v": vmax,
-               "ms": time_ms(lambda: rp.relpos_attention(q, k, v, rel_h, rel_w, windowed)),
-               "plain_ms": scale * time_ms(lambda: rp.relpos_attention_plain(*part), reps=2,
-                                           trials=3),
+               "ms": time_ms(lambda: rp.relpos_attention_tables(q, k, v, *tables, windowed)),
+               "terms_ms": time_ms(lambda: rp.relative_terms(q, *tables), reps=5, trials=3),
+               "plain_ms": scale * time_ms(
+                   lambda: rp.relpos_attention_tables_plain(*part, *tables), reps=2, trials=3),
                "library_ms": scale * time_ms(
                    lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask), reps=4,
                    trials=3),
@@ -1064,12 +1072,13 @@ def phase_relpos_attention(card: str) -> dict:
                 or row["mean_abs_err"] > RELPOS_MEAN_ERR * vmax:
             fail(f"relpos_attention {row['site']} disagrees with its plain version: {row}")
         rows[windowed] = row
-        del qkv, q, k, v, rel_h, rel_w, out, ref, part, mask, sq, sk, sv
+        del qkv, q, k, v, out, ref, part, mask, sq, sk, sv
         torch.cuda.empty_cache()
     total = {"phase": "kernel_total", "kernel": "relpos_attention", "sites": len(sites),
              "card": card}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "terms_ms", "plain_ms", "library_ms", "bound_ms"):
         total[key] = sum(rows[s.windowed][key] for s in sites)
+    total["terms_read_ms"] = RELPOS_TERMS_READ_MS
     print(json.dumps(total), flush=True)
     return total
 

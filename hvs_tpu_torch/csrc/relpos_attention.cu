@@ -1,32 +1,35 @@
 // Attention with ViTDet's decomposed relative positions for Hopper (sm_90a),
-// flash-style: the [T, T] logits never reach device memory.
+// flash-style: neither the [T, T] logits nor the relative terms reach device
+// memory.
 //
 // It replaces no TPU kernel: the JAX package has no ViTDet. In plain PyTorch
 // one global block of ViTDet-B at 1024^2 would write, read, cast and
-// softmax fp32 logits of 805 MB a frame.
+// softmax fp32 logits of 805 MB a frame, and its relative terms alone are a
+// 50 MB fp32 product a frame.
 //
 // Per problem (image or window n, head h) of a kh x kw grid of T = kh*kw
 // tokens, head width 64, for each query t = (y, x) and key s = (ky, kx):
 //
-//   logit[t, s] = (q[t] . k[s]) / 8 + rel_h[t, ky] + rel_w[t, kx]
-//   out[t]      = bf16(sum_s softmax_s(logit[t, s]) v[s])
+//   rel_h[t, ky] = q[t] . table_h[kh - 1 + y - ky]
+//   rel_w[t, kx] = q[t] . table_w[kw - 1 + x - kx]
+//   logit[t, s]  = (q[t] . k[s]) / 8 + rel_h[t, ky] + rel_w[t, kx]
+//   out[t]       = bf16(sum_s softmax_s(logit[t, s]) v[s])
 //
-// q, k, v are bf16, the product accumulates in fp32 on the tensor cores, the
-// scale 1/8 is exact, rel_h and rel_w are fp32 (the query's products with the
-// relative position tables, computed before the launch), the softmax is an
-// online fp32 one; its probabilities are rounded to bf16 for the product with
-// v, their sum is not.
+// q, k, v are bf16 and the tables fp32 ([2kh - 1, 64] and [2kw - 1, 64],
+// contiguous). The relative terms are the fp32 products of q's bf16 values
+// (exact in fp32) with the fp32 tables; q k^T accumulates in fp32 on the
+// tensor cores, the scale 1/8 is exact, the softmax is an online fp32 one;
+// its probabilities are rounded to bf16 for the product with v, their sum is
+// not.
 //
 // Layout: q, k, v [N, kh, kw, H, 64] with element strides (n, y, x, head)
 // given and the last 1 (views of the qkv projection's [N, kh, kw, 3, H, 64]
-// output are read in place); rel_h [N, kh, kw, H, kh] and rel_w [N, kh, kw, H,
-// kw] fp32 with their own strides (strided views of one product); out a
-// contiguous [N, kh, kw, H, 64] bf16. kh, kw <= 64.
+// output are read in place); out a contiguous [N, kh, kw, H, 64] bf16.
+// kh, kw <= 64.
 //
 // What bounds it on an H100: 4*64*H*T^2 flops a problem against bytes that
-// grow with T (q, k, v, out, rel_h, rel_w), so at T = 4,096 (global) and 196
-// (window) the tensor cores; then the exponentials (T^2 per head, 16 per clock
-// per SM).
+// grow with T (q, k, v, out), so at T = 4,096 (global) and 196 (window) the
+// tensor cores; then the exponentials (T^2 per head, 16 per clock per SM).
 //
 // Design:
 //   * one block of 4 warps per (query tile, problem): blockIdx.x the query
@@ -37,27 +40,33 @@
 //     lane, rows past T zero-filled) into padded smem rows (+8 elements: no
 //     bank conflicts for ldmatrix); k and v are double-buffered, the next
 //     tile in flight while this one is used;
-//   * the block's rows of rel_h and rel_w are read once into smem by cp.async
-//     with the first tiles (rows padded to an odd length), but see the aligned
-//     case below;
 //   * products are mma.sync m16n8k16 (bf16 in, fp32 accumulators in
 //     registers): q fragments by ldmatrix.x4 once, k by ldmatrix.x4 (k's rows
 //     are the B operand's columns), v by ldmatrix.x4.trans; the probabilities
 //     go from the logits' accumulators straight into the A fragments of the
 //     product with v;
+//   * the relative terms, computed while the first k and v tile is in flight
+//     (relative_term): each warp multiplies the q fragments it holds for q k^T
+//     by the table rows its queries need, on the tensor cores. Each fp32
+//     table value is split into three bf16 parts whose sum is the value
+//     exactly (split3), so every product with q is exact and only the fp32
+//     sum differs from an fp32 product, in its order. On CUDA cores the same
+//     terms would take ~1 M FMAs a global block; here they take 480 mma a warp
+//     (6 % of its q k^T and p v) and ~8 table loads from L1 per 24 mma. The
+//     block's rows of rel_w are kept in smem after the k and v tiles, those
+//     of rel_h in the q tile's place, which is free once q's fragments are in
+//     registers: the aligned block stays at 105 KB, two an SM, the general
+//     one at 49 KB for 14 x 14 windows, three an SM;
 //   * the bias: a key's (ky, kx) from its index by a float reciprocal of kw
 //     (exact for kh, kw <= 64), both terms from smem; where kw is the key tile
 //     (64, the global blocks at 1024^2) tile j is grid row ky = j and column c
-//     is kx = c: rel_w's rows stay in smem (rows of kw + 8, read 8 bytes a
-//     lane without bank conflicts) and each lane reads its rows' rel_h terms
-//     of the next tile from device memory while this tile is computed, which
-//     keeps the block at 92 KB of smem, two blocks an SM;
+//     is kx = c: a row's rel_h term is one smem read a tile, rel_w's rows
+//     (kw + 8 long) are read 8 bytes a lane without bank conflicts;
 //   * keys past T get -inf, so a window's ragged last tile (196 = 3 * 64 + 4)
 //     adds nothing; padded queries past T are computed and not written;
 //   * the output tile is staged in the q tile's smem and written in 16-byte
 //     pieces.
-// wgmma, TMA and warp specialisation, and the relative terms computed inside
-// the kernel, are left for later work (PERF.md).
+// wgmma, TMA and warp specialisation are left for later work (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +90,8 @@ constexpr int kMaxDevices = 16;
 constexpr float kScale = 0.125f;  // 1 / sqrt(64)
 constexpr float kLog2e = 1.4426950408889634f;
 
+__host__ __device__ constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+
 // The two cases of the kernel. kAligned: kw is the key tile (64), so key tile
 // j is grid row j; its blocks take 128 queries, 32 rows a warp (two 16-row mma
 // tiles, so each k and v fragment read from smem serves two products), two
@@ -92,30 +103,28 @@ struct Shape {
   static constexpr int kMT = kAligned ? 2 : 1;  // 16-row mma tiles per warp
   static constexpr int kBM = kWarps * kMT * 16;  // queries per block
   static constexpr int kMinBlocks = kAligned ? 2 : 3;
-  // Smem: the q tile, two k and two v tiles (bf16), then the relative terms
-  // of the block's queries (fp32): rel_w in rows of kw + 8 in the aligned
-  // case, else rel_h and rel_w in rows of side + 1.
-  static constexpr size_t kFixedSmem = size_t(kBM + 4 * kBN) * kLd * sizeof(bf16);
-  static size_t smem_bytes(int kh, int kw) {
-    const int row = kAligned ? kw + 8 : kh + 1 + kw + 1;
-    return kFixedSmem + size_t(kBM) * row * sizeof(float);
+  // Smem: the q tile (bf16), whose place rel_h's rows of kh + 1 (fp32) take
+  // once q's fragments are in registers; two k and two v tiles (bf16); rel_w's
+  // rows (fp32) of kw + 8 in the aligned case, else kw + 1.
+  __host__ __device__ static constexpr int ldw(int kw) { return kAligned ? kw + 8 : kw + 1; }
+  __host__ __device__ static constexpr size_t head_bytes(int kh) {
+    return cmax(size_t(kBM) * kLd * sizeof(bf16), size_t(kBM) * (kh + 1) * sizeof(float));
   }
-  // The most a launch asks for (the general case at kh = 64, kw = 63).
-  static constexpr size_t kMaxSmem =
-      kFixedSmem + size_t(kBM) * (kAligned ? kBN + 8 : kMaxSide + 1 + kMaxSide) * sizeof(float);
+  __host__ __device__ static constexpr size_t smem_bytes(int kh, int kw) {
+    return head_bytes(kh) + size_t(4 * kBN) * kLd * sizeof(bf16) +
+           size_t(kBM) * ldw(kw) * sizeof(float);
+  }
 };
 
 struct Params {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  const float* rel_h;
-  const float* rel_w;
+  const float* table_h;
+  const float* table_w;
   bf16* out;
   int heads, kh, kw, T;
   long long qs[4];  // q's (and k's, v's) strides over (n, y, x, head), elements
-  long long hs[4];  // rel_h's
-  long long ws[4];  // rel_w's
   float inv_kw;
   int g0;  // the first (n, head) problem of this launch
 };
@@ -153,7 +162,8 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
 }
 
 // c += a @ b for one 16x8 tile: a 16x16 (row), b 16x8 (col), fp32 c. Lane t
-// holds c's rows t/4 and t/4 + 8, columns 2(t%4) and 2(t%4) + 1.
+// holds c's rows t/4 and t/4 + 8, columns 2(t%4) and 2(t%4) + 1; b's column
+// t/4, rows 2(t%4) and 2(t%4) + 1 in b0, 8 more in b1.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -166,6 +176,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values as three bf16 pairs whose sums are the values exactly: each
+// part is the rounding of what the earlier ones left, and an fp32 value's 24
+// bits of mantissa fit in three of bf16's 8 (each remainder is exact in fp32).
+__device__ __forceinline__ void split3(float2 f, uint32_t (&part)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    part[i] = *reinterpret_cast<const uint32_t*>(&b);
+    const float2 r = __bfloat1622float2(b);
+    f.x -= r.x;
+    f.y -= r.y;
+  }
 }
 
 // Offset of token t of problem (n, head) under strides s over (n, y, x, head).
@@ -191,27 +215,69 @@ __device__ __forceinline__ void load_kv(bf16* dk, bf16* dv, const Params& p, int
   }
 }
 
-// 4 bytes global -> shared (cp.async.ca); src_bytes = 0 writes a zero.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-// The block's query rows of one relative term (side columns each) into smem
-// rows of ld by cp.async (the caller commits), a warp per row and its lanes
-// along the row; rows past T become zeros.
-template <int kBM>
-__device__ __forceinline__ void load_rel(float* dst, int ld, const float* src,
-                                         const long long (&s)[4], const Params& p, int n,
-                                         int head, int row0, int side) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kBM; r += kWarps) {
-    const int t = row0 + r;
-    const bool in = t < p.T;
-    const float* row = src + (in ? token_offset(s, n, head, t, p.kw) : 0);
-    for (int c = lane; c < side; c += 32)
-      cp_async4(dst + r * ld + c, row + (in ? c : 0), in ? 4 : 0);
+// One relative term of this warp's queries into the block's smem rows:
+// dst[row * ld + c] = q[t] . table[side - 1 + pos(t) - c] for c in [0, side),
+// pos the query's x (along_x, rel_w) or y (rel_h). The warp's queries (rows
+// row0 on, first = m0 + row0 on) need the table rows [lo, hi + side - 1],
+// lo and hi their least and greatest pos; each 8 of those rows are the B
+// operand of mma against the q fragments qf, once for each bf16 part of
+// split3, read from the table (L1: every block of a launch reads the same
+// one) as 8 bytes a lane. A product whose column falls outside [0, side) is
+// dropped. Rows past T get what their zero q gives, or nothing; they are
+// never written out.
+template <int kMT>
+__device__ __forceinline__ void relative_term(float* dst, int ld, const float* __restrict__ table,
+                                              int side, bool along_x,
+                                              const uint32_t (&qf)[kMT][4][4], int row0, int m0,
+                                              const Params& p) {
+  const int lane = threadIdx.x & 31, quad = lane & 3;
+  const int first = m0 + row0;
+  if (first >= p.T) return;
+  const int last = min(first + 16 * kMT, p.T) - 1;
+  const int yf = first / p.kw, yl = last / p.kw;
+  int lo = yf, hi = yl;
+  if (along_x) {
+    lo = yf == yl ? first - yf * p.kw : 0;
+    hi = yf == yl ? last - yl * p.kw : p.kw - 1;
+  }
+  int pos[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = first + mt * 16 + (lane >> 2) + 8 * h;
+      const int y = t / p.kw;
+      pos[mt][h] = along_x ? t - y * p.kw : y;
+    }
+  const int end = hi + side;  // one past the last table row the warp needs
+#pragma unroll 1
+  for (int r0 = lo; r0 < end; r0 += 8) {
+    const int r = r0 + (lane >> 2);  // this lane's column of the B operand
+    const float* src = table + r * kD + 2 * quad;
+    float acc[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float2 zero = make_float2(0.0f, 0.0f);
+      uint32_t b0[3], b1[3];
+      split3(r < end ? __ldg(reinterpret_cast<const float2*>(src + kk * 16)) : zero, b0);
+      split3(r < end ? __ldg(reinterpret_cast<const float2*>(src + kk * 16 + 8)) : zero, b1);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) mma_bf16(acc[mt], qf[mt][kk], b0[i], b1[i]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = side - 1 + pos[mt][h] - (r0 + 2 * quad + e);
+          if (c >= 0 && c < side)
+            dst[(row0 + mt * 16 + (lane >> 2) + 8 * h) * ld + c] = acc[mt][2 * h + e];
+        }
   }
 }
 
@@ -223,13 +289,12 @@ __global__ void __launch_bounds__(kThreads, Shape<kAligned>::kMinBlocks)
   constexpr int kWarpRows = 16 * kMT;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sk = sq + kBM * kLd;
+  float* srh = reinterpret_cast<float*>(smem);  // in q's place once qf is loaded
+  bf16* sk = reinterpret_cast<bf16*>(smem + Shape<kAligned>::head_bytes(p.kh));
   bf16* sv = sk + 2 * kBN * kLd;
-  float* srel = reinterpret_cast<float*>(smem + Shape<kAligned>::kFixedSmem);
-  const int ldw = kAligned ? p.kw + 8 : p.kw + 1;
+  float* srw = reinterpret_cast<float*>(sv + 2 * kBN * kLd);
   const int ldh = p.kh + 1;
-  float* srw = srel;
-  float* srh = srel + kBM * ldw;  // the general case only
+  const int ldw = Shape<kAligned>::ldw(p.kw);
 
   const int g = p.g0 + blockIdx.y;
   const int n = g / p.heads, head = g - n * p.heads;
@@ -246,6 +311,7 @@ __global__ void __launch_bounds__(kThreads, Shape<kAligned>::kMinBlocks)
   }
   const int tiles = (p.T + kBN - 1) / kBN;
 
+  // q's tile, then the first k and v tile, in two groups: the terms need q.
 #pragma unroll
   for (int i = 0; i < kBM * 8 / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
@@ -255,24 +321,21 @@ __global__ void __launch_bounds__(kThreads, Shape<kAligned>::kMinBlocks)
     cp_async16(sq + r * kLd + c, p.q + (in ? token_offset(p.qs, n, head, t, p.kw) + c : 0),
                in ? 16 : 0);
   }
-  load_kv(sk, sv, p, n, head, 0);
-  load_rel<kBM>(srw, ldw, p.rel_w, p.ws, p, n, head, m0, p.kw);
-  // The aligned case reads rel_h from device memory, a tile ahead.
-  const float* rh_row[kMT][2];
-  float rh_next[kMT][2];
-  if constexpr (kAligned) {
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = m0 + rows[mt][h];
-        rh_row[mt][h] = t < p.T ? p.rel_h + token_offset(p.hs, n, head, t, p.kw) : nullptr;
-        rh_next[mt][h] = rh_row[mt][h] ? rh_row[mt][h][0] : 0.0f;
-      }
-  } else {
-    load_rel<kBM>(srh, ldh, p.rel_h, p.hs, p, n, head, m0, p.kh);
-  }
   cp_async_commit();
+  load_kv(sk, sv, p, n, head, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[kMT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldsm_x4(qf[mt][kk], smem_u32(sq + (warp * kWarpRows + mt * 16 + (lane & 15)) * kLd +
+                                   kk * 16 + (lane >> 4) * 8));
+  __syncthreads();  // every warp holds its q fragments: rel_h takes q's place
+  relative_term<kMT>(srh, ldh, p.table_h, p.kh, false, qf, warp * kWarpRows, m0, p);
+  relative_term<kMT>(srw, ldw, p.table_w, p.kw, true, qf, warp * kWarpRows, m0, p);
 
   float o[kMT][8][4];
 #pragma unroll
@@ -285,7 +348,6 @@ __global__ void __launch_bounds__(kThreads, Shape<kAligned>::kMinBlocks)
     m_run[mt][0] = m_run[mt][1] = -INFINITY;
     l_run[mt][0] = l_run[mt][1] = 0.0f;
   }
-  uint32_t qf[kMT][4][4];
 
 #pragma unroll 1
   for (int j = 0; j < tiles; ++j) {
@@ -293,27 +355,8 @@ __global__ void __launch_bounds__(kThreads, Shape<kAligned>::kMinBlocks)
     if (j + 1 < tiles)
       load_kv(sk + (buf ^ 1) * kBN * kLd, sv + (buf ^ 1) * kBN * kLd, p, n, head, (j + 1) * kBN);
     cp_async_commit();
-    float rh[kMT][2];
-    if constexpr (kAligned) {
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          rh[mt][h] = rh_next[mt][h];
-          rh_next[mt][h] = rh_row[mt][h] && j + 1 < tiles ? rh_row[mt][h][j + 1] : 0.0f;
-        }
-    }
     cp_async_wait<1>();
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          ldsm_x4(qf[mt][kk], smem_u32(sq + (warp * kWarpRows + mt * 16 + (lane & 15)) * kLd +
-                                       kk * 16 +
-                                       (lane >> 4) * 8));
-    }
+    __syncthreads();  // this tile, and at j = 0 every warp's terms, visible
     const bf16* ck = sk + buf * kBN * kLd;
     const bf16* cv = sv + buf * kBN * kLd;
 
@@ -339,6 +382,11 @@ __global__ void __launch_bounds__(kThreads, Shape<kAligned>::kMinBlocks)
 
     // Scale, the relative terms, and -inf past T.
     if constexpr (kAligned) {
+      float rh[kMT][2];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) rh[mt][h] = srh[rows[mt][h] * ldh + j];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int c = nt * 8 + 2 * quad;
@@ -481,27 +529,30 @@ __global__ void __launch_bounds__(kThreads, Shape<kAligned>::kMinBlocks)
 }
 
 template <bool kAligned>
-cudaError_t launch(Params p, int problems, int kh, int kw, cudaStream_t stream) {
+cudaError_t launch(Params p, int problems, cudaStream_t stream) {
   static std::atomic<bool> smem_limit_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_limit_set[dev].load()) {
+    // The most a launch asks for: kh = 64, and kw = 64 aligned, else 63.
+    constexpr size_t kMaxSmem =
+        Shape<kAligned>::smem_bytes(kMaxSide, kAligned ? kBN : kMaxSide - 1);
     err = cudaFuncSetAttribute(relpos_attention_kernel<kAligned>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Shape<kAligned>::kMaxSmem));
+                               static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return err;
     smem_limit_set[dev].store(true);
   }
   const dim3 block(kThreads);
   constexpr int kBM = Shape<kAligned>::kBM;
   const unsigned query_tiles = (p.T + kBM - 1) / kBM;
+  const size_t smem = Shape<kAligned>::smem_bytes(p.kh, p.kw);
   for (int g0 = 0; g0 < problems; g0 += kMaxGridY) {
     p.g0 = g0;
     const int count = problems - g0 < kMaxGridY ? problems - g0 : kMaxGridY;
-    relpos_attention_kernel<kAligned>
-        <<<dim3(query_tiles, count), block, Shape<kAligned>::smem_bytes(kh, kw), stream>>>(p);
+    relpos_attention_kernel<kAligned><<<dim3(query_tiles, count), block, smem, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -511,15 +562,14 @@ cudaError_t launch(Params p, int problems, int kh, int kw, cudaStream_t stream) 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Every pointer is a device pointer;
-// strides are in elements over (n, y, x, head), the last stride 1 (see the
-// header). Returns the CUDA error code of the launches (0 on success).
+// q's strides are in elements over (n, y, x, head), the last stride 1, and k
+// and v share them; the tables are contiguous fp32 [2kh - 1, 64] and
+// [2kw - 1, 64] (see the header). Returns the CUDA error code of the launches
+// (0 on success).
 extern "C" int hvs_relpos_attention(const void* q, const void* k, const void* v,
-                                    const void* rel_h, const void* rel_w, void* out, int n,
+                                    const void* table_h, const void* table_w, void* out, int n,
                                     int kh, int kw, int heads, long long qs_n, long long qs_y,
-                                    long long qs_x, long long qs_h, long long hs_n,
-                                    long long hs_y, long long hs_x, long long hs_h,
-                                    long long ws_n, long long ws_y, long long ws_x,
-                                    long long ws_h, void* stream) {
+                                    long long qs_x, long long qs_h, void* stream) {
   if (kh < 1 || kw < 1 || kh > kMaxSide || kw > kMaxSide || heads < 1 || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
@@ -527,28 +577,23 @@ extern "C" int hvs_relpos_attention(const void* q, const void* k, const void* v,
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
-  p.rel_h = static_cast<const float*>(rel_h);
-  p.rel_w = static_cast<const float*>(rel_w);
+  p.table_h = static_cast<const float*>(table_h);
+  p.table_w = static_cast<const float*>(table_w);
   p.out = static_cast<bf16*>(out);
   p.heads = heads;
   p.kh = kh;
   p.kw = kw;
   p.T = kh * kw;
-  const long long qs[4] = {qs_n, qs_y, qs_x, qs_h};
-  const long long hs[4] = {hs_n, hs_y, hs_x, hs_h};
-  const long long ws[4] = {ws_n, ws_y, ws_x, ws_h};
-  for (int i = 0; i < 4; ++i) {
-    p.qs[i] = qs[i];
-    p.hs[i] = hs[i];
-    p.ws[i] = ws[i];
-  }
+  p.qs[0] = qs_n;
+  p.qs[1] = qs_y;
+  p.qs[2] = qs_x;
+  p.qs[3] = qs_h;
   p.inv_kw = 1.0f / static_cast<float>(kw);
   p.g0 = 0;
   const long long problems = static_cast<long long>(n) * heads;
   if (problems > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      kw == kBN ? launch<true>(p, static_cast<int>(problems), kh, kw, s)
-                : launch<false>(p, static_cast<int>(problems), kh, kw, s);
+  const cudaError_t err = kw == kBN ? launch<true>(p, static_cast<int>(problems), s)
+                                    : launch<false>(p, static_cast<int>(problems), s);
   return static_cast<int>(err);
 }

@@ -21,11 +21,12 @@ whole map, the residual; LayerNorm, an MLP with exact (erf) GELU, the
 residual. No final norm. Attention adds ViTDet's decomposed relative
 positions: ``(q / 8) . k + rel_h[t, ky] + rel_w[t, kx]``, with ``rel_h`` and
 ``rel_w`` the unscaled query's products with a (2·side - 1) x 64 table per
-axis (``relative_terms``). With autograd off the attention runs through
-``hvs::relpos_attention`` (``ops/relpos_attention.py``: the Hopper kernel on
-a CUDA map, its plain version on a CPU one); with autograd on, its plain
-version. The global tables are sized from the input, so a model serves one
-input size.
+axis (``ops/relpos_attention.py``). A CUDA map with autograd off takes
+``hvs::relpos_attention_tables``, the Hopper kernel, which computes the
+terms from q and the tables itself; every other map makes them first
+(``relative_terms``) and attends with the plain version, through
+``hvs::relpos_attention`` with autograd off. The global tables are sized
+from the input, so a model serves one input size.
 
 Linear layers and LayerNorms compute as detectron2's ``nn.Linear`` and
 ``nn.LayerNorm`` do (``Linear``, ``TorchLayerNorm``: the bias added in the
@@ -53,6 +54,7 @@ from torch import nn
 
 from ..device import DeviceLike, device_constant, resolve_device
 from ..ops import relpos_attention as rp
+from ..ops.relpos_attention import relative_terms
 from .layers import Conv, Dense, Generator, LayerNorm, init_weights, lecun_normal_
 from .yolo_head import NUM_ANCHORS, SCALE_ORDER, YOLODetectionHead
 
@@ -93,34 +95,6 @@ def bicubic_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     return device_constant(("bicubic", n_in, n_out), device, lambda: F.interpolate(
         torch.eye(n_in)[None, :, :, None], size=(n_out, 1), mode="bicubic",
         align_corners=False)[0, :, :, 0].T.tolist())
-
-
-def relative_terms(q: torch.Tensor, table_h: torch.Tensor, table_w: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ViTDet's ``rel_h`` and ``rel_w`` for q [N, kh, kw, H, D] (any
-    strides): fp32 [N, kh, kw, H, kh] and [N, kh, kw, H, kw], with
-    ``rel_h[.., y, x, :, ky] = q[.., y, x, :] . table_h[kh - 1 + y - ky]``
-    and ``rel_w`` alike along x.
-
-    One fp32 product of every query with both tables reversed, [N·kh·kw·H,
-    (2kh - 1) + (2kw - 1)]; the two terms are strided views of it (the row
-    a query needs starts kh - 1 - y columns in, so one step in y is one
-    row's length less one column), read by the kernel in place."""
-    n, kh, kw, h, d = q.shape
-    if table_h.shape[0] != 2 * kh - 1 or table_w.shape[0] != 2 * kw - 1:
-        raise ValueError(f"relative position tables of {table_h.shape[0]} and "
-                         f"{table_w.shape[0]} rows do not serve a {kh} x {kw} grid")
-    jh = table_h.shape[0]
-    tables = torch.cat([table_h.flip(0), table_w.flip(0)]).float()
-    proj = q.float().reshape(-1, d) @ tables.T
-    j = proj.shape[1]
-    row = h * j
-    base = proj.storage_offset()
-    rel_h = proj.as_strided((n, kh, kw, h, kh), (kh * kw * row, kw * row - 1, row, j, 1),
-                            base + kh - 1)
-    rel_w = proj.as_strided((n, kh, kw, h, kw), (kh * kw * row, kw * row, row - 1, j, 1),
-                            base + jh + kw - 1)
-    return rel_h, rel_w
 
 
 def window_partition(x: torch.Tensor, window: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
@@ -167,9 +141,13 @@ class RelPosAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, kh, kw, c = x.shape
         q, k, v = self.qkv(x).view(n, kh, kw, 3, self.num_heads, -1).unbind(3)
-        rel_h, rel_w = relative_terms(q, self.rel_pos_h, self.rel_pos_w)
-        attend = rp.relpos_attention_plain if torch.is_grad_enabled() else rp.relpos_attention
-        out = attend(q, k, v, rel_h, rel_w, self.windowed)
+        if q.is_cuda and not torch.is_grad_enabled():
+            out = rp.relpos_attention_tables(q, k, v, self.rel_pos_h, self.rel_pos_w,
+                                             self.windowed)
+        else:
+            rel_h, rel_w = relative_terms(q, self.rel_pos_h, self.rel_pos_w)
+            attend = rp.relpos_attention_plain if torch.is_grad_enabled() else rp.relpos_attention
+            out = attend(q, k, v, rel_h, rel_w, self.windowed)
         return self.proj(out.view(n, kh, kw, c))
 
 

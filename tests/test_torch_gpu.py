@@ -1676,31 +1676,40 @@ def test_group_norm_kernels_stay_off_training_and_cpu_tensors():
 
 def _relpos_inputs(n, side, heads, seed, bias_scale=1.0):
     """q, k, v as views of one qkv map [N, side, side, 3, H, 64] (bf16) and
-    rel_h, rel_w as ``relative_terms`` gives them, from tables of std
-    0.125 x ``bias_scale``, on the card."""
-    from hvs_tpu_torch.models.vitdet import relative_terms
-
+    the two fp32 tables, of std 0.125 x ``bias_scale``, on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(n, side, side, 3, heads, 64, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.unbind(3)
     tables = [torch.randn(2 * side - 1, 64, generator=g, device="cuda") * 0.125 * bias_scale
               for _ in range(2)]
-    return (q, k, v, *relative_terms(q, *tables))
+    return (q, k, v, *tables)
 
 
-def _relpos_plain_in_chunks(q, k, v, rel_h, rel_w, chunk):
-    from hvs_tpu_torch.ops.relpos_attention import relpos_attention_plain
+def _relpos_plain_in_chunks(q, k, v, table_h, table_w, chunk):
+    """The plain chain (``relative_terms``, then ``relpos_attention_plain``)
+    ``chunk`` maps at a time."""
+    from hvs_tpu_torch.ops.relpos_attention import relpos_attention_tables_plain
 
-    return torch.cat([relpos_attention_plain(*(a[i:i + chunk] for a in (q, k, v, rel_h, rel_w)))
+    return torch.cat([relpos_attention_tables_plain(q[i:i + chunk], k[i:i + chunk],
+                                                    v[i:i + chunk], table_h, table_w)
                       for i in range(0, q.shape[0], chunk)])
 
 
 # Kernel against plain, element by element: the kernel rounds the
 # probabilities to bf16 before their product with v (at most 2^-9 of
 # sum p|v| / sum p <= 2^-9 max|v|) and both round the output to bf16 (2^-9
-# of it each); the logits' fp32 sums differ only in order. So every element
-# lies within 2^-7 max|v| of the plain version, the mean within 2^-10.
+# of it each); the logits' fp32 sums (the relative terms' among them) differ
+# only in order. So every element lies within 2^-7 max|v| of the plain
+# version, the mean within 2^-10.
 RELPOS_MAX_ERR, RELPOS_MEAN_ERR = 2.0 ** -7, 2.0 ** -10
+
+
+def _assert_relpos_close(got, want, v):
+    err = (got.float() - want.float()).abs()
+    vmax = v.float().abs().max()
+    assert got.shape == want.shape and got.is_contiguous()
+    assert err.max() <= RELPOS_MAX_ERR * vmax, (err.max(), vmax)
+    assert err.mean() <= RELPOS_MEAN_ERR * vmax, (err.mean(), vmax)
 
 
 @pytest.mark.gpu
@@ -1717,14 +1726,34 @@ def test_relpos_attention_kernel_matches_plain_version(n, side, chunk, bias_scal
     _need_card()
     args = _relpos_inputs(n, side, 12, seed=n + side, bias_scale=bias_scale)
     with torch.no_grad():
-        got = rp.relpos_attention(*args, windowed=side == 14)
+        got = rp.relpos_attention_tables(*args, windowed=side == 14)
         want = _relpos_plain_in_chunks(*args, chunk)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    vmax = args[2].float().abs().max()
-    assert got.shape == want.shape and got.is_contiguous()
-    assert err.max() <= RELPOS_MAX_ERR * vmax, (err.max(), vmax)
-    assert err.mean() <= RELPOS_MEAN_ERR * vmax, (err.mean(), vmax)
+    _assert_relpos_close(got, want, args[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,side,kw,chunk", [(400, 14, 14, 400), (4, 64, 64, 1), (3, 7, 33, 3),
+                                             (2, 64, 5, 2)])
+def test_relpos_attention_terms_alone_match_plain_version(n, side, kw, chunk):
+    """With k = 0 the logits are the relative terms alone, so the kernel's
+    own product of q with the tables decides softmax(rel_h + rel_w) v; tables
+    of std 2 make the terms span ~±30."""
+    from hvs_tpu_torch.ops import relpos_attention as rp
+
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(side * kw)
+    qkv = torch.randn(n, side, kw, 3, 12, 64, generator=g, device="cuda").to(torch.bfloat16)
+    qkv[:, :, :, 1] = 0
+    q, k, v = qkv.unbind(3)
+    tables = [torch.randn(2 * s - 1, 64, generator=g, device="cuda") * 2.0 for s in (side, kw)]
+    with torch.no_grad():
+        got = rp.relpos_attention_tables(q, k, v, *tables, windowed=side == 14)
+        want = _relpos_plain_in_chunks(q, k, v, *tables, chunk)
+        flat = _relpos_plain_in_chunks(q, k, v, *(t * 0 for t in tables), chunk)
+    torch.cuda.synchronize()
+    _assert_relpos_close(got, want, v)
+    assert (got.float() - flat.float()).abs().max() > 8 * RELPOS_MAX_ERR * v.float().abs().max()
 
 
 @pytest.mark.gpu
@@ -1734,30 +1763,42 @@ def test_relpos_attention_without_the_bias_is_far_from_the_kernel():
     from hvs_tpu_torch.ops import relpos_attention as rp
 
     _need_card()
-    q, k, v, rel_h, rel_w = _relpos_inputs(40, 14, 12, seed=5)
+    q, k, v, table_h, table_w = _relpos_inputs(40, 14, 12, seed=5)
     with torch.no_grad():
-        got = rp.relpos_attention(q, k, v, rel_h, rel_w, windowed=True)
-        blind = rp.relpos_attention_plain(q, k, v, rel_h * 0, rel_w * 0)
+        got = rp.relpos_attention_tables(q, k, v, table_h, table_w, windowed=True)
+        blind = _relpos_plain_in_chunks(q, k, v, table_h * 0, table_w * 0, 40)
     assert (got.float() - blind.float()).abs().max() > 8 * RELPOS_MAX_ERR * v.float().abs().max()
 
 
 @pytest.mark.gpu
 def test_relpos_attention_raises_outside_its_contract():
-    """Head width other than 64, fp16, a grid over 64 or a mis-strided k
-    raise instead of falling back."""
+    """Head width other than 64, fp16, a grid over 64, a mis-strided k,
+    tables that do not serve the grid, are not fp32 or not contiguous raise
+    instead of falling back; the operator on materialised terms raises on a
+    CUDA map, naming the tables operator."""
     from hvs_tpu_torch.ops import relpos_attention as rp
 
     _need_card()
-    q, k, v, rel_h, rel_w = _relpos_inputs(2, 14, 2, seed=1)
-    with torch.no_grad(), pytest.raises(TypeError):
-        rp.relpos_attention(q[..., :32], k[..., :32], v[..., :32], rel_h, rel_w, True)
-    with torch.no_grad(), pytest.raises(TypeError):
-        rp.relpos_attention(q.half(), k.half(), v.half(), rel_h, rel_w, True)
-    with torch.no_grad(), pytest.raises(ValueError):
-        rp.relpos_attention(q, k.contiguous(), v, rel_h, rel_w, True)
-    big = _relpos_inputs(1, 65, 1, seed=2)
-    with torch.no_grad(), pytest.raises(ValueError):
-        rp.relpos_attention(*big, windowed=False)
+    q, k, v, table_h, table_w = _relpos_inputs(2, 14, 2, seed=1)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            rp.relpos_attention_tables(q[..., :32], k[..., :32], v[..., :32], table_h, table_w,
+                                       True)
+        with pytest.raises(TypeError):
+            rp.relpos_attention_tables(q.half(), k.half(), v.half(), table_h, table_w, True)
+        with pytest.raises(ValueError):
+            rp.relpos_attention_tables(q, k.contiguous(), v, table_h, table_w, True)
+        with pytest.raises(ValueError):
+            rp.relpos_attention_tables(q, k, v, table_h[:25], table_w, True)
+        with pytest.raises(TypeError):
+            rp.relpos_attention_tables(q, k, v, table_h, table_w.bfloat16(), True)
+        with pytest.raises(ValueError):
+            rp.relpos_attention_tables(q, k, v, table_h, table_w.T.contiguous().T, True)
+        with pytest.raises(RuntimeError, match="relpos_attention_tables"):
+            rp.relpos_attention(q, k, v, *rp.relative_terms(q, table_h, table_w), True)
+        big = _relpos_inputs(1, 65, 1, seed=2)
+        with pytest.raises(ValueError):
+            rp.relpos_attention_tables(*big, windowed=False)
 
 
 def _tiny_card_vitdet(**kw):
@@ -1767,6 +1808,31 @@ def _tiny_card_vitdet(**kw):
                 num_classes=6, sk_iters=5, device="cuda", seed=3)
     opts.update(kw)
     return ViTDetDetector(**opts)
+
+
+@pytest.mark.gpu
+def test_vitdet_b_forward_at_1024_launches_the_kernel_and_makes_no_terms(monkeypatch):
+    """A b16 1024² ViTDet-B forward with autograd off launches 8 window and
+    4 global kernels and never makes the relative terms outside them."""
+    from hvs_tpu_torch.models import vitdet
+    from hvs_tpu_torch.models.constraints import compute_constraints, load_constraints, \
+        param_tree
+    from hvs_tpu_torch.ops import relpos_attention as rp
+
+    _need_card()
+
+    def no_terms(*args):
+        raise AssertionError("relative_terms called on the card's serve path")
+
+    model = vitdet.ViTDetDetector(device="cuda", sk_iters=5, seed=4).eval()
+    load_constraints(model, compute_constraints(param_tree(model), 5))
+    monkeypatch.setattr(vitdet, "relative_terms", no_terms)
+    before = (rp.launches_window, rp.launches_global)
+    with torch.no_grad():
+        out = model(torch.randn(16, 1024, 1024, 3, device="cuda"))
+    torch.cuda.synchronize()
+    assert (rp.launches_window - before[0], rp.launches_global - before[1]) == (8, 4)
+    assert all(bool(torch.isfinite(r.float()).all()) for r in out["detection"]["raw"].values())
 
 
 @pytest.mark.gpu

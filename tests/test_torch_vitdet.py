@@ -1,21 +1,28 @@
-"""The port's ViTDet (``models/vitdet.py``) and its attention operator
+"""The port's ViTDet (``models/vitdet.py``) and its attention operators
 (``ops/relpos_attention.py``) on the CPU, at tiny sizes: the model against
 the benchmark's plain reference (``perfbench/reference/vitdet.py``, written
-from detectron2's description), the operator's CPU version against the
-reference's attention, the operator's registration, the configuration's
-guards, and the engine serving the model on raw frames. The kernel itself
-runs only on a card (``test_torch_gpu.py``)."""
+from detectron2's description), the operators' CPU versions against the
+reference's attention and the plain chain, their registration, flop
+formulas and fake versions (the kernel's contract on fake CUDA tensors), the
+routing of a map by its device, the configuration's guards, and the engine
+serving the model on raw frames. The kernel itself runs only on a card
+(``test_torch_gpu.py``)."""
 
 import json
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
 
 from hvs_tpu_torch.config.inference import InferenceConfig
 from hvs_tpu_torch.config.model import ModelConfig
 from hvs_tpu_torch.inference import InferenceEngine
+from hvs_tpu_torch.models import vitdet
+from hvs_tpu_torch.models.constraints import compute_constraints, load_constraints, param_tree
 from hvs_tpu_torch.models.vitdet import relative_terms, window_partition, window_unpartition
 from hvs_tpu_torch.ops import relpos_attention as rp
 from perfbench.harness import program
@@ -114,6 +121,163 @@ def test_operator_passes_opcheck_and_counts_no_cpu_launch(strided):
     assert (rp.launches_window, rp.launches_global) == before
     assert out.is_contiguous() and out.shape == q.shape
     torch.testing.assert_close(out, rp.relpos_attention_plain(*args), rtol=0, atol=0)
+
+
+def _qkv_tables(n, kh, kw, heads, strided, seed):
+    """q, k, v [n, kh, kw, heads, 64] (views of one qkv map, or contiguous
+    copies) and fp32 tables of 2kh - 1 and 2kw - 1 rows."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = torch.randn(n, kh, kw, 3, heads, 64, generator=g).unbind(3)
+    if not strided:
+        q, k, v = (a.contiguous() for a in (q, k, v))
+    tables = [torch.randn(2 * side - 1, 64, generator=g) * 0.125 for side in (kh, kw)]
+    return q, k, v, *tables
+
+
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("n,kh,kw,heads", [
+    (3, 14, 14, 2),    # windows
+    (1, 64, 64, 1),    # the global grid at 1024²
+    (2, 3, 7, 2),      # ragged grids
+    (1, 5, 1, 3),
+    (2, 1, 9, 1),
+])
+def test_tables_operator_cpu_version_is_the_plain_chain_bit_for_bit(n, kh, kw, heads, strided):
+    q, k, v, table_h, table_w = _qkv_tables(n, kh, kw, heads, strided, seed=n * kh + kw)
+    with torch.no_grad():
+        got = rp.relpos_attention_tables(q, k, v, table_h, table_w, windowed=kh == 14)
+    want = rp.relpos_attention_plain(q, k, v, *relative_terms(q, table_h, table_w))
+    assert got.is_contiguous() and got.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("strided", [True, False])
+def test_tables_operator_passes_opcheck_and_counts_no_cpu_launch(strided):
+    args = _qkv_tables(2, 3, 5, 2, strided, seed=4)
+    torch.library.opcheck(rp.relpos_attention_tables_op, (*args, True))
+    before = (rp.launches_window, rp.launches_global)
+    out = torch.ops.hvs.relpos_attention_tables(*args, False)
+    assert (rp.launches_window, rp.launches_global) == before
+    torch.testing.assert_close(out, rp.relpos_attention_tables_plain(*args), rtol=0, atol=0)
+
+
+def _fake_cuda_args(**change):
+    """The kernel's arguments as fake CUDA tensors (a 14 x 14 grid, 2 heads,
+    q, k, v views of one qkv map), those named in ``change`` replaced."""
+    q, k, v = torch.empty(3, 14, 14, 3, 2, 64, dtype=torch.bfloat16, device="cuda").unbind(3)
+    args = {"q": q, "k": k, "v": v, "table_h": torch.empty(27, 64, device="cuda"),
+            "table_w": torch.empty(27, 64, device="cuda"), **change}
+    return [args[n] for n in ("q", "k", "v", "table_h", "table_w")]
+
+
+def _fake_maps(*shape, dtype=torch.bfloat16):
+    return {n: torch.empty(*shape, dtype=dtype, device="cuda") for n in ("q", "k", "v")}
+
+
+_REFUSED = {
+    "head_width_32": (TypeError, lambda: _fake_cuda_args(**_fake_maps(3, 14, 14, 2, 32))),
+    "fp16_q": (TypeError, lambda: _fake_cuda_args(**_fake_maps(3, 14, 14, 2, 64,
+                                                               dtype=torch.float16))),
+    "k_strided_apart": (ValueError, lambda: _fake_cuda_args(
+        k=torch.empty(3, 14, 14, 2, 64, dtype=torch.bfloat16, device="cuda"))),
+    "grid_over_64": (ValueError, lambda: _fake_cuda_args(**_fake_maps(1, 65, 4, 1, 64))),
+    "table_h_rows_of_another_grid": (ValueError, lambda: _fake_cuda_args(
+        table_h=torch.empty(25, 64, device="cuda"))),
+    "table_w_bf16": (TypeError, lambda: _fake_cuda_args(
+        table_w=torch.empty(27, 64, dtype=torch.bfloat16, device="cuda"))),
+    "table_w_transposed": (ValueError, lambda: _fake_cuda_args(
+        table_w=torch.empty_strided((27, 64), (1, 27), device="cuda"))),
+    "table_h_on_the_cpu": (ValueError, lambda: _fake_cuda_args(table_h=torch.empty(27, 64))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_tables_operator_fake_refuses_what_the_kernel_refuses(case):
+    """On fake CUDA tensors the fake version applies the kernel's contract
+    (addresses aside): what the card refuses, capture and export refuse."""
+    error, make = _REFUSED[case]
+    with FakeTensorMode():
+        out = rp.relpos_attention_tables(*_fake_cuda_args(), True)
+        assert out.shape == (3, 14, 14, 2, 64) and out.is_cuda
+        with pytest.raises(error):
+            rp.relpos_attention_tables(*make(), True)
+
+
+def test_terms_operator_raises_on_a_cuda_map_naming_the_tables_operator():
+    with FakeTensorMode():
+        q, k, v, table_h, table_w = _fake_cuda_args()
+        rel_h = torch.empty(3, 14, 14, 2, 14, device="cuda")
+        with pytest.raises(RuntimeError, match="relpos_attention_tables"):
+            rp.relpos_attention(q, k, v, rel_h, rel_h, True)
+
+
+@pytest.mark.parametrize("n,side,heads", [(400, 14, 12), (16, 64, 12), (2, 5, 3)])
+def test_tables_flop_formula_is_the_plain_chains_count(n, side, heads):
+    """On the meta device the operator counts what ``relative_terms``'
+    product and ``hvs::relpos_attention`` count, so the port's count does not
+    depend on which of the two a map takes."""
+    meta = torch.device("meta")
+    q, k, v = torch.empty(n, side, side, 3, heads, 64, device=meta).unbind(3)
+    tables = [torch.empty(2 * side - 1, 64, device=meta) for _ in range(2)]
+    with FlopCounterMode(display=False) as fused:
+        rp.relpos_attention_tables(q, k, v, *tables, True)
+    with FlopCounterMode(display=False) as chain:
+        rp.relpos_attention(q, k, v, *relative_terms(q, *tables), True)
+    assert fused.get_total_flops() == chain.get_total_flops() > 4 * n * heads * side ** 4 * 64
+
+
+def _forward_before_the_tables_operator(self, x):
+    """``RelPosAttention.forward`` as it was when every map made its terms
+    first: ``relative_terms``, then the plain version with autograd on, or
+    ``hvs::relpos_attention`` with it off."""
+    n, kh, kw, c = x.shape
+    q, k, v = self.qkv(x).view(n, kh, kw, 3, self.num_heads, -1).unbind(3)
+    rel_h, rel_w = relative_terms(q, self.rel_pos_h, self.rel_pos_w)
+    attend = rp.relpos_attention_plain if torch.is_grad_enabled() else rp.relpos_attention
+    return self.proj(attend(q, k, v, rel_h, rel_w, self.windowed).view(n, kh, kw, c))
+
+
+def test_cpu_forward_is_bit_equal_to_the_routing_before_the_tables_operator(monkeypatch):
+    model = _mcfg().build_model(production=True).eval()
+    load_constraints(model, compute_constraints(param_tree(model), 5))
+    x = torch.randn(2, SIZE, SIZE, 3, generator=torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        now = model(x)["detection"]["raw"]
+        monkeypatch.setattr(vitdet.RelPosAttention, "forward", _forward_before_the_tables_operator)
+        before = model(x)["detection"]["raw"]
+    for key in before:
+        torch.testing.assert_close(now[key], before[key], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("device,grad,taken", [
+    ("cuda", False, {"tables": 1, "terms": 0, "attention": 0}),
+    ("cpu", False, {"tables": 0, "terms": 1, "attention": 1}),
+    ("cpu", True, {"tables": 0, "terms": 1, "attention": 0}),
+])
+def test_a_map_routes_by_its_device_and_autograd(device, grad, taken, monkeypatch):
+    """A CUDA map (fake tensors here) with autograd off goes to the tables
+    operator and never makes the terms; a CPU map makes them and attends
+    through ``hvs::relpos_attention``, or with autograd on the plain version.
+    (Autograd on fake CUDA tensors needs a CUDA build: the card test holds
+    that path.)"""
+    calls = dict.fromkeys(taken, 0)
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(rp, "relpos_attention_tables",
+                        counted("tables", rp.relpos_attention_tables))
+    monkeypatch.setattr(rp, "relpos_attention", counted("attention", rp.relpos_attention))
+    monkeypatch.setattr(vitdet, "relative_terms", counted("terms", vitdet.relative_terms))
+    with FakeTensorMode() if device == "cuda" else nullcontext(), torch.device(device):
+        attn = vitdet.RelPosAttention(128, 2, 14, windowed=True).requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            out = attn(torch.zeros(3, 14, 14, 128))
+    assert out.shape == (3, 14, 14, 128) and out.device.type == device
+    assert calls == taken
 
 
 def test_windows_pad_partition_and_crop_back():
